@@ -1,0 +1,54 @@
+"""K2: single-token decode attention on Hopper (``csrc/decode_attention.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
+(``decode_attention``). ``pos`` is a host integer passed as a kernel
+argument (the TPU kernel's scalar prefetch), and the kernel stops at
+``pos`` instead of masking a padded cache. Only CUDA tensors are accepted;
+:func:`repro_torch.kernels.ops.decode_attention` is the wrapper that sends
+CPU tensors to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 16          # query heads per KV head: one warp each
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *,
+                     scale: Optional[float] = None):
+    """q: (B, H, D) one new token's queries; k/v_cache: (B, T, K, D);
+    attends cache slots 0..pos. Returns (B, H, D)."""
+    b, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    if not (q.is_cuda and k_cache.device == q.device
+            and v_cache.device == q.device):
+        raise ValueError("decode_attention needs q and caches on one CUDA "
+                         "device")
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"decode_attention takes f32 or bf16, got "
+                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    if d not in HEAD_DIMS or k_cache.shape != (b, t, kh, d) \
+            or v_cache.shape != k_cache.shape or h % kh \
+            or h // kh > MAX_GROUP:
+        raise ValueError(f"decode_attention shapes q {tuple(q.shape)} "
+                         f"cache {tuple(k_cache.shape)}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("decode_attention needs contiguous caches")
+    q = q.contiguous()
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        err = lib.repro_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), b, t, h, kh, d, _DTYPES[q.dtype], int(pos),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "decode_attention")
+    return out
