@@ -9,13 +9,19 @@ Phases (any failure raises and the process exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (cached
    under ``build/repro_torch_kernels/`` by a hash of the sources);
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, with timings (kernel, plain version, one library
-   call as a yardstick, and the card's least time for the same work);
+   serving paths' shapes, with timings (kernel, plain version, one library
+   call as a yardstick where one exists, and the card's least time for the
+   same work): K1 and K2 at qwen2-0.5b's, K3 at mamba2-2.7b's and at a
+   ragged and a short sequence;
 4. the serving path at full qwen2-0.5b width: a Router with two jobs'
    deployments on node group 0, four alternating batched ``generate``
-   calls, with the kernels' launch counts read around them;
-5. whole-path parity: prefill and teacher-forced decode logits on the card
-   against the same parameters through the plain versions on the CPU.
+   calls, with the kernels' launch counts set to 0 before and read after;
+5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
+   logits on the card against the same parameters through the plain
+   versions on the CPU;
+6. the serving path at full mamba2-2.7b width and depth, as phase 4, on a
+   new Router once the qwen2 one is released;
+7. whole-path parity for mamba2-2.7b, as phase 5, at full depth.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -24,6 +30,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -40,11 +47,20 @@ BF16_FLOP_PER_S = 989e12
 BF16_TOL = 5e-2           # rtol = atol, as tests/test_kernels.py for bf16
 L2_BYTES = 50 * 2 ** 20   # rotate inputs past the L2 cache when timing
 
-# the serving path's shapes (qwen2-0.5b, batch 16, prompt 128, 64 new)
+SSD_Y_TOL, SSD_STATE_TOL = 2e-2, 1e-2   # as tests/test_kernels.py for K3
+
+# the qwen2 serving path's shapes (batch 16, prompt 128, 64 new)
 ARCH = "qwen2-0.5b"
 B, P, N_NEW = 16, 128, 64
 H, KH, D = 14, 2, 64
 LAYERS = 24
+
+# the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
+# heads of width 64, state 128, chunk 256, 64 layers
+SSM_ARCH = "mamba2-2.7b"
+SSM_P = 512
+SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
+SSM_LAYERS = 64
 
 
 def fail(msg: str):
@@ -187,9 +203,78 @@ def kernel_phase(torch, dev):
     return records
 
 
-# ------------------------------------------------ phase 4: serving path
+def ssd_flops(b, s, h, p, n, chunk) -> int:
+    """Operations of the chunk scan, counting each chunk's causal half of
+    the scores: C.B and the scores times x over the pairs j <= i, the
+    carried state's C S, and the state update."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        lc = min(chunk, s - t0)
+        pairs = lc * (lc + 1) // 2
+        total += 2 * pairs * (n + p) + 2 * 2 * lc * n * p
+    return b * h * total
 
-def profile_round(torch, dep, prompts):
+
+def ssd_kernel_phase(torch, dev):
+    """K3 against ref_ssd at the mamba2 prefill shape, a ragged sequence and
+    one shorter than a chunk: bf16 x, B and C as the model passes them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, h, p, n = B, SSM_H, SSM_HD, SSM_N
+
+    def inputs(s):
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        A = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+        Bm = torch.randn((b, s, 1, n), generator=gen, device=dev)
+        Cm = torch.randn((b, s, 1, n), generator=gen, device=dev)
+        return (x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
+                Cm.to(torch.bfloat16))
+
+    print("phase 3: K3 ssd chunk scan vs plain (bf16 x, B, C; f32 dt, A)")
+    errs = []
+    for label, s in (("prefill", SSM_P), ("ragged", 300), ("short", 100)):
+        args = inputs(s)
+        y, st = ops.ssd(*args, chunk=SSM_CHUNK)
+        ye, ste = ref.ref_ssd(*args, chunk=min(SSM_CHUNK, s))
+        y_err = (y.float() - ye.float()).abs().max().item()
+        st_err = (st - ste).abs().max().item()
+        ok = torch.allclose(y.float(), ye.float(), rtol=SSD_Y_TOL,
+                            atol=SSD_Y_TOL) and torch.allclose(
+            st, ste, rtol=SSD_STATE_TOL, atol=SSD_STATE_TOL)
+        print(f"  B={b} S={s} H={h} P={p} N={n} chunk={min(SSM_CHUNK, s)} "
+              f"{label}: y max_abs_err {y_err} (rtol=atol={SSD_Y_TOL}, |y| "
+              f"max {ye.float().abs().max().item()}), state max_abs_err "
+              f"{st_err} (rtol=atol={SSD_STATE_TOL}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"ssd {label} disagrees with its plain version")
+        errs.append(y_err)
+    # x, dt, B, C (and A) read once; y and the f32 final state written once
+    per_call = (2 * b * SSM_P * h * p * 2 + b * SSM_P * h * 4
+                + 2 * b * SSM_P * n * 2 + h * 4 + b * h * p * n * 4)
+    sets = [inputs(SSM_P) for _ in range(n_sets(per_call))]
+    t_kernel = time_ms(torch, lambda *a: ops.ssd(*a, chunk=SSM_CHUNK), sets,
+                       20)
+    t_plain = time_ms(torch, lambda *a: ref.ref_ssd(*a, chunk=SSM_CHUNK),
+                      sets, 4)
+    flops = ssd_flops(b, SSM_P, h, p, n, SSM_CHUNK)
+    t_bound, by = bound(per_call, flops)
+    print(f"  timing B={b} S={SSM_P}: kernel {t_kernel} ms, plain {t_plain} "
+          f"ms, no library call computes an SSD scan, bound {t_bound} ms "
+          f"({by}: {per_call} B, {flops} FLOP)")
+    return {"ssd": dict(
+        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd.py:87", max_abs_err=max(errs),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=by,
+        library_ms=None)}
+
+
+# ------------------------------------------------ phases 4, 6: serving
+
+def profile_round(torch, dep, prompts, n_new):
     """One more generate of the resident job (no context switch) with the
     device traced: the card's busy share and its kernel time by name."""
     from torch.autograd import DeviceType
@@ -197,7 +282,7 @@ def profile_round(torch, dep, prompts):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        dep.generate(prompts, max_new_tokens=N_NEW,
+        dep.generate(prompts, max_new_tokens=n_new,
                      temperature=0.7).wait(timeout=600)
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -211,23 +296,41 @@ def profile_round(torch, dep, prompts):
               f"{e.key[:90]}")
 
 
-def serve_phase(torch, dev, vocab: int):
+def f32_leaves(torch, dep):
+    """Copies of a deployment's f32 parameters, wherever they live now."""
+    from repro_torch.models import common
+    return {k: v.detach().cpu().clone() for k, v in
+            common.canonical_flat(dep.wpg.params()).items()
+            if v.dtype == torch.float32}
+
+
+def serve_phase(torch, dev, phase, arch, prompt_len, want):
+    """Two jobs' deployments of ``arch`` on group 0, four alternating
+    generates. ``want``: the launches each generate must make, per kernel;
+    the counts are set to 0 just before the four rounds and read just
+    after."""
+    from repro_torch.configs import get_config
     from repro_torch.core import api
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
     from repro_torch.rl import data as data_lib
 
-    print(f"phase 4: serving {ARCH} at full width, jobs A and B on group 0")
+    vocab = get_config(arch).vocab_size
+    print(f"phase {phase}: serving {arch} at full width, jobs A and B on "
+          f"group 0 (B={B}, prompt {prompt_len}, {N_NEW} new, temperature "
+          f"0.7)")
     router = Router()                 # the CUDA devices; one card here
     deps = {job: router.deploy(api.DeploymentSpec(
-        deployment_id=f"rollout-{job}", job_id=job, model_name=ARCH,
+        deployment_id=f"rollout-{job}", job_id=job, model_name=arch,
         role="rollout", overrides=()), group_id=0) for job in "AB"}
-    batches = data_lib.MathDataset(seed=0).batches(B, P)
+    batches = data_lib.MathDataset(seed=0).batches(B, prompt_len)
     prompts = [next(batches)[0] for _ in range(4)]
     with router:
         for seed, dep in enumerate(deps.values(), start=1):
             info = dep.init(seed=seed).wait(timeout=600)
-        print(f"  params per deployment: {info['params']}")
+        print(f"  params per deployment: {info['params']}; card memory "
+              f"allocated {torch.cuda.memory_allocated(dev)} B")
+        kept = {job: f32_leaves(torch, dep) for job, dep in deps.items()}
         ops.reset_launches()
         for r, job in enumerate("ABAB"):
             before = dict(ops.LAUNCHES)
@@ -243,15 +346,14 @@ def serve_phase(torch, dev, vocab: int):
                 fail(f"round {r}: token outside the vocab")
             if not bool(torch.isfinite(logps).all()):
                 fail(f"round {r}: non-finite logprobs")
-            if grew != {"flash_attention": LAYERS,
-                        "decode_attention": LAYERS * N_NEW}:
-                fail(f"round {r}: launches {grew}, want {LAYERS} K1 and "
-                     f"{LAYERS * N_NEW} K2")
+            if grew != want:
+                fail(f"round {r}: launches {grew}, want {want}")
             live = int(out["alive"].sum())
             print(f"  round {r} job {job}: {dt * 1e3} ms, {B * N_NEW} tokens "
                   f"({live} live), {B * N_NEW / dt} tok/s, launches {grew}")
         launches = dict(ops.LAUNCHES)
-        profile_round(torch, deps["B"], prompts[0])
+        print(f"  peak card memory {torch.cuda.max_memory_allocated(dev)} B")
+        profile_round(torch, deps["B"], prompts[0], N_NEW)
     switches = router.switch_log
     for s in switches:
         print(f"  switch to {s['to_job']}: offload {s['t_offload']} s, "
@@ -261,14 +363,21 @@ def serve_phase(torch, dev, vocab: int):
     moved = [s for s in switches if s["t_offload"] > 0]
     if len(moved) < 3:
         fail(f"only {len(moved)} context switches offloaded a job")
-    for dep in deps.values():
-        print(f"  exec_log {dep.deployment_id}: {list(dep.wpg.exec_log)}")
+    for job, dep in deps.items():
+        back = f32_leaves(torch, dep)
+        if back.keys() != kept[job].keys() or not all(
+                torch.equal(back[k], v) for k, v in kept[job].items()):
+            fail(f"job {job}: f32 parameters changed across the host tier")
+        print(f"  exec_log {dep.deployment_id}: {list(dep.wpg.exec_log)}; "
+              f"{len(back)} f32 leaves bit-exact after the switches")
     return router, launches
 
 
-# --------------------------------------------- phase 5: whole-path parity
+# ------------------------------------------------ phases 5, 7: parity
 
-def parity_phase(torch, router, dev):
+def parity_phase(torch, router, dev, phase):
+    """Prefill and teacher-forced decode logits on the card against the
+    same parameters through the plain versions on the CPU."""
     from repro_torch.models import common
     from repro_torch.rl import data as data_lib
     from repro_torch.rl.rollout import _pad_cache
@@ -286,11 +395,13 @@ def parity_phase(torch, router, dev):
     # layers (tests/test_torch_model.py), grown with the square root of the
     # depth: independent bf16 roundings per layer add in quadrature
     rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
-    print(f"phase 5: parity card vs CPU plain, B={b} P={p}, {n} "
-          f"teacher-forced decode steps (tolerance {rel_tol} * max|logit|)")
-    logits, caches = {}, {}
+    print(f"phase {phase}: parity card vs CPU plain, {cfg.name} at "
+          f"{cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced decode "
+          f"steps (tolerance {rel_tol} * max|logit|)")
+    logits = {}
     with torch.inference_mode():
         for where, d in runs.items():
+            t0 = time.perf_counter()
             prm = common.tree_map(lambda t: t.to(d), params,
                                   is_leaf=torch.is_tensor)
             lg, _, cache = model.forward(prm, {"tokens": prompt.to(d)},
@@ -302,6 +413,7 @@ def parity_phase(torch, router, dev):
                     prm, cache, {"tokens": forced[:, i:i + 1].to(d)})
                 steps.append(lg.cpu())
             logits[where] = steps
+            print(f"  {where} side: {time.perf_counter() - t0} s")
     worst = 0.0
     for i, (gpu, cpu) in enumerate(zip(logits["card"], logits["cpu"])):
         err = (gpu - cpu).abs().max().item()
@@ -316,16 +428,27 @@ def parity_phase(torch, router, dev):
     return worst
 
 
+def path_launches(records, launches, want):
+    """Write the path's launch counts into the records; fail where a kernel
+    of the path was never launched."""
+    for name, per_round in want.items():
+        if per_round == 0:
+            continue
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on its serving path")
+        records[name]["launches"] = launches[name]
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
-        from repro_torch.configs import get_config
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -337,12 +460,27 @@ def main():
     print(f"phase 2: kernels built in {time.monotonic() - t0} s "
           f"(nvcc {build.build_seconds} s; None = cached)")
     records = kernel_phase(torch, dev)
-    router, launches = serve_phase(torch, dev, get_config(ARCH).vocab_size)
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the serving path")
-        records[name]["launches"] = n
-    parity_phase(torch, router, dev)
+    records.update(ssd_kernel_phase(torch, dev))
+
+    want = {"flash_attention": LAYERS, "decode_attention": LAYERS * N_NEW,
+            "ssd": 0}
+    router, launches = serve_phase(torch, dev, 4, ARCH, P, want)
+    path_launches(records, launches, want)
+    parity_phase(torch, router, dev, 5)
+    # release the qwen2 deployments (device and pinned host memory)
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"  qwen2 router released: card memory allocated "
+          f"{torch.cuda.memory_allocated(dev)} B")
+
+    want = {"flash_attention": 0, "decode_attention": 0, "ssd": SSM_LAYERS}
+    router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want)
+    path_launches(records, launches, want)
+    parity_phase(torch, router, dev, 7)
+    del router
+    print(f"all phases passed in {time.monotonic() - t_start} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

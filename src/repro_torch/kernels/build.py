@@ -32,6 +32,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry: pointers and the stream as c_void_p, so 64-bit
 # addresses are never cut to a 32-bit int
 SIGNATURES = {
@@ -39,6 +40,8 @@ SIGNATURES = {
                                   _F, _I, _I, _F, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
+    "repro_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _L, _L, _L, _I, _I, _P],
     "repro_cuda_error_string": [_I],
 }
 

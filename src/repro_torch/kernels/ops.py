@@ -15,8 +15,10 @@ import torch
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as ssd_k
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0,
+                            "ssd": 0}
 _count_lock = threading.Lock()
 
 
@@ -54,4 +56,16 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
         return ref.ref_decode_attention(q, k_cache, v_cache, pos, scale=scale)
     out = dec.decode_attention(q, k_cache, v_cache, pos, scale=scale)
     _count("decode_attention")
+    return out
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """SSD chunk scan, ngroups == 1. x: (b, s, h, p); dt: (b, s, h) f32;
+    A: (h,) f32; B, C: (b, s, 1, n). Returns (y, final state (b, h, p, n)
+    f32). The chunk is ``min(chunk, s)``, as ``repro.kernels.ops.ssd``."""
+    chunk = min(chunk, x.shape[1])
+    if x.device.type == "cpu":
+        return ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
+    out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    _count("ssd")
     return out

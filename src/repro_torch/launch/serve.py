@@ -8,6 +8,8 @@ future. Runs on the CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --full-width \\
         --batch 16 --prompt-len 128 --max-new 64     # unmodified qwen2-0.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --full-width --batch 16 --prompt-len 512 --max-new 64
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.core.router import Router
 from repro_torch.launch.mesh import DevicePlane
@@ -40,12 +43,16 @@ def main(argv=None):
                          "devices)")
     args = ap.parse_args(argv)
 
+    # a narrow, shallow cut of the config: the ssm family keeps its SSD
+    # head width and state (only d_model, and with it the head count, shrinks)
     overrides = () if args.full_width else (
         ("num_layers", args.layers), ("d_model", args.d_model),
-        ("num_heads", max(4, args.d_model // 64)),
-        ("num_kv_heads", max(2, args.d_model // 128)),
-        ("head_dim", 64), ("d_ff", args.d_model * 4),
         ("vocab_size", 512))
+    if not args.full_width and get_config(args.arch).family != "ssm":
+        overrides += (
+            ("num_heads", max(4, args.d_model // 64)),
+            ("num_kv_heads", max(2, args.d_model // 128)),
+            ("head_dim", 64), ("d_ff", args.d_model * 4))
     plane = DevicePlane(devices=None if args.device is None
                         else [torch.device(args.device)])
     router = Router(device_plane=plane)

@@ -20,7 +20,8 @@ Axes = Tuple[Optional[str], ...]
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Axes                 # logical axis name per dim (None = unsharded)
-    init: str = "normal"       # "normal" | "zeros" | "ones" | "embed"
+    init: str = "normal"       # "normal" | "zeros" | "ones" | "embed" |
+                               # "ssm_a" | "dt_bias"
     dtype: torch.dtype = torch.bfloat16
     scale: float = 1.0         # fan-in style scale multiplier for "normal"
 
@@ -52,15 +53,29 @@ def _init_one(gen: torch.Generator, s: ParamSpec, device) -> torch.Tensor:
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=s.dtype, device=device)
-    if s.init not in ("normal", "embed"):
-        raise NotImplementedError(
-            f"init {s.init!r} belongs to the mamba2 family, not ported yet "
-            "(ROADMAP.md, Queue 1: mamba2 and hybrid)")
+    if s.init == "ssm_a":
+        # A_log init: log of uniform [1, 16) as in mamba2
+        u = torch.rand(s.shape, generator=gen, dtype=torch.float32,
+                       device=device) * 15.0 + 1.0
+        return torch.log(u).to(s.dtype)
+    if s.init == "dt_bias":
+        # inverse-softplus of dt log-uniform in [1e-3, 1e-1]
+        u = torch.rand(s.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(s.dtype)
     # fan-in scaled normal; embeddings use unit scale
     fan_in = s.shape[0] if s.init == "embed" else math.prod(s.shape[:-1]) or 1
     std = s.scale / math.sqrt(fan_in) if s.init != "embed" else s.scale
     x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=device)
     return (x * std).to(s.dtype)
+
+
+def layer_view(tree, i: int):
+    """Layer ``i`` of a stacked tree (leading ``num_layers`` axis), as
+    views."""
+    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 def init_params(gen: torch.Generator, specs, device=None):

@@ -1,4 +1,5 @@
-"""Unified model API: the :class:`Model` facade for the ``dense`` family.
+"""Unified model API: the :class:`Model` facade for the ``dense`` and ``ssm``
+(mamba2) families.
 
     model.forward(params, batch, return_cache=False)
     model.decode_step(params, cache, batch)
@@ -14,11 +15,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import common, transformer
+from repro_torch.models import common, mamba2, transformer
 
-_FAMILY_MODULES = {"dense": transformer}
-_NOT_PORTED = {"moe": "MoE", "ssm": "mamba2 and hybrid",
-               "hybrid": "mamba2 and hybrid", "audio": "whisper and vision",
+_FAMILY_MODULES = {"dense": transformer, "ssm": mamba2}
+_NOT_PORTED = {"moe": "MoE", "hybrid": "hybrid (zamba2)",
+               "audio": "whisper and vision",
                "vlm": "whisper and vision"}
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import spec, stack_specs
+from repro_torch.models.common import layer_view, spec, stack_specs
 from repro_torch.models.layers import (
     apply_norm,
     attn_apply,
@@ -73,11 +73,6 @@ def param_specs(cfg: ModelConfig):
     }
 
 
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 # ----------------------------------------------------------------- forward
 
 def layer_apply(p, cfg: ModelConfig, x, *, positions, cache=None,
@@ -99,7 +94,7 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, kv = layer_apply(_layer(params["layers"], i), cfg, x,
+        x, kv = layer_apply(layer_view(params["layers"], i), cfg, x,
                             positions=positions)
         if return_cache:
             ks.append(kv["k"])
@@ -133,7 +128,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
     for i in range(cfg.num_layers):
-        x, _ = layer_apply(_layer(params["layers"], i), cfg, x,
+        x, _ = layer_apply(layer_view(params["layers"], i), cfg, x,
                            positions=positions,
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
                            cache_pos=pos)

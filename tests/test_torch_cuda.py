@@ -7,7 +7,10 @@ with the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: f32 2e-3, bf16 5e-2 (the kernel keeps probabilities in f32
-where the plain version rounds them to bf16 before the PV product).
+where the plain version rounds them to bf16 before the PV product). K3
+(SSD chunk scan) as tests/test_kernels.py holds the TPU kernel: y at 2e-3
+in f32 and 2e-2 in bf16 (one rounding of y on both sides), the f32 final
+state at 1e-2 in bf16 and 2e-3 in f32.
 """
 import pytest
 import torch
@@ -87,3 +90,82 @@ def test_launch_errors_raise(dev):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, 0], q, q, 1)
+
+
+SSD_TOL = {torch.float32: (dict(rtol=2e-3, atol=2e-3),
+                           dict(rtol=2e-3, atol=2e-3)),
+           torch.bfloat16: (dict(rtol=2e-2, atol=2e-2),
+                            dict(rtol=1e-2, atol=1e-2))}
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype, bc_dtype, dev):
+    x = _randn(gen, (b, s, h, p), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(gen, (b, s, h), torch.float32,
+                                             dev))
+    A = -torch.exp(_randn(gen, (h,), torch.float32, dev))
+    B = _randn(gen, (b, s, 1, n), bc_dtype, dev)
+    C = _randn(gen, (b, s, 1, n), bc_dtype, dev)
+    return x, dt, A, B, C
+
+
+def _check_ssd(x, dt, A, B, C, chunk, dtype):
+    before = ops.LAUNCHES["ssd"]
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd"] == before + 1
+    ye, ste = ref.ref_ssd(x, dt, A, B, C, chunk=min(chunk, x.shape[1]))
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    ytol, stol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), ye.float(), **ytol)
+    torch.testing.assert_close(st, ste, **stol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 512, 4, 64, 128, 256),        # whole chunks
+    (2, 300, 4, 64, 128, 256),        # ragged last chunk
+    (2, 100, 4, 64, 128, 256),        # shorter than one chunk
+    (1, 72, 2, 8, 16, 24),            # p = 8, n = 16
+    (2, 96, 3, 8, 128, 32),
+    (2, 40, 3, 64, 16, 16),
+    (16, 512, 80, 64, 128, 256),      # mamba2-2.7b prefill
+])
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, chunk, dtype):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _check_ssd(*_ssd_inputs(gen, b, s, h, p, n, dtype, dtype, dev), chunk,
+               dtype)
+
+
+def test_ssd_kernel_reads_model_views_and_mixed_dtypes(dev):
+    """x, B, C as the model passes them (views into one conv output), and
+    bf16 x with f32 B, C as tests/test_kernels.py feeds the TPU kernel."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s, h, p, n = 2, 300, 4, 64, 128
+    xbc = _randn(gen, (b, s, h * p + 2 * n), torch.bfloat16, dev)
+    _, dt, A, _, _ = _ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
+                                 torch.bfloat16, dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = xbc[..., h * p + n:].reshape(b, s, 1, n)
+    assert not x.is_contiguous()
+    _check_ssd(x, dt, A, B, C, 256, torch.bfloat16)
+    _check_ssd(x, dt, A, B.float(), C.float(), 256, torch.bfloat16)
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, 64, 2, 64, 128, torch.bfloat16,
+                                 torch.bfloat16, dev)
+    from repro_torch.kernels import ssd as ssd_k
+    with pytest.raises(ValueError, match="f32"):          # dt in bf16
+        ops.ssd(x, dt.bfloat16(), A, B, C)
+    with pytest.raises(ValueError, match="f32"):          # fp16 x
+        ops.ssd(x.half(), dt, A, B, C)
+    with pytest.raises(ValueError, match="CUDA"):         # A on the CPU
+        ops.ssd(x, dt, A.cpu(), B, C)
+    with pytest.raises(ValueError, match="shapes"):       # ngroups = 2
+        ops.ssd(x, dt, A, B.repeat(1, 1, 2, 1), C.repeat(1, 1, 2, 1))
+    with pytest.raises(ValueError, match="shapes"):       # p not a multiple of 4
+        ops.ssd(x[..., :62], dt, A, B, C)
+    with pytest.raises(ValueError, match="shapes"):       # chunk > 256
+        ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=512)

@@ -19,6 +19,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd as tssd
 
 torch.set_num_threads(1)
 
@@ -94,7 +95,10 @@ def test_cpu_wrappers_use_plain_version_and_count_nothing():
     k = torch.randn(1, 16, 2, 64)
     tops.flash_attention(q, k, k)
     tops.decode_attention(q[:, 0], k, k, 5)
-    assert tops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0}
+    tops.ssd(q, torch.rand(1, 16, 4), -torch.rand(4), k[:, :, :1],
+             k[:, :, :1])
+    assert tops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
+                             "ssd": 0}
 
 
 def test_launchers_reject_cpu_tensors_before_building():
@@ -104,6 +108,9 @@ def test_launchers_reject_cpu_tensors_before_building():
         tfa.flash_attention_fwd(q, k, k)
     with pytest.raises(ValueError, match="CUDA"):
         tdec.decode_attention(q[:, 0], k, k, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_chunk_scan(q, torch.rand(1, 16, 4), -torch.rand(4),
+                            k[:, :, :1], k[:, :, :1], chunk=8)
 
 
 def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
@@ -111,7 +118,7 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch, tmp_path):
     cmds = build.compile_commands(tmp_path)
     srcs = build.sources()
     assert {p.name for p in srcs} >= {"flash_attention.cu",
-                                      "decode_attention.cu"}
+                                      "decode_attention.cu", "ssd.cu"}
     assert len(cmds) == len(srcs) + 1            # one nvcc each, then link
     for cmd in cmds:
         assert "arch=compute_90a,code=sm_90a" in cmd

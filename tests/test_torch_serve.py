@@ -201,10 +201,13 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
         "serve.main(['--device', 'cpu', '--batch', '2', '--prompt-len', '8',",
         "            '--max-new', '4', '--layers', '2', '--d-model', '128',",
         "            '--rounds', '2'])",
+        "serve.main(['--device', 'cpu', '--arch', 'mamba2-2.7b', '--batch',",
+        "            '2', '--prompt-len', '8', '--max-new', '4', '--layers',",
+        "            '2', '--d-model', '128', '--rounds', '2'])",
     ])
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
-    assert proc.stdout.count("round ") == 2, proc.stdout
+    assert proc.stdout.count("round ") == 4, proc.stdout
