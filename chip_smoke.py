@@ -7,12 +7,18 @@ Phases (any failure raises and the process exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (cached
-   under ``build/repro_torch_kernels/`` by a hash of the sources);
+   under ``build/repro_torch_kernels/`` by a hash of the sources); print
+   each kernel's registers, shared memory and spills as ptxas reported
+   them, and fail unless the SASS of the bf16 (tensor-core) K1 and K3
+   kernels holds ``HMMA`` instructions and ptxas reports no spills there;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, with timings (kernel, plain version, one library
    call as a yardstick where one exists, and the card's least time for the
    same work): K1 and K2 at qwen2-0.5b's, K3 at mamba2-2.7b's and at a
-   ragged and a short sequence;
+   ragged and a short sequence. ``ms`` times back-to-back calls from
+   Python (the wrapper's host cost included); ``device_ms`` and
+   ``library_device_ms`` time a CUDA graph of the same calls, the card's
+   own time;
 4. the serving path at full qwen2-0.5b width: a Router with two jobs'
    deployments on node group 0, four alternating batched ``generate``
    calls, with the kernels' launch counts set to 0 before and read after;
@@ -93,6 +99,31 @@ def time_ms(torch, fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, arg_sets, reps: int) -> float:
+    """Mean device ms per call: the calls over ``arg_sets`` (rotated past
+    the L2 cache) captured once into a CUDA graph after warm-up, the graph
+    replayed ``reps`` times between two events. No host work is timed."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in arg_sets:
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(arg_sets))
+    del graph
+    return ms
+
+
 def n_sets(bytes_per_call: int) -> int:
     return max(2, math.ceil(2 * L2_BYTES / bytes_per_call))
 
@@ -112,6 +143,52 @@ def check_close(torch, name, out, expect) -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
+
+
+# ------------------------------------------------------ phase 2: build
+
+# the tensor-core kernels (bf16 routes), by the name their symbols carry
+TENSOR_CORE_KERNELS = ("flash_fwd_tc", "ssd_tc")
+
+
+def build_report(build):
+    """ptxas's registers, shared memory and spills for each kernel, and the
+    HMMA instructions in each kernel's SASS; fails unless every
+    tensor-core kernel has HMMA and no spills."""
+    lib_dir = build.build_dir() / build.source_hash()
+    kernel, info = None, {}
+    for line in (lib_dir / "nvcc.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+            info[kernel] = {}
+        elif kernel and "spill stores" in line:
+            info[kernel]["spills"] = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            info[kernel]["used"] = line.split("info    :")[-1].strip()
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_dir / build.LIB_NAME)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    hmma, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            hmma[kernel] = 0
+        elif kernel and "HMMA" in line:
+            hmma[kernel] += 1
+    for name in sorted(info):
+        print(f"  {name}: {info[name].get('used')}; "
+              f"{info[name].get('spills')}; HMMA {hmma.get(name, 0)}")
+    for tag in TENSOR_CORE_KERNELS:
+        names = [k for k in info if tag in k]
+        if not names:
+            fail(f"no {tag} kernel in the build")
+        for name in names:
+            if not hmma.get(name):
+                fail(f"{name} has no HMMA in its SASS")
+            if "0 bytes spill stores, 0 bytes spill loads" not in \
+                    info[name].get("spills", ""):
+                fail(f"{name} spills: {info[name].get('spills')}")
 
 
 # ----------------------------------------------------- phase 3: kernels
@@ -147,25 +224,35 @@ def kernel_phase(torch, dev):
     sets = [(randn(B, P, H, D), randn(B, P, KH, D), randn(B, P, KH, D))
             for _ in range(n_sets(per_call))]
     g = H // KH
-    t_kernel = time_ms(torch, lambda q, k, v: ops.flash_attention(
-        q, k, v, causal=True), sets, 200)
+
+    def kernel(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    t_kernel = time_ms(torch, kernel, sets, 200)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_attention(
         q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2),
         causal=True), sets, 50)
-    t_lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True), sets, 200)
+    t_lib = time_ms(torch, sdpa, sets, 200)
+    d_kernel = device_ms(torch, kernel, sets, 20)
+    d_lib = device_ms(torch, sdpa, sets, 20)
     flops = 4 * B * H * D * P * (P + 1) // 2     # row s sees s + 1 keys
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={B} S={P} causal: kernel {t_kernel} ms, plain "
-          f"{t_plain} ms, sdpa {t_lib} ms, bound {t_bound} ms ({by}: "
-          f"{per_call} B, {flops} FLOP)")
+    print(f"  timing B={B} S={P} causal: kernel {t_kernel} ms (device "
+          f"{d_kernel} ms), plain {t_plain} ms, sdpa {t_lib} ms (device "
+          f"{d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, {flops} "
+          f"FLOP)")
     records["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:88",
-        max_abs_err=max(errs), ms=t_kernel, plain_ms=t_plain,
-        bound_ms=t_bound, bound_by=by, library_ms=t_lib)
+        max_abs_err=max(errs), ms=t_kernel, device_ms=d_kernel,
+        plain_ms=t_plain, bound_ms=t_bound, bound_by=by, library_ms=t_lib,
+        library_device_ms=d_lib)
 
     # K2 decode
     t_cap = P + N_NEW
@@ -182,24 +269,33 @@ def kernel_phase(torch, dev):
     per_call = (2 * B * H * D + 2 * B * (pos + 1) * KH * D) * 2
     sets = [(randn(B, H, D), randn(B, t_cap, KH, D), randn(B, t_cap, KH, D))
             for _ in range(n_sets(per_call))]
-    t_kernel = time_ms(torch, lambda q, k, v: ops.decode_attention(
-        q, k, v, pos), sets, 500)
+    def kernel(q, k, v):
+        return ops.decode_attention(q, k, v, pos)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :pos + 1].transpose(1, 2),
+            v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+
+    t_kernel = time_ms(torch, kernel, sets, 500)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_decode_attention(
         q, k, v, pos), sets, 100)
-    t_lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q[:, :, None], k[:, :pos + 1].transpose(1, 2),
-        v[:, :pos + 1].transpose(1, 2), enable_gqa=True), sets, 500)
+    t_lib = time_ms(torch, sdpa, sets, 500)
+    d_kernel = device_ms(torch, kernel, sets, 50)
+    d_lib = device_ms(torch, sdpa, sets, 50)
     flops = 4 * B * H * D * (pos + 1)
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={B} T={t_cap} pos={pos}: kernel {t_kernel} ms, plain "
-          f"{t_plain} ms, sdpa {t_lib} ms, bound {t_bound} ms ({by}: "
-          f"{per_call} B, {flops} FLOP)")
+    print(f"  timing B={B} T={t_cap} pos={pos}: kernel {t_kernel} ms "
+          f"(device {d_kernel} ms), plain {t_plain} ms, sdpa {t_lib} ms "
+          f"(device {d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, "
+          f"{flops} FLOP)")
     records["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:66",
-        max_abs_err=max(errs), ms=t_kernel, plain_ms=t_plain,
-        bound_ms=t_bound, bound_by=by, library_ms=t_lib)
+        max_abs_err=max(errs), ms=t_kernel, device_ms=d_kernel,
+        plain_ms=t_plain, bound_ms=t_bound, bound_by=by, library_ms=t_lib,
+        library_device_ms=d_lib)
     return records
 
 
@@ -256,20 +352,23 @@ def ssd_kernel_phase(torch, dev):
     per_call = (2 * b * SSM_P * h * p * 2 + b * SSM_P * h * 4
                 + 2 * b * SSM_P * n * 2 + h * 4 + b * h * p * n * 4)
     sets = [inputs(SSM_P) for _ in range(n_sets(per_call))]
-    t_kernel = time_ms(torch, lambda *a: ops.ssd(*a, chunk=SSM_CHUNK), sets,
-                       20)
+    def kernel(*a):
+        return ops.ssd(*a, chunk=SSM_CHUNK)
+
+    t_kernel = time_ms(torch, kernel, sets, 20)
     t_plain = time_ms(torch, lambda *a: ref.ref_ssd(*a, chunk=SSM_CHUNK),
                       sets, 4)
+    d_kernel = device_ms(torch, kernel, sets, 10)
     flops = ssd_flops(b, SSM_P, h, p, n, SSM_CHUNK)
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={b} S={SSM_P}: kernel {t_kernel} ms, plain {t_plain} "
-          f"ms, no library call computes an SSD scan, bound {t_bound} ms "
-          f"({by}: {per_call} B, {flops} FLOP)")
+    print(f"  timing B={b} S={SSM_P}: kernel {t_kernel} ms (device "
+          f"{d_kernel} ms), plain {t_plain} ms, no library call computes an "
+          f"SSD scan, bound {t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
     return {"ssd": dict(
         name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd.py:87", max_abs_err=max(errs),
-        ms=t_kernel, plain_ms=t_plain, bound_ms=t_bound, bound_by=by,
-        library_ms=None)}
+        ms=t_kernel, device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
+        bound_by=by, library_ms=None, library_device_ms=None)}
 
 
 # ------------------------------------------------ phases 4, 6: serving
@@ -459,6 +558,7 @@ def main():
     build.load()
     print(f"phase 2: kernels built in {time.monotonic() - t0} s "
           f"(nvcc {build.build_seconds} s; None = cached)")
+    build_report(build)
     records = kernel_phase(torch, dev)
     records.update(ssd_kernel_phase(torch, dev))
 

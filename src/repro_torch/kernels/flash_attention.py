@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_fwd``). The CUDA kernel indexes the KV head as
 ``h // (H // K)`` and masks the ragged S and T edges by their true lengths,
-so this launcher neither repeats KV nor pads. Only CUDA tensors are
+so this launcher neither repeats KV nor pads. The route follows the dtype
+alone: bf16 q, k, v (the serving path) take the tensor-core kernel
+(``mma.sync`` with P rounded to bf16 before the PV product, as the TPU
+kernel rounds it); f32 takes the CUDA-core kernel. Only CUDA tensors are
 accepted; :func:`repro_torch.kernels.ops.flash_attention` is the wrapper
 that sends CPU tensors to the plain version.
 """

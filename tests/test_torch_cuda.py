@@ -6,8 +6,11 @@ with the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: f32 2e-3, bf16 5e-2 (the kernel keeps probabilities in f32
-where the plain version rounds them to bf16 before the PV product). K3
+Tolerances: f32 2e-3, bf16 5e-2 (bf16 keeps 8 significant bits; the
+bf16 route rounds the unnormalised probabilities to bf16 before the PV
+product where the plain version rounds the normalised ones). Each kernel
+has two routes, chosen by dtype: bf16 on the tensor cores, f32 on the CUDA
+cores; both are tested here. K3
 (SSD chunk scan) as tests/test_kernels.py holds the TPU kernel: y at 2e-3
 in f32 and 2e-2 in bf16 (one rounding of y on both sides), the f32 final
 state at 1e-2 in bf16 and 2e-3 in f32.
@@ -82,6 +85,31 @@ def test_decode_attention_kernel_matches_plain(dev, b, t, h, kh, d, pos,
     torch.testing.assert_close(out.float(),
                                ref.ref_decode_attention(q, kc, vc, pos).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kh,window,softcap", [
+    (4, 4, 0, None),           # g = 1
+    (8, 2, 16, None),          # g = 4, window
+    (14, 2, 0, 30.0),          # g = 7, softcap
+])
+def test_flash_attention_tensor_core_route_at_tile_edges(dev, s, d, h, kh,
+                                                         window, softcap):
+    """The bf16 route at lengths on either side of its 16-row warp and
+    64-key tile edges."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(gen, (2, s, h, d), torch.bfloat16, dev)
+    k = _randn(gen, (2, s, kh, d), torch.bfloat16, dev)
+    v = _randn(gen, (2, s, kh, d), torch.bfloat16, dev)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    g = h // kh
+    expect = ref.ref_attention(q, k.repeat_interleave(g, 2),
+                               v.repeat_interleave(g, 2), **kw)
+    torch.testing.assert_close(out.float(), expect.float(),
+                               **TOL[torch.bfloat16])
 
 
 def test_launch_errors_raise(dev):
@@ -169,3 +197,54 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         ops.ssd(x[..., :62], dt, A, B, C)
     with pytest.raises(ValueError, match="shapes"):       # chunk > 256
         ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=512)
+
+
+@pytest.mark.parametrize("lc", [1, 15, 17, 44, 100, 256])
+def test_ssd_tensor_core_route_at_chunk_lengths(dev, lc):
+    """A whole chunk, then a last chunk of ``lc`` tokens, at P = N = 128
+    (the 8-warp instantiation)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _check_ssd(*_ssd_inputs(gen, 2, 256 + lc, 3, 128, 128, torch.bfloat16,
+                            torch.bfloat16, dev), 256, torch.bfloat16)
+
+
+@pytest.mark.parametrize("p,n", [(64, 128), (128, 128)])
+def test_ssd_tensor_core_route_reads_model_views(dev, p, n):
+    """x, B, C as strided views of one conv output, at the mamba2 widths and
+    at P = N = 128, with a ragged last chunk."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, h = 2, 300, 4
+    xbc = _randn(gen, (b, s, h * p + 2 * n), torch.bfloat16, dev)
+    _, dt, A, _, _ = _ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
+                                 torch.bfloat16, dev)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = xbc[..., h * p + n:].reshape(b, s, 1, n)
+    _check_ssd(x, dt, A, B, C, 256, torch.bfloat16)
+    # a view whose rows are not 16-byte aligned is copied, not refused
+    odd = _randn(gen, (b, s, h * p + 2 * n + 1), torch.bfloat16, dev)[..., 1:]
+    _check_ssd(odd[..., :h * p].reshape(b, s, h, p), dt, A,
+               odd[..., h * p:h * p + n].reshape(b, s, 1, n),
+               odd[..., h * p + n:].reshape(b, s, 1, n), 256, torch.bfloat16)
+
+
+def test_f32_inputs_take_the_cuda_core_route(dev):
+    """f32 inputs go to the CUDA-core kernels and hold 2e-3: at the serving
+    shapes, and for K3 at P = 4, N = 12, widths only that route takes (bf16
+    at those widths is refused)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = _randn(gen, (16, 128, 14, 64), torch.float32, dev)
+    k = _randn(gen, (16, 128, 2, 64), torch.float32, dev)
+    v = _randn(gen, (16, 128, 2, 64), torch.float32, dev)
+    out = ops.flash_attention(q, k, v)
+    expect = ref.ref_attention(q, k.repeat_interleave(7, 2),
+                               v.repeat_interleave(7, 2))
+    torch.testing.assert_close(out, expect, **TOL[torch.float32])
+    _check_ssd(*_ssd_inputs(gen, 2, 300, 4, 64, 128, torch.float32,
+                            torch.float32, dev), 256, torch.float32)
+    args = _ssd_inputs(gen, 2, 100, 3, 4, 12, torch.float32, torch.float32,
+                       dev)
+    _check_ssd(*args, 32, torch.float32)
+    x, dt, A, B, C = args
+    with pytest.raises(ValueError, match="shapes"):
+        ops.ssd(x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16())
