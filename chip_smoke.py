@@ -9,19 +9,22 @@ Phases (any failure raises and the process exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (cached
    under ``build/repro_torch_kernels/`` by a hash of the sources); print
    each kernel's registers, shared memory and spills as ptxas reported
-   them, and fail unless the SASS of the bf16 (tensor-core) K1 and K3
+   them, and fail unless the SASS of the bf16 (tensor-core) K1, K2 and K3
    kernels holds ``HMMA`` instructions and ptxas reports no spills there;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, with timings (kernel, plain version, one library
    call as a yardstick where one exists, and the card's least time for the
-   same work): K1 and K2 at qwen2-0.5b's, K3 at mamba2-2.7b's and at a
-   ragged and a short sequence. ``ms`` times back-to-back calls from
-   Python (the wrapper's host cost included); ``device_ms`` and
-   ``library_device_ms`` time a CUDA graph of the same calls, the card's
-   own time;
+   same work): K1 and K2 at qwen2-0.5b's, K2 also at two long caches
+   (B=16 T=4096 and the single straggler B=1 T=8192, under the record's
+   ``long_context``), K3 at mamba2-2.7b's and at a ragged and a short
+   sequence. ``ms`` times back-to-back calls from Python (the wrapper's
+   host cost included); ``device_ms`` and ``library_device_ms`` time a
+   CUDA graph of the same calls, the card's own time;
 4. the serving path at full qwen2-0.5b width: a Router with two jobs'
    deployments on node group 0, four alternating batched ``generate``
-   calls, with the kernels' launch counts set to 0 before and read after;
+   calls, with the kernels' launch counts set to 0 before and read after,
+   then one more ``generate`` under the profiler (the ten largest device
+   entries and every kernel of the port);
 5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
    logits on the card against the same parameters through the plain
    versions on the CPU;
@@ -60,6 +63,13 @@ ARCH = "qwen2-0.5b"
 B, P, N_NEW = 16, 128, 64
 H, KH, D = 14, 2, 64
 LAYERS = 24
+# K2 at long caches (batch, capacity), timed at the last position: a full
+# batch at 4096 and the RLVR long tail, one straggler at 8192
+DECODE_LONG = ((16, 4096), (1, 8192))
+# K2's queries at 3x unit scale: the softmax over a long cache is then sharp
+# and the outputs O(1); at unit scale they shrink as sqrt(e / T), below the
+# tolerance, where a kernel that lost a split would still pass
+DECODE_Q_SCALE = 3.0
 
 # the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
 # heads of width 64, state 128, chunk 256, 64 layers
@@ -139,7 +149,8 @@ def check_close(torch, name, out, expect) -> float:
     ok = torch.allclose(out.float(), expect.float(), rtol=BF16_TOL,
                         atol=BF16_TOL)
     print(f"  {name}: max_abs_err {err} (bf16 tolerance rtol=atol="
-          f"{BF16_TOL}) {'ok' if ok else 'MISMATCH'}")
+          f"{BF16_TOL}; |expect| max {expect.float().abs().max().item()}) "
+          f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
@@ -148,7 +159,10 @@ def check_close(torch, name, out, expect) -> float:
 # ------------------------------------------------------ phase 2: build
 
 # the tensor-core kernels (bf16 routes), by the name their symbols carry
-TENSOR_CORE_KERNELS = ("flash_fwd_tc", "ssd_tc")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc", "decode_split_tc", "ssd_tc")
+# every kernel of the port, for the profiled rounds
+PORT_KERNELS = TENSOR_CORE_KERNELS + ("flash_fwd_kernel", "decode_kernel",
+                                      "ssd_kernel")
 
 
 def build_report(build):
@@ -254,21 +268,46 @@ def kernel_phase(torch, dev):
         plain_ms=t_plain, bound_ms=t_bound, bound_by=by, library_ms=t_lib,
         library_device_ms=d_lib)
 
-    # K2 decode
+    # K2 decode: the serving shape's check and timing, then two long caches
     t_cap = P + N_NEW
     print("phase 3: K2 decode_attention vs plain (bf16)")
     errs = []
-    q, kc, vc = randn(B, H, D), randn(B, t_cap, KH, D), randn(B, t_cap, KH, D)
+    q, kc, vc = (DECODE_Q_SCALE * randn(B, H, D), randn(B, t_cap, KH, D),
+                 randn(B, t_cap, KH, D))
     for pos in (0, P - 1, t_cap - 1):
         out = ops.decode_attention(q, kc, vc, pos)
         expect = ref.ref_decode_attention(q, kc, vc, pos)
         errs.append(check_close(torch, f"B={B} T={t_cap} H={H} K={KH} D={D} "
                                 f"pos={pos}", out, expect))
-    pos = t_cap - 1                     # the last, longest decode step
+    # the last, longest decode step of the serving path
+    serving = decode_timing(torch, randn, B, t_cap, t_cap - 1, 500)
+    long_rows = [decode_timing(torch, randn, b, t, t - 1, 200)
+                 for b, t in DECODE_LONG]
+    records["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66",
+        max_abs_err=max(errs + [serving.pop("max_abs_err")]), **serving,
+        long_context=long_rows)
+    return records
+
+
+def decode_timing(torch, randn, b, t_cap, pos, iters):
+    """K2 at one shape: checked against its plain version, then timed
+    (kernel, plain, SDPA; host-timed and as a CUDA graph) beside its bound,
+    the caches rotated past the L2 cache."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
     # q read and the output written once; K and V cache rows 0..pos read
-    per_call = (2 * B * H * D + 2 * B * (pos + 1) * KH * D) * 2
-    sets = [(randn(B, H, D), randn(B, t_cap, KH, D), randn(B, t_cap, KH, D))
-            for _ in range(n_sets(per_call))]
+    per_call = (2 * b * H * D + 2 * b * (pos + 1) * KH * D) * 2
+    sets = [(DECODE_Q_SCALE * randn(b, H, D), randn(b, t_cap, KH, D),
+             randn(b, t_cap, KH, D)) for _ in range(n_sets(per_call))]
+    q, kc, vc = sets[0]
+    err = check_close(torch, f"B={b} T={t_cap} H={H} K={KH} D={D} pos={pos}",
+                      ops.decode_attention(q, kc, vc, pos),
+                      ref.ref_decode_attention(q, kc, vc, pos))
+
     def kernel(q, k, v):
         return ops.decode_attention(q, k, v, pos)
 
@@ -277,26 +316,23 @@ def kernel_phase(torch, dev):
             q[:, :, None], k[:, :pos + 1].transpose(1, 2),
             v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
 
-    t_kernel = time_ms(torch, kernel, sets, 500)
+    reps = max(50, 1000 // len(sets))
+    t_kernel = time_ms(torch, kernel, sets, iters)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_decode_attention(
-        q, k, v, pos), sets, 100)
-    t_lib = time_ms(torch, sdpa, sets, 500)
-    d_kernel = device_ms(torch, kernel, sets, 50)
-    d_lib = device_ms(torch, sdpa, sets, 50)
-    flops = 4 * B * H * D * (pos + 1)
+        q, k, v, pos), sets, iters // 5)
+    t_lib = time_ms(torch, sdpa, sets, iters)
+    d_kernel = device_ms(torch, kernel, sets, reps)
+    d_lib = device_ms(torch, sdpa, sets, reps)
+    flops = 4 * b * H * D * (pos + 1)
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={B} T={t_cap} pos={pos}: kernel {t_kernel} ms "
+    print(f"  timing B={b} T={t_cap} pos={pos}: kernel {t_kernel} ms "
           f"(device {d_kernel} ms), plain {t_plain} ms, sdpa {t_lib} ms "
           f"(device {d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, "
           f"{flops} FLOP)")
-    records["decode_attention"] = dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:66",
-        max_abs_err=max(errs), ms=t_kernel, device_ms=d_kernel,
-        plain_ms=t_plain, bound_ms=t_bound, bound_by=by, library_ms=t_lib,
-        library_device_ms=d_lib)
-    return records
+    return dict(shape=f"B={b} T={t_cap} H={H} K={KH} D={D} pos={pos}",
+                max_abs_err=err, ms=t_kernel, device_ms=d_kernel,
+                plain_ms=t_plain, bound_ms=t_bound, bound_by=by,
+                library_ms=t_lib, library_device_ms=d_lib)
 
 
 def ssd_flops(b, s, h, p, n, chunk) -> int:
@@ -390,9 +426,12 @@ def profile_round(torch, dep, prompts, n_new):
     print(f"  profiled round: {wall * 1e3} ms wall, device busy {busy * 1e3} "
           f"ms ({busy / wall} of wall), {sum(e.count for e in events)} "
           f"device events")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3} ms  x{e.count}  "
-              f"{e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the ten largest, then the port's own kernels wherever they rank
+    for i, e in enumerate(ranked):
+        if i < 10 or any(tag in e.key for tag in PORT_KERNELS):
+            print(f"    {e.self_device_time_total / 1e3} ms  x{e.count}  "
+                  f"{e.key[:90]}")
 
 
 def f32_leaves(torch, dep):

@@ -1,4 +1,4 @@
-// Tensor-core building blocks shared by the bf16 routes of K1 and K3:
+// Tensor-core building blocks shared by the bf16 routes of K1, K2 and K3:
 // 16-byte cp.async copies into shared memory (with zero-fill), ldmatrix
 // loads of mma fragments, and mma.sync.m16n8k16 with bf16 operands and f32
 // accumulators.
@@ -116,21 +116,27 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = pack_bf16(x - __bfloat162float(hx), y - __bfloat162float(hy));
 }
 
-// Raise a kernel's dynamic shared-memory limit once per device, at its
-// first launch there; later launches (those captured into a CUDA graph
-// among them) skip the call. ``done`` holds one bit per device ordinal.
-inline cudaError_t set_smem_once(const void* kernel, size_t bytes,
+// Set a kernel attribute once per device, at the kernel's first launch
+// there; later launches (those captured into a CUDA graph among them) skip
+// the call. ``done`` holds one bit per device ordinal.
+inline cudaError_t set_attr_once(const void* kernel, cudaFuncAttribute attr,
+                                 int value,
                                  std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  err = cudaFuncSetAttribute(kernel, attr, value);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
+}
+
+// Raise a kernel's dynamic shared-memory limit once per device.
+inline cudaError_t set_smem_once(const void* kernel, size_t bytes,
+                                 std::atomic<unsigned long long>& done) {
+  return set_attr_once(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(bytes), done);
 }
 
 }  // namespace tc

@@ -9,8 +9,9 @@ with the card:
 Tolerances: f32 2e-3, bf16 5e-2 (bf16 keeps 8 significant bits; the
 bf16 route rounds the unnormalised probabilities to bf16 before the PV
 product where the plain version rounds the normalised ones). Each kernel
-has two routes, chosen by dtype: bf16 on the tensor cores, f32 on the CUDA
-cores; both are tested here. K3
+has two routes, chosen by dtype: bf16 on the tensor cores (K2's split
+across the key axis and combined in a thread-block cluster), f32 on the
+CUDA cores; both are tested here. K3
 (SSD chunk scan) as tests/test_kernels.py holds the TPU kernel: y at 2e-3
 in f32 and 2e-2 in bf16 (one rounding of y on both sides), the f32 final
 state at 1e-2 in bf16 and 2e-3 in f32.
@@ -18,6 +19,7 @@ state at 1e-2 in bf16 and 2e-3 in f32.
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +87,52 @@ def test_decode_attention_kernel_matches_plain(dev, b, t, h, kh, d, pos,
     torch.testing.assert_close(out.float(),
                                ref.ref_decode_attention(q, kc, vc, pos).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 7, 8, 16])
+def test_decode_attention_at_split_edges(dev, g, d, dtype):
+    """pos at 0 (every split but the first empty), on the last key of a
+    split, on the first key of the next and at T - 1; T = 200 is divided by
+    no split count. One launch per call, whatever the splits."""
+    b, kh, t = 2, 2, 200
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _randn(gen, (b, g * kh, d), dtype, dev)
+    kc = _randn(gen, (b, t, kh, d), dtype, dev)
+    vc = _randn(gen, (b, t, kh, d), dtype, dev)
+    splits = tdec.splits_for(b, kh, t, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    span = -(-t // splits)
+    for pos in (0, span - 1, span, t - 1):
+        before = ops.LAUNCHES["decode_attention"]
+        out = ops.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == before + 1
+        assert torch.isfinite(out.float()).all(), pos
+        torch.testing.assert_close(
+            out.float(), ref.ref_decode_attention(q, kc, vc, pos).float(),
+            **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [4096, 8192])
+def test_decode_attention_long_cache_single_sequence(dev, t, d, dtype):
+    """The long-tail straggler: B = 1 over a long cache, 16 splits of the
+    bf16 route in one cluster. q is drawn at 3x unit scale so the softmax
+    is sharp and the outputs are O(1): at unit scale they shrink as
+    sqrt(e / T), below the tolerance, and a lost split would pass."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = (3 * torch.randn((1, 14, d), generator=gen, device=dev)).to(dtype)
+    kc = _randn(gen, (1, t, 2, d), dtype, dev)
+    vc = _randn(gen, (1, t, 2, d), dtype, dev)
+    for pos in (t - 1, t // 2 + 3):
+        out = ops.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), ref.ref_decode_attention(q, kc, vc, pos).float(),
+            **TOL[dtype])
 
 
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])
