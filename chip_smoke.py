@@ -30,7 +30,22 @@ Phases (any failure raises and the process exits non-zero):
    versions on the CPU;
 6. the serving path at full mamba2-2.7b width and depth, as phase 4, on a
    new Router once the qwen2 one is released;
-7. whole-path parity for mamba2-2.7b, as phase 5, at full depth.
+7. whole-path parity for mamba2-2.7b, as phase 5, at full depth;
+8. the GRPO training path at full qwen2-0.5b width and depth, on a new
+   Router once the mamba2 one is released: jobs A and B as
+   ``RLControllerGRPO`` on group 0, two steps each (generate -> pack ->
+   update_actor), submitted round-robin and drained as
+   ``PlexCluster.run(interleave=True)`` does, with each op's seconds and
+   kernel launches, every context switch's seconds and bytes (parameters
+   and f32 AdamW moments), the steps' metrics and the peak card memory;
+   then one ``update_actor`` on a seeded batch with non-zero advantages
+   (the gradient is non-zero, the moments change, the job's tensors are
+   updated in place) and one more under the profiler;
+9. training parity: one ``update_actor`` on the card against the same
+   one on the CPU's plain path, at full width and 4 layers (the tied
+   embedding scaled by 1/64, so the random policy is not one-hot), and
+   K1's autograd Function against plain autograd through the XLA-branch
+   attention at the training shape.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -77,6 +92,15 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_P = 512
 SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
 SSM_LAYERS = 64
+
+
+# the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
+# full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
+TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
+             seq_len=128, steps=2)
+TRAIN_OVERRIDES = ()
+PARITY_LAYERS, PARITY_B, PARITY_S = 4, 4, 128
+TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
 
 
 def fail(msg: str):
@@ -409,16 +433,15 @@ def ssd_kernel_phase(torch, dev):
 
 # ------------------------------------------------ phases 4, 6: serving
 
-def profile_round(torch, dep, prompts, n_new):
-    """One more generate of the resident job (no context switch) with the
+def profile_round(torch, run):
+    """``run()`` once more (the resident job, no context switch) with the
     device traced: the card's busy share and its kernel time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        dep.generate(prompts, max_new_tokens=n_new,
-                     temperature=0.7).wait(timeout=600)
+        run()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
@@ -491,7 +514,9 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
                   f"({live} live), {B * N_NEW / dt} tok/s, launches {grew}")
         launches = dict(ops.LAUNCHES)
         print(f"  peak card memory {torch.cuda.max_memory_allocated(dev)} B")
-        profile_round(torch, deps["B"], prompts[0], N_NEW)
+        profile_round(torch, lambda: deps["B"].generate(
+            prompts[0], max_new_tokens=N_NEW,
+            temperature=0.7).wait(timeout=600))
     switches = router.switch_log
     for s in switches:
         print(f"  switch to {s['to_job']}: offload {s['t_offload']} s, "
@@ -566,6 +591,257 @@ def parity_phase(torch, router, dev, phase):
     return worst
 
 
+# -------------------------------------------- phases 8, 9: training
+
+def seeded_train_batch(forward, b, s, p_len, seed):
+    """A packed GRPO batch (numpy) whose advantages are non-zero:
+    MathDataset prompts, seeded completion tokens in the tokenizer's range,
+    behavior logprobs the deployment's own (``forward``, the FORWARD op)
+    within +-0.05, advantages from a normal."""
+    import numpy as np
+    from repro_torch.rl import data as data_lib
+
+    rng = np.random.default_rng(seed)
+    prompts = next(data_lib.MathDataset(seed=seed).batches(b, p_len))[0]
+    comp = rng.integers(data_lib.EOS + 1, data_lib.VOCAB_MIN,
+                        size=(b, s - p_len))
+    mask = np.zeros((b, s), np.float32)
+    mask[:, p_len:] = 1.0
+    batch = {"tokens": np.concatenate([prompts, comp], 1).astype(np.int32),
+             "behavior_logprobs": np.zeros((b, s), np.float32),
+             "advantages": rng.standard_normal(b).astype(np.float32),
+             "loss_mask": mask}
+    lp = forward(batch).float().cpu().numpy()
+    behave = np.zeros((b, s), np.float32)
+    behave[:, 1:] = lp + rng.uniform(-0.05, 0.05, size=lp.shape)
+    batch["behavior_logprobs"] = behave * mask
+    return batch
+
+
+def counted(wpg, job, log):
+    """Wrap a WPG's ``execute`` to log each op's job, name, seconds (from
+    its exec_log) and the kernel launches it made."""
+    from repro_torch.kernels import ops
+
+    execute = wpg.execute
+
+    def run(qop):
+        before = dict(ops.LAUNCHES)
+        out = execute(qop)
+        log.append((job, qop.op.value, wpg.exec_log[-1][1],
+                    {k: ops.LAUNCHES[k] - before[k] for k in before}))
+        return out
+
+    wpg.execute = run
+
+
+def train_phase(torch, dev, records):
+    """Two GRPO jobs' steps through Router -> HRRS -> WPG at full width,
+    then a seeded update and a profiled one."""
+    from repro_torch.core.controller import (JobConfig, RLControllerGRPO,
+                                             run_interleaved)
+    from repro_torch.core.router import Router
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+
+    n_new = TRAIN["max_new_tokens"]
+    print(f"phase 8: GRPO training {ARCH} at full width and depth, jobs A "
+          f"and B on group 0 ({TRAIN}, overrides {TRAIN_OVERRIDES}), steps "
+          f"submitted round-robin and drained")
+    router = Router()
+    ctls = {job: RLControllerGRPO(JobConfig(
+        job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
+        **TRAIN), router) for seed, job in enumerate("AB", start=1)}
+    log = []
+    for job, c in ctls.items():
+        counted(c.dep.wpg, job, log)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run_interleaved(router, list(ctls.values()))
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    layers = ctls["A"].dep.wpg.cfg.num_layers
+    want = {"init": {"flash_attention": 0, "decode_attention": 0, "ssd": 0},
+            "generate": {"flash_attention": layers,
+                         "decode_attention": layers * n_new, "ssd": 0},
+            "update_actor": {"flash_attention": layers,
+                             "decode_attention": 0, "ssd": 0}}
+    for job, op, sec, grew in log:
+        print(f"  job {job} {op}: {sec} s, launches {grew}")
+        if grew != want[op]:
+            fail(f"job {job} {op}: launches {grew}, want {want[op]}")
+    print(f"  {len(log)} ops in {wall} s; launches {launches}; peak card "
+          f"memory {peak} B")
+    sm = router.state_managers[0]
+    nbytes = {job: sm.job_bytes(c.dep.wpg.job_prefix)
+              for job, c in ctls.items()}
+    for sw in router.switch_log:
+        print(f"  switch to {sw['to_job']}: offload {sw['t_offload']} s "
+              f"{sw['offload_bytes']} B, load {sw['t_load']} s "
+              f"{sw['load_bytes']} B")
+    moved = [sw for sw in router.switch_log if sw["t_offload"] > 0]
+    if len(moved) < 3:
+        fail(f"only {len(moved)} context switches offloaded a job")
+    # both jobs are resident after their inits, so the first switch only
+    # offloads; every later one moves both jobs' whole state
+    for i, sw in enumerate(moved):
+        other = "B" if sw["to_job"] == "A" else "A"
+        load = (0, nbytes[sw["to_job"]]) if i == 0 else \
+            (nbytes[sw["to_job"]],)
+        if sw["offload_bytes"] != nbytes[other] or \
+                sw["load_bytes"] not in load:
+            fail(f"switch to {sw['to_job']} moved {sw['offload_bytes']} / "
+                 f"{sw['load_bytes']} B, the jobs hold {nbytes}")
+    for job, c in ctls.items():
+        if len(c.metrics_log) != TRAIN["steps"]:
+            fail(f"job {job}: {len(c.metrics_log)} steps recorded")
+        for i, (m, r) in enumerate(zip(c.metrics_log, c.reward_log)):
+            print(f"  job {job} step {i}: loss {m['loss']}, grad_norm "
+                  f"{m['grad_norm']}, lr {m['lr']}, mean reward {r}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"job {job} step {i}: non-finite metrics {m}")
+    for k in ("flash_attention", "decode_attention"):
+        records[k]["train_launches"] = dict(
+            total=launches[k], per_generate=want["generate"][k],
+            per_update_actor=want["update_actor"][k])
+
+    # random weights earn no reward, so the steps above had zero
+    # advantages: a seeded batch makes the gradient non-zero
+    dep = ctls["A"].dep
+    wpg = dep.wpg
+
+    def done(fut):
+        router.drain()
+        return fut.result()
+
+    batch = seeded_train_batch(lambda b: done(dep.forward(b)),
+                               TRAIN["batch_size"], TRAIN["seq_len"],
+                               TRAIN["prompt_len"], 3)
+    keys = sm.keys_for(wpg.job_prefix)
+    ptrs = {k: sm.entries[k].ref.data_ptr() for k in keys}
+
+    def mu_sums():
+        return {k: v.abs().sum().item() for k, v in
+                common.canonical_flat(wpg.opt_state().mu).items()}
+
+    mu0 = mu_sums()
+    m = done(dep.update_actor(batch))
+    mu1 = mu_sums()
+    print(f"  seeded update_actor (job A, B={TRAIN['batch_size']} "
+          f"S={TRAIN['seq_len']}): {wpg.exec_log[-1][1]} s, loss "
+          f"{m['loss']}, pg_loss {m['pg_loss']}, kl {m['kl']}, grad_norm "
+          f"{m['grad_norm']}, lr {m['lr']}")
+    still = [k for k in mu1 if mu1[k] == mu0[k]]
+    print(f"  f32 first moments changed in {len(mu1) - len(still)} of "
+          f"{len(mu1)} leaves (unchanged: {still})")
+    if not m["grad_norm"] > 0 or len(still) > 1 or (
+            still and still != ["layers/attn/bk"]):
+        fail("the seeded update did not move the moments")
+    if sm.keys_for(wpg.job_prefix) != keys or any(
+            sm.entries[k].ref.data_ptr() != p for k, p in ptrs.items()):
+        fail("the update replaced the job's tensors")
+    print(f"  {len(keys)} entries kept their tensors across the update")
+    profile_round(torch, lambda: done(dep.update_actor(batch)))
+    return router
+
+
+def train_parity_phase(torch, dev):
+    """One update_actor on the card and on the CPU's plain path from the
+    same parameters and batch, then K1's Function against autograd
+    through the XLA-branch attention at the training shape."""
+    from repro_torch.core import api
+    from repro_torch.core.state_manager import StateManager
+    from repro_torch.core.worker import WorkerProcessGroup
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import xla_attention
+    from repro_torch.launch.mesh import MeshSlice
+    from repro_torch.models import common
+    from repro_torch.train.optimizer import AdamWConfig
+
+    print(f"phase 9: training parity card vs CPU plain, {ARCH} at full "
+          f"width cut to {PARITY_LAYERS} layers (depth only), B={PARITY_B} "
+          f"S={PARITY_S}, AdamW {TRAIN_LR}, tied embedding scaled by 1/64")
+    spec = api.DeploymentSpec(
+        deployment_id="parity-train", job_id="P", model_name=ARCH,
+        role="train", overrides=(("num_layers", PARITY_LAYERS),)
+        + TRAIN_OVERRIDES)
+    adamw = AdamWConfig(**TRAIN_LR)
+    card = WorkerProcessGroup(spec, StateManager(
+        mesh_slice=MeshSlice(0, dev)), adamw_cfg=adamw)
+    cpu = WorkerProcessGroup(spec, StateManager(), adamw_cfg=adamw)
+    # the seeded init's unit-scale tied embedding gives logits near 1e3
+    # (a one-hot policy, mean token logprob about -800), where one bf16
+    # step of a logit is 4 nats and the two sides' logprobs, ratios and kl
+    # part by that much; scaled by 1/64 (exact in bf16) the policy is
+    # spread and a bf16 step of a logit is a few hundredths
+    params = card.model.init_params(
+        torch.Generator(device=dev).manual_seed(3), dev)
+    params["embed"]["embedding"].mul_(1 / 64)
+    for w in (card, cpu):
+        w.execute(api.make_op(spec, api.Op.INIT, params=params))
+    del params
+    batch = seeded_train_batch(
+        lambda b: card.execute(api.make_op(spec, api.Op.FORWARD, b)),
+        PARITY_B, PARITY_S, PARITY_S // 2, 4)
+    out = {}
+    for where, w in (("card", card), ("cpu", cpu)):
+        out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR, batch))
+        print(f"  {where} update_actor: {w.exec_log[-1][1]} s; {out[where]}")
+    worst = 0.0
+    for k in ("loss", "pg_loss", "kl", "grad_norm"):
+        got, want = out["card"][k], out["cpu"][k]
+        tol = 5e-2 * (want if k == "grad_norm" else max(1.0, abs(want)))
+        worst = max(worst, abs(got - want) / tol)
+        print(f"  {k}: card {got}, cpu {want}, |diff| {abs(got - want)}, "
+              f"tolerance {tol}")
+        if not abs(got - want) <= tol:
+            fail(f"training parity {k}: {got} vs {want}")
+    if not out["cpu"]["grad_norm"] > 0:
+        fail("training parity: zero gradient")
+    mu = {w: common.canonical_flat(x.opt_state().mu)
+          for w, x in (("card", card), ("cpu", cpu))}
+    for k, want in mu["cpu"].items():
+        err = (mu["card"][k].cpu() - want).abs().max().item()
+        tol = 5e-2 * want.abs().max().item()
+        worst = max(worst, err / tol if tol else 0.0)
+        if not err <= tol:
+            fail(f"training parity: mu {k} max|diff| {err} > {tol}")
+    print(f"  f32 mu of {len(mu['cpu'])} leaves within 5e-2 * max|mu| "
+          f"(worst |diff| / tolerance over all checks {worst})")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, kh = TRAIN["batch_size"], TRAIN["seq_len"], H, KH
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, ct = randn(b, s, h, D), randn(b, s, kh, D), randn(b, s, kh, D), \
+        randn(b, s, h, D)
+    grads = {}
+    for name, fn in (("function", ops.flash_attention),
+                     ("xla", xla_attention)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = ops.LAUNCHES["flash_attention"]
+        fn(*leaves, causal=True).backward(ct)
+        torch.cuda.synchronize()
+        grew = ops.LAUNCHES["flash_attention"] - before
+        if grew != (1 if name == "function" else 0):
+            fail(f"{name} attention launched K1 {grew} times")
+        grads[name] = [t.grad.float() for t in leaves]
+    for name, got, want in zip("qkv", grads["function"], grads["xla"]):
+        err = (got - want).abs().max().item()
+        tol = 5e-2 * want.abs().max().item()
+        print(f"  d{name} B={b} S={s} H={h} K={kh} D={D}: max|diff| {err}, "
+              f"tolerance {tol}")
+        if not err <= tol:
+            fail(f"K1's Function d{name} disagrees with the XLA branch")
+    print("  K1 launched once by the Function's forward, none by its "
+          "backward")
+
+
 def path_launches(records, launches, want):
     """Write the path's launch counts into the records; fail where a kernel
     of the path was never launched."""
@@ -619,6 +895,16 @@ def main():
     path_launches(records, launches, want)
     parity_phase(torch, router, dev, 7)
     del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  mamba2 router released: card memory allocated "
+          f"{torch.cuda.memory_allocated(dev)} B")
+
+    router = train_phase(torch, dev, records)
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_phase(torch, dev)
     print(f"all phases passed in {time.monotonic() - t_start} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

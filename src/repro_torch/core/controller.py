@@ -1,0 +1,225 @@
+"""RLController: the algorithm side of the decoupling (paper §4.1).
+
+The port of ``repro.core.controller`` for GRPO. A controller holds no model
+state and expresses the RLVR loop purely through the remote service API:
+generate -> (verify, pack) -> update actor. A step is a straight-line
+dataflow chain against the client API: each ``Deployment`` method returns
+a chainable future, ``.then(fn)`` interposes controller-side transforms
+(packing rollouts into train batches, recording metrics), and passing a
+future as the next op's argument is the dependency edge.
+
+Controllers run under the serial ``run()`` loop (submit + ``drain()``),
+``drive()`` against a live ``Router.serve()`` plane, or
+:func:`run_interleaved`, which steps several jobs round-robin on one
+router as ``PlexCluster.run(interleave=True)`` does. ``RLControllerPPO``
+waits for the PPO port, ``PlexCluster`` for the Router's control-plane
+methods (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import api
+from repro_torch.core.router import Router
+from repro_torch.rl import data as data_lib
+from repro_torch.rl import reward as reward_lib
+
+
+@dataclasses.dataclass
+class JobConfig:
+    job_id: str
+    model_name: str
+    batch_size: int = 8
+    group_size: int = 4
+    prompt_len: int = 12
+    max_new_tokens: int = 16
+    seq_len: int = 32
+    steps: int = 4
+    async_staleness: int = 0          # 0 = synchronous; 1 = one-step async
+    seed: int = 0
+    overrides: tuple = ()
+    tenant: str = "default"           # owning tenant
+
+
+class _RLControllerBase:
+    """Shared client-side plumbing: one train deployment, the synthetic
+    verifiable-math pipeline, rollout packing, and the two driver loops.
+    Subclasses implement :meth:`submit_step` as a dataflow chain."""
+
+    role_suffix = "train"
+
+    def __init__(self, cfg: JobConfig, router: Router, group_id: int = 0):
+        self.cfg = cfg
+        self.router = router
+        self.dataset = data_lib.MathDataset(seed=cfg.seed)
+        self.batches = self.dataset.batches(cfg.batch_size, cfg.prompt_len,
+                                            cfg.group_size)
+        self.train_dep = api.DeploymentSpec(
+            deployment_id=f"{cfg.job_id}-{self.role_suffix}",
+            job_id=cfg.job_id,
+            model_name=cfg.model_name, role="train",
+            overrides=cfg.overrides)
+        # rollout reuses the train deployment in this colocated runtime
+        self.dep: api.Deployment = router.deploy(self.train_dep,
+                                                 group_id=group_id)
+        self.metrics_log: List[dict] = []
+        self.reward_log: List[float] = []
+        self.steps_completed = 0
+        self._step_idx = 0
+        # step index -> tail future of that step's weight update (the
+        # one-step-async gate: a pure-ordering `after=` edge, no payload)
+        self._updates: Dict[int, api.Future] = {}
+
+    # ------------------------------------------------------------ pieces
+    def submit_init(self) -> api.Future:
+        return self.dep.init(self.cfg.seed, exec_estimate=1.0)
+
+    def _pack(self, prompts, answers, gen_result) -> Dict[str, torch.Tensor]:
+        """Verify and pack a rollout into a GRPO batch of CPU tensors (the
+        WPG moves it to its device)."""
+        toks = torch.as_tensor(gen_result["tokens"]).cpu().numpy()
+        logps = torch.as_tensor(gen_result["logprobs"]).cpu().numpy()
+        texts = [data_lib.decode(t) for t in toks]
+        rewards = reward_lib.batch_rewards(texts, answers)
+        self.reward_log.append(float(rewards.mean()))
+        batch = data_lib.pack_rollout_batch(
+            np.asarray(prompts), toks, logps, rewards,
+            self.cfg.group_size, self.cfg.seq_len)
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def _gate(self) -> tuple:
+        """One-step-async staleness gate (§6.3): generation of step k waits
+        on the update of step k-1-s, expressed as an `after=` future."""
+        gate_idx = self._step_idx - 1 - self.cfg.async_staleness
+        # entries older than the gate are dead: prune so a long-running
+        # serviceized job holds at most staleness+2 update futures
+        for k in [k for k in self._updates if k < gate_idx]:
+            del self._updates[k]
+        if gate_idx >= 0 and gate_idx in self._updates:
+            return (self._updates[gate_idx],)
+        return ()
+
+    def _record_metrics(self, metrics: dict) -> dict:
+        self.metrics_log.append(metrics)
+        return metrics
+
+    # ----------------------------------------------------------- the loop
+    def submit_step(self, gen_estimate: float = 1.0,
+                    train_estimate: float = 1.0) -> List[api.Future]:
+        raise NotImplementedError
+
+    def run(self):
+        """Synchronous convenience loop (drives the router inline)."""
+        init_f = self.submit_init()
+        self.router.drain()
+        init_f.result()
+        tails: List[api.Future] = []
+        if self.cfg.async_staleness:
+            # pipeline: keep `staleness+1` steps in flight
+            for _ in range(self.cfg.steps):
+                tails += self.submit_step()
+                self.router.step(max_ops=2)
+            self.router.drain()
+        else:
+            for _ in range(self.cfg.steps):
+                tails += self.submit_step()
+                self.router.drain()
+        for f in tails:
+            f.result()          # a lost step is loud, not silently skipped
+        self.steps_completed = self.cfg.steps
+        return {"rewards": self.reward_log, "metrics": self.metrics_log}
+
+    def drive(self, stop: Optional[threading.Event] = None,
+              step_hook: Optional[Callable[[], None]] = None,
+              step_timeout: float = 300.0):
+        """Self-driving client loop against a live ``Router.serve()`` plane.
+
+        Blocking; meant to run on the job's own client thread. Keeps
+        ``async_staleness + 1`` steps in flight and waits on each step's
+        tail future. ``stop`` detaches cooperatively: no new steps are
+        submitted, and errors from operations the teardown poisoned are
+        treated as a clean exit rather than failures."""
+        try:
+            if self.steps_completed == 0:
+                self.submit_init().wait(timeout=step_timeout)
+            inflight: collections.deque = collections.deque()
+            for _ in range(self.cfg.steps - self.steps_completed):
+                if stop is not None and stop.is_set():
+                    break
+                inflight.append(self.submit_step())
+                while len(inflight) > self.cfg.async_staleness:
+                    self._finish_step(inflight.popleft(), step_timeout,
+                                      step_hook)
+            while inflight:
+                self._finish_step(inflight.popleft(), step_timeout,
+                                  step_hook)
+        except Exception:
+            if stop is not None and stop.is_set():
+                return          # detached mid-flight: poisons are expected
+            raise
+
+    def _finish_step(self, tails: List[api.Future], timeout: float,
+                     step_hook: Optional[Callable[[], None]]):
+        for f in tails:
+            f.wait(timeout=timeout)
+        self.steps_completed += 1
+        if step_hook is not None:
+            step_hook()
+
+
+class RLControllerGRPO(_RLControllerBase):
+    """One GRPO RLVR job written against the dataflow client API."""
+
+    def submit_step(self, gen_estimate: float = 1.0,
+                    train_estimate: float = 1.0) -> List[api.Future]:
+        """Issue one RLVR step's operation chain (non-blocking).
+
+        generate -> pack (controller-side) -> update_actor, as straight-line
+        dataflow: the packed batch future is update_actor's argument, so its
+        prerequisite edge and value splice are automatic. With
+        ``async_staleness = s > 0`` generation is gated only on the update
+        of step k-1-s (§6.3); the importance-sampling correction in GRPO
+        absorbs the stale policy.
+        """
+        cfg = self.cfg
+        prompts, problems = next(self.batches)
+        answers = [p.answer for p in problems]
+
+        gen_f = self.dep.generate(prompts, max_new_tokens=cfg.max_new_tokens,
+                                  exec_estimate=gen_estimate,
+                                  after=self._gate())
+        batch_f = gen_f.then(
+            lambda res: self._pack(prompts, answers, res))
+        upd_f = self.dep.update_actor(batch_f, exec_estimate=train_estimate)
+        self._updates[self._step_idx] = upd_f
+        metrics_f = upd_f.then(self._record_metrics)
+        self._step_idx += 1
+        return [metrics_f]
+
+
+def run_interleaved(router: Router,
+                    controllers: Sequence[_RLControllerBase]) -> None:
+    """Run every job to completion on ``router`` as
+    ``PlexCluster.run(interleave=True)`` drives them (``cluster.py:308-365``,
+    without its billing and placement director): each job's init, a drain,
+    then rounds of one ``submit_step`` per unfinished job and a drain. A
+    failed step raises."""
+    tails = [c.submit_init() for c in controllers if c.steps_completed == 0]
+    router.drain()
+    remaining = {id(c): c.cfg.steps - c.steps_completed for c in controllers}
+    while any(n > 0 for n in remaining.values()):
+        for c in controllers:
+            if remaining[id(c)] > 0:
+                tails += c.submit_step()
+                remaining[id(c)] -= 1
+        router.drain()
+    for f in tails:
+        f.result()
+    for c in controllers:
+        c.steps_completed = c.cfg.steps

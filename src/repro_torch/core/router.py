@@ -137,6 +137,7 @@ class Router:
                         and (w := self.wpgs.get(d)) is not None
                         and w.spec.job_id != qop.job_id]
         resident = [w for w in resident if w.resident()]
+        moved = dict(sm.bytes_moved)
         t_off = 0.0
         for w in resident:
             t_off += w.offload()
@@ -145,7 +146,10 @@ class Router:
             with self.executor.cv:
                 self.switch_log.append({
                     "t": self.now(), "group": group_id, "to_job": qop.job_id,
-                    "t_offload": t_off, "t_load": t_load})
+                    "t_offload": t_off, "t_load": t_load,
+                    "offload_bytes": sm.bytes_moved["offload"]
+                    - moved["offload"],
+                    "load_bytes": sm.bytes_moved["load"] - moved["load"]})
         # feed measured setup costs back into HRRS
         nbytes = sm.job_bytes(target_wpg.job_prefix)
         self.executor.set_setup_costs(group_id,

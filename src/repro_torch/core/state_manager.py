@@ -11,9 +11,14 @@ per-direction bandwidth EWMAs; HRRS reads its C_setup estimates from
 ``load_time_estimate`` / ``offload_time_estimate``. A CUDA copy returns
 before its bytes have moved, so both transfers synchronize the device
 before they read the clock: otherwise the times would be the enqueue, not
-the copy. The DISK tier, capacity eviction, migration, weight sync and the
-host optimizer step of ``repro.core.state_manager`` are not ported yet
-(ROADMAP.md, Queue 1).
+the copy; ``bytes_moved`` counts what each direction moved.
+
+Updates are in place (:meth:`write`): the reference re-registers a new
+tree after every step, which here would allocate the pinned host buffers
+of a train deployment (its parameters and f32 AdamW moments) again at its
+next offload. Weight sync (:meth:`sync_weights`) therefore returns a copy.
+The DISK tier, capacity eviction, migration and the host optimizer step of
+``repro.core.state_manager`` are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ class StateManager:
         self.mesh_slice = mesh_slice
         self.entries: Dict[str, Entry] = {}
         self._bw_estimate: Dict[str, float] = {}   # bytes/s per direction
+        self.bytes_moved: Dict[str, int] = {"offload": 0, "load": 0}
 
     @property
     def device(self) -> torch.device:
@@ -65,6 +71,7 @@ class StateManager:
             torch.cuda.synchronize(self.device)
 
     def _record(self, direction: str, nbytes: int, dt: float):
+        self.bytes_moved[direction] += nbytes
         if dt > 0 and nbytes > 0:
             bw = nbytes / dt
             old = self._bw_estimate.get(direction)
@@ -90,6 +97,19 @@ class StateManager:
                     nbytes=leaf.numel() * leaf.element_size(), ref=leaf)
             keys.append(key)
         return keys
+
+    def write(self, job_id: str, tree, prefix: str = "params") -> None:
+        """Copy ``tree``'s values into the job's registered tensors, in
+        place. Each key must be registered, resident on the device and of
+        the same shape and dtype."""
+        for sub, leaf in common.canonical_flat(tree).items():
+            e = self.entries[f"{job_id}/{prefix}/{sub}"]
+            if e.tier != Tier.DEVICE or e.ref.shape != leaf.shape \
+                    or e.ref.dtype != leaf.dtype:
+                raise ValueError(
+                    f"{e.key}: cannot write {tuple(leaf.shape)} {leaf.dtype} "
+                    f"into {e.tier.name} {tuple(e.ref.shape)} {e.ref.dtype}")
+            e.ref.copy_(leaf)
 
     def keys_for(self, job_id: str, prefix: Optional[str] = None) -> List[str]:
         pre = f"{job_id}/" + (f"{prefix}/" if prefix else "")
@@ -169,3 +189,12 @@ class StateManager:
         flat = {k[len(pre):]: e.ref for k, e in self.entries.items()
                 if k.startswith(pre)}
         return common.canonical_unflatten(template, flat)
+
+    def sync_weights(self, job_id: str, template, device,
+                     prefix: str = "params"):
+        """Weight synchronisation to a rollout deployment: a copy of the
+        job's tree on ``device``, so the source's in-place updates never
+        reach it."""
+        return common.tree_map(
+            lambda t: t.to(device, copy=True),
+            self.gather(job_id, template, prefix))

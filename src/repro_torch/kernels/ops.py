@@ -4,6 +4,13 @@ A tensor on the CPU goes to :mod:`repro_torch.kernels.ref`; a CUDA tensor
 goes to the hand-written kernel, or the launcher raises (there is no
 fallback). Each wrapper counts its kernel launches in :data:`LAUNCHES`, so
 a run can show that its path went through the kernels.
+
+:func:`flash_attention` is a ``torch.autograd.Function`` on both devices:
+its forward is K1 (or the plain version on the CPU), its backward
+recomputes :func:`repro_torch.kernels.flash_attention.xla_attention` and
+differentiates it, as the JAX package differentiates its XLA attention.
+K3 has no backward: :func:`ssd` refuses a CUDA input that needs a
+gradient rather than hand autograd an output without one.
 """
 from __future__ import annotations
 
@@ -33,20 +40,38 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; backward through the XLA attention's autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        if q.device.type == "cpu":
+            g = q.shape[2] // k.shape[2]
+            return ref.ref_attention(
+                q, torch.repeat_interleave(k, g, dim=2),
+                torch.repeat_interleave(v, g, dim=2), **ctx.opts)
+        out = fa.flash_attention_fwd(q, k, v, **ctx.opts)
+        _count("flash_attention")
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = fa.xla_attention(*leaves, **ctx.opts)
+        grads = torch.autograd.grad(out, leaves, dout)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None):
-    """q: (B,S,H,D); k,v: (B,T,K,D) with K | H. Returns (B,S,H,D)."""
-    if q.device.type == "cpu":
-        g = q.shape[2] // k.shape[2]
-        return ref.ref_attention(
-            q, torch.repeat_interleave(k, g, dim=2),
-            torch.repeat_interleave(v, g, dim=2), causal=causal,
-            window=window, softcap=softcap, scale=scale)
-    out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale)
-    _count("flash_attention")
-    return out
+    """q: (B,S,H,D); k,v: (B,T,K,D) with K | H. Returns (B,S,H,D),
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
@@ -66,6 +91,11 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
     chunk = min(chunk, x.shape[1])
     if x.device.type == "cpu":
         return ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "K3 has no backward: training mamba2 on the card is not ported "
+            "yet (ROADMAP.md, Queue 1: mamba2 training)")
     out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
     _count("ssd")
     return out

@@ -71,11 +71,15 @@ def _init_one(gen: torch.Generator, s: ParamSpec, device) -> torch.Tensor:
     return (x * std).to(s.dtype)
 
 
-def layer_view(tree, i: int):
-    """Layer ``i`` of a stacked tree (leading ``num_layers`` axis), as
-    views."""
-    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def unstack(tree):
+    """The per-layer trees of a stacked tree (leading ``num_layers`` axis),
+    as views: one ``unbind`` per leaf, whose backward stacks the layers'
+    gradients in one op (``leaf[i]`` per layer would give each layer's
+    gradient as a zero-filled full-size tensor, summed over the layers)."""
+    parts = {k: torch.unbind(v) for k, v in canonical_flat(tree).items()}
+    n = len(next(iter(parts.values())))
+    return [canonical_unflatten(tree, {k: p[i] for k, p in parts.items()})
+            for i in range(n)]
 
 
 def init_params(gen: torch.Generator, specs, device=None):

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.flash_attention import xla_attention
 from repro_torch.models.common import spec
 
 # ------------------------------------------------------------------- norms
@@ -96,32 +96,11 @@ def _project_qkv(p, cfg: ModelConfig, x):
 def attention_core(q, k, v, *, causal: bool, window: int,
                    softcap: Optional[float], scale: float):
     """Prefill attention, positions from 0. q: (B, S, H, D); k, v:
-    (B, T, K, D). Routes to K1 on the card, to its plain version on the
-    CPU (the JAX ``attn_impl`` switch has no XLA branch to choose here)."""
+    (B, T, K, D). K1 on the card, its plain version on the CPU, under an
+    autograd Function whose backward is that of the JAX package's XLA
+    branch (``kernels/ops.py``), the branch ``grpo.py`` differentiates."""
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 softcap=softcap, scale=scale)
-
-
-def _masked_attention(q, k, v, *, q_positions, kv_mask, causal: bool,
-                      window: int, softcap: Optional[float], scale: float):
-    """Plain GQA attention against a cache with explicit positions (the CPU
-    path for a multi-token cache write). k, v: (B, T, K, D)."""
-    g = q.shape[2] // k.shape[2]
-    k = torch.repeat_interleave(k, g, dim=2)
-    v = torch.repeat_interleave(v, g, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    if softcap is not None:
-        scores = softcap * torch.tanh(scores / softcap)
-    kp = torch.arange(k.shape[1], device=q.device)[None, None, :]
-    qp = q_positions[:, :, None]
-    mask = kv_mask[None, None, :].expand(qp.shape[0], qp.shape[1], -1)
-    if causal:
-        mask = mask & (kp <= qp)
-    if window:
-        mask = mask & (kp > qp - window)
-    scores = torch.where(mask[:, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
 
 
 def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
@@ -158,10 +137,9 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
         else:
             kv_mask = torch.arange(ck.shape[1], device=x.device) \
                 <= cache_pos + s - 1
-            out = _masked_attention(q, ck, cv, q_positions=positions,
-                                    kv_mask=kv_mask, causal=causal,
-                                    window=window, softcap=softcap,
-                                    scale=scale)
+            out = xla_attention(q, ck, cv, q_positions=positions,
+                                kv_mask=kv_mask, causal=causal,
+                                window=window, softcap=softcap, scale=scale)
     else:
         kv_out = {"k": k, "v": v}
         out = attention_core(q, k, v, causal=causal, window=window,

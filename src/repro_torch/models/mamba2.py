@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import layer_view, spec, stack_specs
+from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
     apply_norm,
     embed_apply,
@@ -203,9 +203,8 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
                                      cfg.ssm_head_dim, cfg.ssm_state),
                                     dtype=torch.float32, device=x.device),
                  "pos": s}
-    for i in range(cfg.num_layers):
-        x, st = block_apply(layer_view(params["layers"], i), cfg, x,
-                            return_state=return_cache)
+    for i, layer in enumerate(unstack(params["layers"])):
+        x, st = block_apply(layer, cfg, x, return_state=return_cache)
         if return_cache:
             cache["conv"][i] = st["conv"]
             cache["ssm"][i] = st["ssm"]
@@ -234,8 +233,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     """One decode step. tokens: (B, 1); cache conv/ssm updated in place.
     Returns (logits, cache with pos + 1)."""
     x = embed_apply(params["embed"], cfg, tokens)
-    for i in range(cfg.num_layers):
-        x, _ = block_apply(layer_view(params["layers"], i), cfg, x,
+    for i, layer in enumerate(unstack(params["layers"])):
+        x, _ = block_apply(layer, cfg, x,
                            cache={"conv": cache["conv"][i],
                                   "ssm": cache["ssm"][i]})
     x = apply_norm(params["ln_f"], x, cfg)

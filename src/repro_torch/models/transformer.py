@@ -3,7 +3,7 @@
 Full-sequence forward (prefill, optionally building the KV cache) and
 single-token decode against it. Parameters keep the JAX package's stacked
 layout: every ``layers/...`` tensor has a leading ``num_layers`` axis, and
-layer ``i`` reads views ``[i]`` of it. The cache is
+layer ``i`` reads the ``i``-th view of its ``unbind``. The cache is
 ``{"k", "v": (L, B, T, K, D), "pos": int}``; ``pos`` stays a host int so
 the decode loop never reads a device scalar back.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import layer_view, spec, stack_specs
+from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
     apply_norm,
     attn_apply,
@@ -93,9 +93,8 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, kv = layer_apply(layer_view(params["layers"], i), cfg, x,
-                            positions=positions)
+    for layer in unstack(params["layers"]):
+        x, kv = layer_apply(layer, cfg, x, positions=positions)
         if return_cache:
             ks.append(kv["k"])
             vs.append(kv["v"])
@@ -127,9 +126,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
-    for i in range(cfg.num_layers):
-        x, _ = layer_apply(layer_view(params["layers"], i), cfg, x,
-                           positions=positions,
+    for i, layer in enumerate(unstack(params["layers"])):
+        x, _ = layer_apply(layer, cfg, x, positions=positions,
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
                            cache_pos=pos)
     x = apply_norm(params["ln_f"], x, cfg)

@@ -1,1 +1,2 @@
-"""RLVR substrate in PyTorch: rollout and the synthetic math data pipeline."""
+"""RLVR substrate in PyTorch: rollout, the synthetic math data pipeline,
+rewards and the GRPO objective."""

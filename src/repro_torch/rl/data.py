@@ -11,6 +11,9 @@ import dataclasses
 from typing import Iterator, List, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.rl.grpo import group_relative_advantages
 
 # char-level tokenizer: reserve 0=pad, 1=bos, 2=eos
 _CHARS = "0123456789+-*() =?"
@@ -77,3 +80,31 @@ class MathDataset:
                 tokens[i, :len(ids)] = ids
             yield tokens, probs
 
+
+
+def pack_rollout_batch(prompt_tokens: np.ndarray, completions: np.ndarray,
+                       logprobs: np.ndarray, rewards: np.ndarray,
+                       group_size: int, seq_len: int):
+    """Assemble the GRPO train batch from rollout artifacts (numpy).
+
+    prompt_tokens: (B, P); completions: (B, C); logprobs: (B, C) behavior
+    logprobs of completion tokens; rewards: (B,).
+    """
+    b, p_len = prompt_tokens.shape
+    c_len = completions.shape[1]
+    tokens = np.full((b, seq_len), PAD, dtype=np.int32)
+    behave = np.zeros((b, seq_len), dtype=np.float32)
+    mask = np.zeros((b, seq_len), dtype=np.float32)
+    n = min(seq_len, p_len + c_len)
+    tokens[:, :p_len] = prompt_tokens
+    tokens[:, p_len:n] = completions[:, :n - p_len]
+    behave[:, p_len:n] = logprobs[:, :n - p_len]
+    mask[:, p_len:n] = 1.0
+    adv = group_relative_advantages(
+        torch.from_numpy(np.asarray(rewards, np.float32)), group_size).numpy()
+    return {
+        "tokens": tokens,
+        "behavior_logprobs": behave,
+        "advantages": adv,
+        "loss_mask": mask,
+    }

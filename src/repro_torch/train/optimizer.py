@@ -1,0 +1,98 @@
+"""AdamW over the model's parameter trees (port of
+``repro.train.optimizer``, ``:23-97``).
+
+The step keeps the reference's semantics exactly: the learning rate comes
+from the step count BEFORE the update (linear warmup), the bias
+corrections from the count after it; gradients are clipped by their
+global norm (squares summed in f32); parameters update in f32 and are cast
+back to their dtype, the moments kept in ``moment_dtype``. The ZeRO
+moment-spec helpers wait for the sharding port (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models import common
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-5
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    warmup_steps: int = 10
+    # moments dtype: f32 is the safe default; bf16 halves optimizer memory
+    moment_dtype: torch.dtype = torch.float32
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor           # 0-d int32, on the parameters' device
+    mu: Any
+    nu: Any
+
+
+def init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
+    flat = common.canonical_flat(params)
+    device = next(iter(flat.values())).device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        mu=common.tree_map(zeros, params),
+        nu=common.tree_map(zeros, params),
+    )
+
+
+def _schedule(cfg: AdamWConfig, step):
+    warm = torch.clamp((step + 1) / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+def global_norm(tree):
+    leaves = [torch.sum(torch.square(g.float()))
+              for g in common.canonical_flat(tree).values()]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfig()):
+    """One AdamW step. Returns (new_params, new_state, metrics); the inputs
+    are not modified."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
+        if cfg.grad_clip else 1.0
+    step = state.step + 1
+    lr = _schedule(cfg, state.step)
+    c1 = 1.0 - cfg.b1 ** step.float()
+    c2 = 1.0 - cfg.b2 ** step.float()
+
+    def upd(g, m, v, p):
+        g = g.float() * scale
+        m32, v32 = m.float(), v.float()
+        m_new = cfg.b1 * m32 + (1 - cfg.b1) * g
+        v_new = cfg.b2 * v32 + (1 - cfg.b2) * torch.square(g)
+        mhat = m_new / c1
+        vhat = v_new / c2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * delta
+        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+    flat = [common.canonical_flat(t)
+            for t in (grads, state.mu, state.nu, params)]
+    out = {k: upd(*(f[k] for f in flat)) for k in flat[3]}
+
+    def tree(i):
+        return common.canonical_unflatten(
+            params, {k: t[i] for k, t in out.items()})
+
+    return tree(0), AdamWState(step, tree(1), tree(2)), {
+        "grad_norm": gnorm, "lr": lr}

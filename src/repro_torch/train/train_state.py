@@ -1,0 +1,27 @@
+"""TrainState: parameters, AdamW state and step (port of
+``repro.train.train_state``; its partition specs wait for the sharding
+port, ROADMAP.md Queue 1)."""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models.registry import Model
+from repro_torch.train import optimizer as opt
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: opt.AdamWState
+    step: torch.Tensor
+
+
+def init(model: Model, gen: torch.Generator,
+         adamw: opt.AdamWConfig = opt.AdamWConfig(),
+         device=None) -> TrainState:
+    """Seeded params from ``gen`` (which lives on ``device``), zero
+    moments."""
+    params = model.init_params(gen, device)
+    return TrainState(params=params, opt_state=opt.init(params, adamw),
+                      step=torch.zeros((), dtype=torch.int32, device=device))

@@ -296,3 +296,49 @@ def test_f32_inputs_take_the_cuda_core_route(dev):
     x, dt, A, B, C = args
     with pytest.raises(ValueError, match="shapes"):
         ops.ssd(x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16())
+
+
+@pytest.mark.parametrize("b,s,h,kh", [
+    (16, 128, 14, 2),                                  # the training shape
+    (2, 200, 14, 2),                                   # g = 7, ragged S
+])
+def test_flash_attention_function_grads_match_xla_attention(dev, b, s, h,
+                                                            kh):
+    """K1 under its autograd Function: the output (one K1 launch) and the
+    q, k, v gradients against plain autograd through the XLA-branch
+    attention, within 5e-2 * max|expect| (bf16)."""
+    from repro_torch.kernels.flash_attention import xla_attention
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _randn(gen, (b, s, h, 64), torch.bfloat16, dev)
+    k = _randn(gen, (b, s, kh, 64), torch.bfloat16, dev)
+    v = _randn(gen, (b, s, kh, 64), torch.bfloat16, dev)
+    ct = _randn(gen, (b, s, h, 64), torch.bfloat16, dev)
+    grads, outs = [], []
+    for fn in (ops.flash_attention, xla_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = ops.LAUNCHES["flash_attention"]
+        out = fn(*leaves, causal=True)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["flash_attention"] - before
+        assert launched == (1 if fn is ops.flash_attention else 0)
+        assert out.grad_fn is not None
+        out.backward(ct)
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in leaves])
+    for got, want in [*zip(*grads), tuple(outs)]:
+        bound = 5e-2 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= bound
+
+
+def test_ssd_refuses_a_gradient_on_the_card(dev):
+    """K3 has no backward: under grad, an input that needs one raises
+    rather than hand autograd an output without a grad_fn; without grad
+    (the serving path) it runs."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, 64, 2, 64, 128, torch.bfloat16,
+                                 torch.bfloat16, dev)
+    with pytest.raises(NotImplementedError, match="mamba2 training"):
+        ops.ssd(x.requires_grad_(), dt, A, B, C)
+    with torch.no_grad():
+        y, _ = ops.ssd(x, dt, A, B, C)
+    assert y.grad_fn is None

@@ -178,10 +178,17 @@ def test_unported_ops_raise_naming_the_roadmap():
     router = Router(device_plane=DevicePlane(devices=[torch.device("cpu")]))
     dep = router.deploy(_spec(api, "A"), group_id=0)
     dep.init(seed=0)
-    fut = dep.call(api.Op.UPDATE_ACTOR, {})
+    futs = {"PPO": [dep.forward({}, output="values"),
+                    dep.forward_backward({}, objective="ppo"),
+                    dep.optim_step({}, host=True)],
+            "checkpoints": [dep.save_checkpoint("ckpt"),
+                            dep.load_checkpoint("ckpt")]}
     router.drain()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*training"):
-        fut.wait(timeout=1)
+    for item, fs in futs.items():
+        for fut in fs:
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP.md.*{item}"):
+                fut.wait(timeout=1)
 
 
 def test_port_imports_and_serves_without_jax_or_reference_package():
@@ -211,3 +218,50 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
     assert proc.stdout.count("round ") == 4, proc.stdout
+
+
+def test_port_trains_two_grpo_jobs_without_jax_or_reference_package():
+    """Every module imports with ``jax`` and ``repro`` blocked; two GRPO
+    jobs then take two interleaved steps each on one CPU group, and the
+    context switches move each job's AdamW state with its parameters."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        "import importlib, math, pkgutil, torch",
+        "torch.set_num_threads(1)",
+        "import repro_torch",
+        "for m in pkgutil.walk_packages(repro_torch.__path__,",
+        "                               'repro_torch.'):",
+        "    importlib.import_module(m.name)",
+        "from repro_torch.core.controller import (JobConfig,",
+        "    RLControllerGRPO, run_interleaved)",
+        "from repro_torch.core.router import Router",
+        "from repro_torch.launch.mesh import DevicePlane",
+        f"tiny = {OVERRIDES!r}",
+        "router = Router(device_plane=DevicePlane(devices=['cpu']))",
+        "ctls = [RLControllerGRPO(JobConfig(",
+        "    job_id=j, model_name='qwen2-0.5b', batch_size=4, group_size=2,",
+        "    prompt_len=12, max_new_tokens=4, seq_len=16, steps=2, seed=s,",
+        "    overrides=tiny), router)",
+        "    for s, j in enumerate('AB', 1)]",
+        "run_interleaved(router, ctls)",
+        "sm = router.state_managers[0]",
+        "for c in ctls:",
+        "    pre = c.dep.wpg.job_prefix",
+        "    assert len(c.metrics_log) == 2, c.metrics_log",
+        "    assert all(math.isfinite(m['loss']) for m in c.metrics_log)",
+        "    opt = sum(sm.entries[k].nbytes for k in sm.keys_for(pre, 'opt'))",
+        "    assert opt > 2 * sum(sm.entries[k].nbytes",
+        "                         for k in sm.keys_for(pre, 'params'))",
+        "    moved = [s for s in router.switch_log",
+        "             if s['to_job'] != c.cfg.job_id and s['t_offload'] > 0]",
+        "    assert moved and all(s['offload_bytes'] == sm.job_bytes(pre)",
+        "                         for s in moved), (moved, sm.job_bytes(pre))",
+        "print('switches', len(router.switch_log))",
+    ])
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "switches" in proc.stdout
