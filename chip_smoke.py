@@ -11,15 +11,20 @@ Phases (any failure raises and the process exits non-zero):
    each kernel's registers, shared memory and spills as ptxas reported
    them, and fail unless the SASS of the bf16 (tensor-core) K1, K2 and K3
    kernels holds ``HMMA`` instructions and ptxas reports no spills there;
+   print how many clusters of K2's bf16 route stay resident at each head
+   dim (64, 112, 128) for 1 split and for the most, and fail at 0;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, with timings (kernel, plain version, one library
    call as a yardstick where one exists, and the card's least time for the
    same work): K1 and K2 at qwen2-0.5b's, K2 also at two long caches
    (B=16 T=4096 and the single straggler B=1 T=8192, under the record's
    ``long_context``), K3 at mamba2-2.7b's and at a ragged and a short
-   sequence. ``ms`` times back-to-back calls from Python (the wrapper's
-   host cost included); ``device_ms`` and ``library_device_ms`` time a
-   CUDA graph of the same calls, the card's own time;
+   sequence; then K1, K2 and K3 at zamba2-7b's shapes (under each record's
+   ``zamba2``: head_dim 112, MHA; state 64), K1's and K2's queries at 3x
+   unit scale (``Q_SCALE``). ``ms`` times back-to-back
+   calls from Python (the wrapper's host cost included); ``device_ms`` and
+   ``library_device_ms`` time a CUDA graph of the same calls, the card's
+   own time;
 4. the serving path at full qwen2-0.5b width: a Router with two jobs'
    deployments on node group 0, four alternating batched ``generate``
    calls, with the kernels' launch counts set to 0 before and read after,
@@ -45,7 +50,14 @@ Phases (any failure raises and the process exits non-zero):
    one on the CPU's plain path, at full width and 4 layers (the tied
    embedding scaled by 1/64, so the random policy is not one-hot), and
    K1's autograd Function against plain autograd through the XLA-branch
-   attention at the training shape.
+   attention at the training shape;
+10. the serving path at full zamba2-7b width and depth (81 blocks: K3 in
+    each of the 70 Mamba2 blocks' prefill, K1 in each of the 11
+    applications of the shared attention block, K2 in each application's
+    decode), as phase 6, once every earlier router and the pinned host
+    buffers they held are released;
+11. whole-path parity for zamba2-7b, as phase 5, at full width cut to 15
+    blocks (2 applications, 1 trailing block) for the CPU side.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -81,10 +93,11 @@ LAYERS = 24
 # K2 at long caches (batch, capacity), timed at the last position: a full
 # batch at 4096 and the RLVR long tail, one straggler at 8192
 DECODE_LONG = ((16, 4096), (1, 8192))
-# K2's queries at 3x unit scale: the softmax over a long cache is then sharp
-# and the outputs O(1); at unit scale they shrink as sqrt(e / T), below the
-# tolerance, where a kernel that lost a split would still pass
-DECODE_Q_SCALE = 3.0
+# K1's and K2's queries at 3x unit scale: the softmax over many keys is then
+# sharp and the outputs O(1); at unit scale a row over T keys shrinks as
+# sqrt(e / T), below the tolerance, where a kernel that lost a split, a key
+# chunk or a k-step would still pass
+Q_SCALE = 3.0
 
 # the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
 # heads of width 64, state 128, chunk 256, 64 layers
@@ -92,6 +105,17 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_P = 512
 SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
 SSM_LAYERS = 64
+
+# the zamba2 serving path's shapes (batch 16, prompt 512, 64 new): 81 blocks,
+# 11 applications of the shared attention block (32 heads of width 112,
+# MHA) and 70 Mamba2 blocks (112 SSD heads of width 64, state 64, chunk 256);
+# its parity phase cuts depth to 15 blocks (2 applications, 1 trailing block)
+HYB_ARCH = "zamba2-7b"
+HYB_P = 512
+HYB_H, HYB_D = 32, 112
+HYB_SSM_H, HYB_SSM_N = 112, 64
+HYB_APPS, HYB_MAMBA = 11, 70
+HYB_PARITY_LAYERS = 15
 
 
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
@@ -229,10 +253,24 @@ def build_report(build):
                 fail(f"{name} spills: {info[name].get('spills')}")
 
 
+def cluster_report():
+    """K2's bf16 route at each head dim: how many clusters of 1 split (the
+    zamba2 decode's) and of the most splits stay resident at once; fails
+    where none would."""
+    from repro_torch.kernels import decode_attention as dec
+
+    for d in dec.HEAD_DIMS:
+        counts = {n: dec.max_active_clusters(d, n)
+                  for n in (1, dec.MAX_SPLITS)}
+        print(f"  decode_split_tc<{d}>: resident clusters by split count "
+              f"{counts}")
+        if not all(counts.values()):
+            fail(f"decode_split_tc<{d}>: a cluster cannot be resident")
+
+
 # ----------------------------------------------------- phase 3: kernels
 
 def kernel_phase(torch, dev):
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -251,17 +289,77 @@ def kernel_phase(torch, dev):
               dict(causal=True, softcap=50.0, scale=0.125)),
              ("ragged S=200", 200, dict(causal=True))]
     for label, s, kw in cases:
-        q, k, v = randn(B, s, H, D), randn(B, s, KH, D), randn(B, s, KH, D)
+        q, k, v = (Q_SCALE * randn(B, s, H, D), randn(B, s, KH, D),
+                   randn(B, s, KH, D))
         out = ops.flash_attention(q, k, v, **kw)
         expect = ref.ref_attention(q, k.repeat_interleave(H // KH, 2),
                                    v.repeat_interleave(H // KH, 2), **kw)
         errs.append(check_close(torch, f"B={B} S={s} H={H} K={KH} D={D} "
                                 f"{label}", out, expect))
+    timing = flash_timing(torch, randn, B, P, H, KH, D)
+    timing.pop("shape")
+    records["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:88",
+        max_abs_err=max(errs + [timing.pop("max_abs_err")]), **timing)
+
+    # K2 decode: the serving shape's check and timing, then two long caches
+    t_cap = P + N_NEW
+    print("phase 3: K2 decode_attention vs plain (bf16)")
+    errs = []
+    q, kc, vc = (Q_SCALE * randn(B, H, D), randn(B, t_cap, KH, D),
+                 randn(B, t_cap, KH, D))
+    for pos in (0, P - 1, t_cap - 1):
+        out = ops.decode_attention(q, kc, vc, pos)
+        expect = ref.ref_decode_attention(q, kc, vc, pos)
+        errs.append(check_close(torch, f"B={B} T={t_cap} H={H} K={KH} D={D} "
+                                f"pos={pos}", out, expect))
+    # the last, longest decode step of the serving path
+    serving = decode_timing(torch, randn, B, t_cap, t_cap - 1, 500)
+    serving.pop("shape")
+    long_rows = [decode_timing(torch, randn, b, t, t - 1, 200)
+                 for b, t in DECODE_LONG]
+    records["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66",
+        max_abs_err=max(errs + [serving.pop("max_abs_err")]), **serving,
+        long_context=long_rows)
+
+    # zamba2's shared attention block: K1 at its prefill, K2 at the last
+    # step of its decode (MHA, head_dim 112)
+    print("phase 3: K1 and K2 at zamba2's shapes (bf16, MHA, D=112)")
+    t_cap = HYB_P + N_NEW
+    records["flash_attention"]["zamba2"] = flash_timing(
+        torch, randn, B, HYB_P, HYB_H, HYB_H, HYB_D, iters=50)
+    records["decode_attention"]["zamba2"] = decode_timing(
+        torch, randn, B, t_cap, t_cap - 1, 200, HYB_H, HYB_H, HYB_D)
+    for name in ("flash_attention", "decode_attention"):
+        rec = records[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 rec["zamba2"]["max_abs_err"])
+    return records
+
+
+def flash_timing(torch, randn, b, s, h, kh, d, iters=200):
+    """K1 causal at one shape: checked against its plain version, then
+    timed (kernel, plain, SDPA; host-timed and as a CUDA graph) beside its
+    bound, the inputs rotated past the L2 cache."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    g = h // kh
     # q, k, v read once and the output written once, bf16
-    per_call = (2 * B * P * H * D + 2 * B * P * KH * D) * 2
-    sets = [(randn(B, P, H, D), randn(B, P, KH, D), randn(B, P, KH, D))
-            for _ in range(n_sets(per_call))]
-    g = H // KH
+    per_call = (2 * b * s * h * d + 2 * b * s * kh * d) * 2
+    sets = [(Q_SCALE * randn(b, s, h, d), randn(b, s, kh, d),
+             randn(b, s, kh, d)) for _ in range(n_sets(per_call))]
+    q, k, v = sets[0]
+    shape = f"B={b} S=T={s} H={h} K={kh} D={d} causal"
+    err = check_close(torch, shape, ops.flash_attention(q, k, v, causal=True),
+                      ref.ref_attention(q, k.repeat_interleave(g, 2),
+                                        v.repeat_interleave(g, 2),
+                                        causal=True))
 
     def kernel(q, k, v):
         return ops.flash_attention(q, k, v, causal=True)
@@ -271,52 +369,24 @@ def kernel_phase(torch, dev):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
-    t_kernel = time_ms(torch, kernel, sets, 200)
+    t_kernel = time_ms(torch, kernel, sets, iters)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_attention(
         q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2),
-        causal=True), sets, 50)
-    t_lib = time_ms(torch, sdpa, sets, 200)
+        causal=True), sets, max(4, iters // 4))
+    t_lib = time_ms(torch, sdpa, sets, iters)
     d_kernel = device_ms(torch, kernel, sets, 20)
     d_lib = device_ms(torch, sdpa, sets, 20)
-    flops = 4 * B * H * D * P * (P + 1) // 2     # row s sees s + 1 keys
+    flops = 4 * b * h * d * s * (s + 1) // 2     # row i sees i + 1 keys
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={B} S={P} causal: kernel {t_kernel} ms (device "
-          f"{d_kernel} ms), plain {t_plain} ms, sdpa {t_lib} ms (device "
-          f"{d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, {flops} "
-          f"FLOP)")
-    records["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:88",
-        max_abs_err=max(errs), ms=t_kernel, device_ms=d_kernel,
-        plain_ms=t_plain, bound_ms=t_bound, bound_by=by, library_ms=t_lib,
-        library_device_ms=d_lib)
-
-    # K2 decode: the serving shape's check and timing, then two long caches
-    t_cap = P + N_NEW
-    print("phase 3: K2 decode_attention vs plain (bf16)")
-    errs = []
-    q, kc, vc = (DECODE_Q_SCALE * randn(B, H, D), randn(B, t_cap, KH, D),
-                 randn(B, t_cap, KH, D))
-    for pos in (0, P - 1, t_cap - 1):
-        out = ops.decode_attention(q, kc, vc, pos)
-        expect = ref.ref_decode_attention(q, kc, vc, pos)
-        errs.append(check_close(torch, f"B={B} T={t_cap} H={H} K={KH} D={D} "
-                                f"pos={pos}", out, expect))
-    # the last, longest decode step of the serving path
-    serving = decode_timing(torch, randn, B, t_cap, t_cap - 1, 500)
-    long_rows = [decode_timing(torch, randn, b, t, t - 1, 200)
-                 for b, t in DECODE_LONG]
-    records["decode_attention"] = dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:66",
-        max_abs_err=max(errs + [serving.pop("max_abs_err")]), **serving,
-        long_context=long_rows)
-    return records
+    print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
+          f"plain {t_plain} ms, sdpa {t_lib} ms (device {d_lib} ms), bound "
+          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+    return dict(shape=shape, max_abs_err=err, ms=t_kernel,
+                device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
+                bound_by=by, library_ms=t_lib, library_device_ms=d_lib)
 
 
-def decode_timing(torch, randn, b, t_cap, pos, iters):
+def decode_timing(torch, randn, b, t_cap, pos, iters, h=H, kh=KH, d=D):
     """K2 at one shape: checked against its plain version, then timed
     (kernel, plain, SDPA; host-timed and as a CUDA graph) beside its bound,
     the caches rotated past the L2 cache."""
@@ -324,12 +394,12 @@ def decode_timing(torch, randn, b, t_cap, pos, iters):
     from repro_torch.kernels import ops, ref
 
     # q read and the output written once; K and V cache rows 0..pos read
-    per_call = (2 * b * H * D + 2 * b * (pos + 1) * KH * D) * 2
-    sets = [(DECODE_Q_SCALE * randn(b, H, D), randn(b, t_cap, KH, D),
-             randn(b, t_cap, KH, D)) for _ in range(n_sets(per_call))]
+    per_call = (2 * b * h * d + 2 * b * (pos + 1) * kh * d) * 2
+    sets = [(Q_SCALE * randn(b, h, d), randn(b, t_cap, kh, d),
+             randn(b, t_cap, kh, d)) for _ in range(n_sets(per_call))]
     q, kc, vc = sets[0]
-    err = check_close(torch, f"B={b} T={t_cap} H={H} K={KH} D={D} pos={pos}",
-                      ops.decode_attention(q, kc, vc, pos),
+    shape = f"B={b} T={t_cap} H={h} K={kh} D={d} pos={pos}"
+    err = check_close(torch, shape, ops.decode_attention(q, kc, vc, pos),
                       ref.ref_decode_attention(q, kc, vc, pos))
 
     def kernel(q, k, v):
@@ -347,14 +417,12 @@ def decode_timing(torch, randn, b, t_cap, pos, iters):
     t_lib = time_ms(torch, sdpa, sets, iters)
     d_kernel = device_ms(torch, kernel, sets, reps)
     d_lib = device_ms(torch, sdpa, sets, reps)
-    flops = 4 * b * H * D * (pos + 1)
+    flops = 4 * b * h * d * (pos + 1)
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={b} T={t_cap} pos={pos}: kernel {t_kernel} ms "
-          f"(device {d_kernel} ms), plain {t_plain} ms, sdpa {t_lib} ms "
-          f"(device {d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, "
-          f"{flops} FLOP)")
-    return dict(shape=f"B={b} T={t_cap} H={H} K={KH} D={D} pos={pos}",
-                max_abs_err=err, ms=t_kernel, device_ms=d_kernel,
+    print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
+          f"plain {t_plain} ms, sdpa {t_lib} ms (device {d_lib} ms), bound "
+          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+    return dict(shape=shape, max_abs_err=err, ms=t_kernel, device_ms=d_kernel,
                 plain_ms=t_plain, bound_ms=t_bound, bound_by=by,
                 library_ms=t_lib, library_device_ms=d_lib)
 
@@ -373,12 +441,31 @@ def ssd_flops(b, s, h, p, n, chunk) -> int:
 
 def ssd_kernel_phase(torch, dev):
     """K3 against ref_ssd at the mamba2 prefill shape, a ragged sequence and
-    one shorter than a chunk: bf16 x, B and C as the model passes them."""
+    one shorter than a chunk, then at zamba2's prefill shape (state 64):
+    bf16 x, B and C as the model passes them."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    print("phase 3: K3 ssd chunk scan vs plain (bf16 x, B, C; f32 dt, A)")
+    rec = ssd_timing(torch, gen, dev, SSM_H, SSM_N,
+                     (("prefill", SSM_P), ("ragged", 300), ("short", 100)))
+    rec.pop("shape")
+    print("phase 3: K3 at zamba2's shape (112 heads, state 64)")
+    zamba = ssd_timing(torch, gen, dev, HYB_SSM_H, HYB_SSM_N,
+                       (("prefill", HYB_P),))
+    return {"ssd": dict(
+        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd.py:87",
+        max_abs_err=max(rec.pop("max_abs_err"), zamba["max_abs_err"]), **rec,
+        zamba2=zamba)}
+
+
+def ssd_timing(torch, gen, dev, h, n, cases):
+    """K3 with ``h`` heads of width SSM_HD and state ``n``: checked against
+    ref_ssd at each (label, sequence length) of ``cases``, then timed at
+    the first one beside its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b, h, p, n = B, SSM_H, SSM_HD, SSM_N
+    b, p = B, SSM_HD
 
     def inputs(s):
         x = torch.randn((b, s, h, p), generator=gen, device=dev)
@@ -389,9 +476,8 @@ def ssd_kernel_phase(torch, dev):
         return (x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
                 Cm.to(torch.bfloat16))
 
-    print("phase 3: K3 ssd chunk scan vs plain (bf16 x, B, C; f32 dt, A)")
     errs = []
-    for label, s in (("prefill", SSM_P), ("ragged", 300), ("short", 100)):
+    for label, s in cases:
         args = inputs(s)
         y, st = ops.ssd(*args, chunk=SSM_CHUNK)
         ye, ste = ref.ref_ssd(*args, chunk=min(SSM_CHUNK, s))
@@ -406,12 +492,15 @@ def ssd_kernel_phase(torch, dev):
               f"{st_err} (rtol=atol={SSD_STATE_TOL}) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"ssd {label} disagrees with its plain version")
+            fail(f"ssd {label} at H={h} N={n} disagrees with its plain "
+                 f"version")
         errs.append(y_err)
+    s = cases[0][1]
     # x, dt, B, C (and A) read once; y and the f32 final state written once
-    per_call = (2 * b * SSM_P * h * p * 2 + b * SSM_P * h * 4
-                + 2 * b * SSM_P * n * 2 + h * 4 + b * h * p * n * 4)
-    sets = [inputs(SSM_P) for _ in range(n_sets(per_call))]
+    per_call = (2 * b * s * h * p * 2 + b * s * h * 4 + 2 * b * s * n * 2
+                + h * 4 + b * h * p * n * 4)
+    sets = [inputs(s) for _ in range(n_sets(per_call))]
+
     def kernel(*a):
         return ops.ssd(*a, chunk=SSM_CHUNK)
 
@@ -419,16 +508,15 @@ def ssd_kernel_phase(torch, dev):
     t_plain = time_ms(torch, lambda *a: ref.ref_ssd(*a, chunk=SSM_CHUNK),
                       sets, 4)
     d_kernel = device_ms(torch, kernel, sets, 10)
-    flops = ssd_flops(b, SSM_P, h, p, n, SSM_CHUNK)
+    flops = ssd_flops(b, s, h, p, n, SSM_CHUNK)
     t_bound, by = bound(per_call, flops)
-    print(f"  timing B={b} S={SSM_P}: kernel {t_kernel} ms (device "
-          f"{d_kernel} ms), plain {t_plain} ms, no library call computes an "
-          f"SSD scan, bound {t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
-    return {"ssd": dict(
-        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
-        replaces="src/repro/kernels/ssd.py:87", max_abs_err=max(errs),
-        ms=t_kernel, device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
-        bound_by=by, library_ms=None, library_device_ms=None)}
+    shape = f"B={b} S={s} H={h} P={p} N={n} chunk={SSM_CHUNK}"
+    print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
+          f"plain {t_plain} ms, no library call computes an SSD scan, bound "
+          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+    return dict(shape=shape, max_abs_err=max(errs), ms=t_kernel,
+                device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
+                bound_by=by, library_ms=None, library_device_ms=None)
 
 
 # ------------------------------------------------ phases 4, 6: serving
@@ -480,6 +568,7 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
     print(f"phase {phase}: serving {arch} at full width, jobs A and B on "
           f"group 0 (B={B}, prompt {prompt_len}, {N_NEW} new, temperature "
           f"0.7)")
+    torch.cuda.reset_peak_memory_stats(dev)
     router = Router()                 # the CUDA devices; one card here
     deps = {job: router.deploy(api.DeploymentSpec(
         deployment_id=f"rollout-{job}", job_id=job, model_name=arch,
@@ -490,7 +579,9 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
         for seed, dep in enumerate(deps.values(), start=1):
             info = dep.init(seed=seed).wait(timeout=600)
         print(f"  params per deployment: {info['params']}; card memory "
-              f"allocated {torch.cuda.memory_allocated(dev)} B")
+              f"allocated {torch.cuda.memory_allocated(dev)} B, peak through "
+              f"the inits {torch.cuda.max_memory_allocated(dev)} B")
+        torch.cuda.reset_peak_memory_stats(dev)
         kept = {job: f32_leaves(torch, dep) for job, dep in deps.items()}
         ops.reset_launches()
         for r, job in enumerate("ABAB"):
@@ -513,14 +604,17 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
             print(f"  round {r} job {job}: {dt * 1e3} ms, {B * N_NEW} tokens "
                   f"({live} live), {B * N_NEW / dt} tok/s, launches {grew}")
         launches = dict(ops.LAUNCHES)
-        print(f"  peak card memory {torch.cuda.max_memory_allocated(dev)} B")
+        print(f"  peak card memory over the rounds "
+              f"{torch.cuda.max_memory_allocated(dev)} B; pinned host bytes "
+              f"held {pinned_bytes(torch)}")
         profile_round(torch, lambda: deps["B"].generate(
             prompts[0], max_new_tokens=N_NEW,
             temperature=0.7).wait(timeout=600))
     switches = router.switch_log
     for s in switches:
-        print(f"  switch to {s['to_job']}: offload {s['t_offload']} s, "
-              f"load {s['t_load']} s")
+        print(f"  switch to {s['to_job']}: offload {s['t_offload']} s "
+              f"{s['offload_bytes']} B, load {s['t_load']} s "
+              f"{s['load_bytes']} B")
     # the log also records a target load with nothing to offload, as the
     # reference router does: count the switches that moved the other job
     moved = [s for s in switches if s["t_offload"] > 0]
@@ -538,16 +632,14 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
 
 # ------------------------------------------------ phases 5, 7: parity
 
-def parity_phase(torch, router, dev, phase):
+def parity_phase(torch, model, params, dev, phase):
     """Prefill and teacher-forced decode logits on the card against the
     same parameters through the plain versions on the CPU."""
     from repro_torch.models import common
     from repro_torch.rl import data as data_lib
     from repro_torch.rl.rollout import _pad_cache
 
-    wpg = router.wpgs["rollout-A"]
-    model, cfg = wpg.model, wpg.cfg
-    params = wpg.params()
+    cfg = model.cfg
     runs = {"card": dev, "cpu": torch.device("cpu")}
     b, p, n = 2, 64, 8
     prompt = torch.as_tensor(next(data_lib.MathDataset(seed=1).batches(b, p))[0],
@@ -842,15 +934,53 @@ def train_parity_phase(torch, dev):
           "backward")
 
 
-def path_launches(records, launches, want):
-    """Write the path's launch counts into the records; fail where a kernel
-    of the path was never launched."""
+def path_launches(records, launches, want, path=None):
+    """Write the path's launch counts into the records (into each kernel's
+    ``path`` row where one is named); fail where a kernel of the path was
+    never launched."""
     for name, per_round in want.items():
         if per_round == 0:
             continue
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on its serving path")
-        records[name]["launches"] = launches[name]
+        (records[name][path] if path else records[name])["launches"] = \
+            launches[name]
+
+
+def release(torch, dev, what):
+    """After ``what`` has been dropped: collect it, return the card's
+    cached blocks and the pinned host blocks the caching host allocator
+    keeps, and print what is still held of either."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+        if hasattr(torch._C, name):
+            getattr(torch._C, name)()
+            break
+    print(f"  {what} released: card memory allocated "
+          f"{torch.cuda.memory_allocated(dev)} B; pinned host bytes held "
+          f"{pinned_bytes(torch)}")
+
+
+def pinned_bytes(torch):
+    """Bytes of pinned host memory the caching host allocator owns (its
+    blocks are powers of two), as this torch reports them."""
+    stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+    held = stats().get("allocated_bytes.current") if stats else None
+    return "not reported by this torch" if held is None else held
+
+
+def hybrid_parity_phase(torch, dev, phase):
+    """Phase 5's parity for zamba2 at full width, cut to HYB_PARITY_LAYERS
+    blocks (depth only) for the CPU side, from the port's seeded init."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config(HYB_ARCH).replace(
+        num_layers=HYB_PARITY_LAYERS))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    return parity_phase(torch, model, params, dev, phase)
 
 
 def main():
@@ -874,6 +1004,7 @@ def main():
     print(f"phase 2: kernels built in {time.monotonic() - t0} s "
           f"(nvcc {build.build_seconds} s; None = cached)")
     build_report(build)
+    cluster_report()
     records = kernel_phase(torch, dev)
     records.update(ssd_kernel_phase(torch, dev))
 
@@ -881,30 +1012,34 @@ def main():
             "ssd": 0}
     router, launches = serve_phase(torch, dev, 4, ARCH, P, want)
     path_launches(records, launches, want)
-    parity_phase(torch, router, dev, 5)
+    wpg = router.wpgs["rollout-A"]
+    parity_phase(torch, wpg.model, wpg.params(), dev, 5)
     # release the qwen2 deployments (device and pinned host memory)
-    del router
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    print(f"  qwen2 router released: card memory allocated "
-          f"{torch.cuda.memory_allocated(dev)} B")
+    del router, wpg
+    release(torch, dev, "qwen2 router")
 
     want = {"flash_attention": 0, "decode_attention": 0, "ssd": SSM_LAYERS}
     router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want)
     path_launches(records, launches, want)
-    parity_phase(torch, router, dev, 7)
-    del router
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  mamba2 router released: card memory allocated "
-          f"{torch.cuda.memory_allocated(dev)} B")
+    wpg = router.wpgs["rollout-A"]
+    parity_phase(torch, wpg.model, wpg.params(), dev, 7)
+    del router, wpg
+    release(torch, dev, "mamba2 router")
 
     router = train_phase(torch, dev, records)
     del router
-    gc.collect()
-    torch.cuda.empty_cache()
+    release(torch, dev, "training router")
     train_parity_phase(torch, dev)
+    release(torch, dev, "training parity WPGs")
+
+    # zamba2: all three kernels on one path, at full width and depth
+    want = {"flash_attention": HYB_APPS, "decode_attention": HYB_APPS * N_NEW,
+            "ssd": HYB_MAMBA}
+    router, launches = serve_phase(torch, dev, 10, HYB_ARCH, HYB_P, want)
+    path_launches(records, launches, want, "zamba2")
+    del router
+    release(torch, dev, "zamba2 router")
+    hybrid_parity_phase(torch, dev, 11)
     print(f"all phases passed in {time.monotonic() - t_start} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

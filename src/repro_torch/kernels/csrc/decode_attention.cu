@@ -75,8 +75,14 @@
 //   2^(-1e30 - m) = 0, and an empty partial's weight multiplies zeros.
 //
 // f32: decode_kernel, the first version on the f32 CUDA cores: one block
-// per (kv head, batch) with one warp per query head, tiles of 4096/D keys
-// staged as f32, probabilities kept in f32. It is on no serving path.
+// per (kv head, batch) with one warp per query head, tiles of whole 32-key
+// lane rows (up to 32 KB) staged as f32, probabilities kept in f32. It is
+// on no serving path.
+//
+// Head dims 64, 112 (zamba2's shared attention block) and 128 are built.
+// zamba2 decodes MHA (G = 1): one of the 16 rows of each m16 tile is live,
+// and at B = 16 with 32 KV heads the grid of 512 blocks takes one split.
+// At D = 112 the split route's shared memory is 70,912 B a block.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,9 +112,17 @@ __global__ void __launch_bounds__(32 * MAX_G)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
               const float* __restrict__ vc, float* __restrict__ o, int T_cap,
               int H, int KH, int pos, float scale) {
-  constexpr int BK = 4096 / D;     // keys per tile (64 at D = 64)
-  constexpr int KPL = BK / 32;     // keys scored per lane
-  constexpr int DPL = D / 32;      // output dims per lane
+  // Each lane scores KPL keys of a tile and owns output dims lane + 32 i.
+  // The tile is whole 32-key rows of lanes (up to 32 KB of f32 K and V):
+  // at D = 112, 4096 / D = 36 keys would leave 4 of them unscored. The
+  // output dims are ceil(D / 32) a lane with the last one guarded: D / 32
+  // would drop 16 of D = 112's dims.
+  constexpr int KPL = 4096 / D / 32;   // 2 at D = 64; 1 at D = 112, 128
+  constexpr int BK = 32 * KPL;         // keys per tile
+  constexpr int DPL = (D + 31) / 32;   // output dims per lane
+  static_assert(KPL >= 1 && BK * D <= 4096, "a tile is whole lane rows");
+  static_assert(DPL * 32 >= D && (DPL - 1) * 32 < D,
+                "the lanes' dims cover D, each dim once");
   __shared__ float ks[BK][D + 1];
   __shared__ float vs[BK][D];
   __shared__ float qs[MAX_G][D];
@@ -122,7 +136,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 
   const float* qp = q + (static_cast<size_t>(b) * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) qs[warp][lane + 32 * i] = qp[lane + 32 * i];
+  for (int i = 0; i < DPL; ++i)
+    if (lane + 32 * i < D) qs[warp][lane + 32 * i] = qp[lane + 32 * i];
 
   float acc[DPL];
 #pragma unroll
@@ -176,7 +191,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
         const float pj = __shfl_sync(0xffffffffu, p[kk], src);
         const int j = src + 32 * kk;
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] += pj * vs[j][lane + 32 * i];
+        for (int i = 0; i < DPL; ++i)
+          if (lane + 32 * i < D) acc[i] += pj * vs[j][lane + 32 * i];
       }
     }
     m = m_new;
@@ -185,7 +201,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   float* op = o + (static_cast<size_t>(b) * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) op[lane + 32 * i] = acc[i] * inv;
+  for (int i = 0; i < DPL; ++i)
+    if (lane + 32 * i < D) op[lane + 32 * i] = acc[i] * inv;
 }
 
 template <int D>
@@ -255,7 +272,14 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                 const bf16* __restrict__ vc, bf16* __restrict__ o, int T_cap,
                 int H, int KH, int pos, float scale, int span) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  // the combine moves four dims a thread, and the thread with dims
+  // 4i..4i+3 of a row sends that row's m and l to block i of the cluster
+  static_assert(D % 4 == 0 && D / 4 >= MAX_SPLITS,
+                "every split receives m and l from one thread of a row");
+  static_assert((D / 8) % 2 == 0, "O's n-tiles pair up for ldmatrix.x4");
   using L = Layout<D>;
+  static_assert(L::LD % 8 == 0 && L::WLD % 4 == 0,
+                "padded rows keep 16-byte alignment");
   constexpr int THREADS = 32 * WARPS;
   constexpr int LD = L::LD;
   constexpr int WLD = L::WLD;
@@ -512,10 +536,12 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   }
 }
 
+// The kernel's dynamic shared memory and non-portable cluster size, set
+// once per device; then the launch configuration of a grid of `splits`
+// blocks a cluster.
 template <int D>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
-                   int B, int T_cap, int H, int KH, int pos, float scale,
-                   int splits, cudaStream_t stream) {
+cudaError_t prepare(int splits, int KH, int B, cudaStream_t stream,
+                    cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
   using L = Layout<D>;
   if (splits < 1 || splits > MAX_SPLITS) return cudaErrorInvalidValue;
   const void* kernel = reinterpret_cast<const void*>(decode_split_tc<D>);
@@ -526,26 +552,47 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
                             cluster_set);
   if (err != cudaSuccess) return err;
-  const int span = (T_cap + splits - 1) / splits;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(splits, KH, B);
+  cfg->blockDim = dim3(32 * WARPS);
+  cfg->dynamicSmemBytes = L::bytes;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
 
+template <int D>
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
+                   int B, int T_cap, int H, int KH, int pos, float scale,
+                   int splits, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, KH, B);
-  cfg.blockDim = dim3(32 * WARPS);
-  cfg.dynamicSmemBytes = L::bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = prepare<D>(splits, KH, B, stream, attr, &cfg);
+  if (err != cudaSuccess) return err;
+  const int span = (T_cap + splits - 1) / splits;
   err = cudaLaunchKernelEx(
       &cfg, decode_split_tc<D>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
       static_cast<bf16*>(o), T_cap, H, KH, pos, scale, span);
   const cudaError_t last = cudaGetLastError();   // clear it either way
   return err != cudaSuccess ? err : last;
+}
+
+// How many clusters of `splits` blocks can be resident on the card at once
+// (0: a launch with that many splits cannot run).
+template <int D>
+cudaError_t max_clusters(int splits, int* out) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = prepare<D>(splits, 1, 1, 0, attr, &cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(
+      out, reinterpret_cast<const void*>(decode_split_tc<D>), &cfg);
 }
 
 }  // namespace split
@@ -563,14 +610,28 @@ extern "C" int repro_decode_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch<64>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
+  if (dtype == 0 && D == 112)
+    return launch<112>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
   if (dtype == 0 && D == 128)
     return launch<128>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
   if (dtype == 1 && D == 64)
     return split::launch<64>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
                              scale, splits, st);
+  if (dtype == 1 && D == 112)
+    return split::launch<112>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
+                              scale, splits, st);
   if (dtype == 1 && D == 128)
     return split::launch<128>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
                               scale, splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 route's resident clusters of `splits` blocks at head dim D
+// (cudaOccupancyMaxActiveClusters) into *out. Returns a cudaError_t.
+extern "C" int repro_decode_max_active_clusters(int D, int splits, int* out) {
+  if (D == 64) return split::max_clusters<64>(splits, out);
+  if (D == 112) return split::max_clusters<112>(splits, out);
+  if (D == 128) return split::max_clusters<128>(splits, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

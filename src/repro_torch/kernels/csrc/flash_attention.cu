@@ -47,8 +47,15 @@
 //   warp's own rows of the Q tile and stored 16 bytes a lane.
 //
 // f32: flash_fwd_kernel, the first version on the f32 CUDA cores: four
-// threads per query row, KV tiles of 4096/D keys staged as f32 in shared
-// memory, probabilities kept in f32. It is on no serving path.
+// threads per query row, KV tiles of whole 16-key chunks (up to 32 KB)
+// staged as f32 in shared memory, probabilities kept in f32. It is on no
+// serving path.
+//
+// Head dims 64, 112 (zamba2's shared attention block) and 128 are built.
+// At D = 112 = 7 x 16 the bf16 route takes 7 k-steps of Q K^T and 14
+// n-tiles of O (7 ldmatrix.x4 pairs); its padded rows are 240 B, so the
+// eight rows an ldmatrix reads start in bank quads 0, 7, 6, ..., 1, and
+// Q plus the ring take 76,800 B of shared memory: two blocks an SM.
 //
 // What bounds it on an H100: at the serving path's prefill shape (qwen2-0.5b,
 // B=16, S=T=128, H=14, KH=2, D=64, bf16, causal) the function must move
@@ -82,8 +89,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int S, int T_len, int H, int KH, float scale, int causal,
                  int window, float softcap) {
-  constexpr int BK = 4096 / D;     // keys per tile: 32 KB of f32 K and V
+  // keys per tile: up to 32 KB of f32 K and V, in whole CHUNKs (at
+  // D = 112, 4096 / D = 36 would leave a ragged chunk that reads past the
+  // tile): 64 at D = 64, 32 at D = 112 and 128
+  constexpr int BK = 4096 / D / CHUNK * CHUNK;
   constexpr int DPT = D / TPR;     // dims per thread
+  static_assert(BK >= CHUNK && BK % CHUNK == 0, "a tile is whole chunks");
+  static_assert(D % TPR == 0, "each thread of a row takes D / TPR dims");
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
 
@@ -230,6 +242,12 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   constexpr int ND = D / 8;        // n-tiles of O
   constexpr int NS = SUB / 8;      // n-tiles of S in one chunk
   constexpr int CPR = D / 8;       // 16-byte chunks per row
+  // O's n-tiles go in ldmatrix.x4 pairs, P's k-steps are pairs of S's
+  // n-tiles, and a padded row stays 16-byte aligned
+  static_assert(ND % 2 == 0 && NS % 2 == 0 && SUB % 16 == 0,
+                "n-tiles pair up for ldmatrix.x4");
+  static_assert((LD * sizeof(__nv_bfloat16)) % 16 == 0,
+                "padded rows keep 16-byte alignment");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + BQ * LD;           // SLOTS K chunks
@@ -490,10 +508,14 @@ extern "C" int repro_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
+  if (dtype == 0 && D == 112)
+    return launch<float, 112>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
   if (dtype == 1 && D == 64)
     return tcr::launch<64>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
+  if (dtype == 1 && D == 112)
+    return tcr::launch<112>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
   if (dtype == 1 && D == 128)
     return tcr::launch<128>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);

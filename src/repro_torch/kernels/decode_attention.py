@@ -13,6 +13,7 @@ sends CPU tensors to the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -21,7 +22,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 MAX_GROUP = 16          # query heads per KV head
 MAX_SPLITS = 16         # blocks a cluster: the H100's non-portable limit
 CHUNK = 16              # keys a warp takes at a time
@@ -44,6 +45,16 @@ def splits_for(b: int, kh: int, t: int, sms: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def max_active_clusters(d: int, splits: int) -> int:
+    """How many clusters of ``splits`` blocks of the bf16 route at head
+    dim ``d`` the current card holds at once (0: such a launch cannot
+    run), as ``cudaOccupancyMaxActiveClusters`` reports."""
+    out = ctypes.c_int(0)
+    build.check(build.load().repro_decode_max_active_clusters(
+        d, splits, ctypes.byref(out)), "max_active_clusters")
+    return out.value
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,

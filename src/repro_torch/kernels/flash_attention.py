@@ -21,15 +21,18 @@ it directly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -66,25 +69,53 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 def xla_attention(q, k, v, *, causal: bool, window: int = 0,
                   softcap: Optional[float] = None,
                   scale: Optional[float] = None, q_positions=None,
-                  kv_mask=None):
-    """The JAX package's XLA attention, ``attention_core(impl="xla")``
-    without its query chunking, on any device: K/V repeated to full heads,
-    bf16 products accumulated in f32 (exact through the f32 upcast), masked
-    scores at -1e30, an f32 softmax, and the probabilities cast to v's
-    dtype before the PV product. q: (B, S, H, D); k, v: (B, T, K, D) with
-    K | H. ``q_positions`` (B, S) default to 0..S-1 and key j sits at
-    position j; ``kv_mask`` (T,) marks the valid keys."""
+                  kv_mask=None, q_chunk: int = 256):
+    """The JAX package's XLA attention, ``attention_core(impl="xla")``, on
+    any device: K/V repeated to full heads, bf16 products accumulated in
+    f32 (exact through the f32 upcast), masked scores at -1e30, an f32
+    softmax, and the probabilities cast to v's dtype before the PV product.
+    q: (B, S, H, D); k, v: (B, T, K, D) with K | H. ``q_positions`` (B, S)
+    default to 0..S-1 and key j sits at position j; ``kv_mask`` (T,) marks
+    the valid keys.
+
+    For S > ``q_chunk`` the queries go in blocks of ``q_chunk`` rows (the
+    last padded with zero rows at position -1, as the reference pads), so
+    the live scores are O(q_chunk T) and not O(S T). Under autograd each
+    block is checkpointed and recomputed in the backward, as the
+    reference's ``jax.checkpoint`` does."""
     b, s, h, d = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    kh = k.shape[2]
     if kh != h:
         k = torch.repeat_interleave(k, h // kh, dim=2)
         v = torch.repeat_interleave(v, h // kh, dim=2)
-    scale = d ** -0.5 if scale is None else scale
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                scale=d ** -0.5 if scale is None else scale, kv_mask=kv_mask)
+    qp = torch.arange(s, device=q.device)[None, :] if q_positions is None \
+        else q_positions
+    if not q_chunk or s <= q_chunk:
+        return _attend(q, k, v, qp, **opts)
+    nq = -(-s // q_chunk)
+    pad = nq * q_chunk - s
+    q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    qp = F.pad(qp, (0, pad), value=-1)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for i in range(0, nq * q_chunk, q_chunk):
+        args = (q[:, i:i + q_chunk], k, v, qp[:, i:i + q_chunk])
+        outs.append(checkpoint(functools.partial(_attend, **opts), *args,
+                               use_reentrant=False) if remat
+                    else _attend(*args, **opts))
+    return torch.cat(outs, 1)[:, :s]
+
+
+def _attend(q, k, v, qp, *, causal, window, softcap, scale, kv_mask):
+    """One block of :func:`xla_attention`: q (B, S, H, D) at positions qp
+    (B or 1, S); k, v (B, T, H, D)."""
+    s, t = q.shape[1], k.shape[1]
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    qp = torch.arange(s, device=q.device)[None, :] if q_positions is None \
-        else q_positions
     kp = torch.arange(t, device=q.device)[None, None, :]
     mask = torch.ones((qp.shape[0], s, t), dtype=torch.bool, device=q.device)
     if causal:

@@ -44,10 +44,11 @@ class _FlashAttention(torch.autograd.Function):
     """K1 forward; backward through the XLA attention's autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         scale=scale)
+        ctx.q_chunk = q_chunk
         if q.device.type == "cpu":
             g = q.shape[2] // k.shape[2]
             return ref.ref_attention(
@@ -61,17 +62,19 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = fa.xla_attention(*leaves, **ctx.opts)
+            out = fa.xla_attention(*leaves, **ctx.opts, q_chunk=ctx.q_chunk)
         grads = torch.autograd.grad(out, leaves, dout)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, q_chunk: int = 256):
     """q: (B,S,H,D); k,v: (B,T,K,D) with K | H. Returns (B,S,H,D),
-    differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    differentiable in q, k and v; the backward recomputes the XLA
+    attention in blocks of ``q_chunk`` query rows."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                 q_chunk)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,

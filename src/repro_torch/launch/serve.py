@@ -10,6 +10,8 @@ future. Runs on the CUDA card unless ``--device cpu`` is given.
         --batch 16 --prompt-len 128 --max-new 64     # unmodified qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --full-width --batch 16 --prompt-len 512 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --full-width --batch 16 --prompt-len 512 --max-new 64
 """
 from __future__ import annotations
 
@@ -43,16 +45,29 @@ def main(argv=None):
                          "devices)")
     args = ap.parse_args(argv)
 
-    # a narrow, shallow cut of the config: the ssm family keeps its SSD
-    # head width and state (only d_model, and with it the head count, shrinks)
-    overrides = () if args.full_width else (
-        ("num_layers", args.layers), ("d_model", args.d_model),
-        ("vocab_size", 512))
-    if not args.full_width and get_config(args.arch).family != "ssm":
-        overrides += (
-            ("num_heads", max(4, args.d_model // 64)),
-            ("num_kv_heads", max(2, args.d_model // 128)),
-            ("head_dim", 64), ("d_ff", args.d_model * 4))
+    # a narrow, shallow cut of the config: the ssm and hybrid families keep
+    # their SSD head width and state (only d_model, and with it the head
+    # count, shrinks); the hybrid keeps at least two shared-attention
+    # applications and a trailing block (2 attn_period + 1 blocks, as
+    # reduced_config), so the cut still runs K1 and K2, and its attention
+    # keeps the config's head_dim and MHA
+    cfg = get_config(args.arch)
+    overrides = ()
+    if not args.full_width:
+        heads = max(4, args.d_model // 64)
+        overrides = (("d_model", args.d_model), ("vocab_size", 512))
+        if cfg.family == "hybrid":
+            overrides += (
+                ("num_layers", max(args.layers, 2 * cfg.attn_period + 1)),
+                ("num_heads", heads), ("num_kv_heads", heads),
+                ("d_ff", args.d_model * 4))
+        else:
+            overrides += (("num_layers", args.layers),)
+        if cfg.family not in ("ssm", "hybrid"):
+            overrides += (
+                ("num_heads", heads),
+                ("num_kv_heads", max(2, args.d_model // 128)),
+                ("head_dim", 64), ("d_ff", args.d_model * 4))
     plane = DevicePlane(devices=None if args.device is None
                         else [torch.device(args.device)])
     router = Router(device_plane=plane)

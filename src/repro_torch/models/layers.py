@@ -94,13 +94,13 @@ def _project_qkv(p, cfg: ModelConfig, x):
 
 
 def attention_core(q, k, v, *, causal: bool, window: int,
-                   softcap: Optional[float], scale: float):
+                   softcap: Optional[float], scale: float, q_chunk: int):
     """Prefill attention, positions from 0. q: (B, S, H, D); k, v:
     (B, T, K, D). K1 on the card, its plain version on the CPU, under an
     autograd Function whose backward is that of the JAX package's XLA
     branch (``kernels/ops.py``), the branch ``grpo.py`` differentiates."""
     return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                softcap=softcap, scale=scale)
+                                softcap=softcap, scale=scale, q_chunk=q_chunk)
 
 
 def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
@@ -139,11 +139,13 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
                 <= cache_pos + s - 1
             out = xla_attention(q, ck, cv, q_positions=positions,
                                 kv_mask=kv_mask, causal=causal,
-                                window=window, softcap=softcap, scale=scale)
+                                window=window, softcap=softcap, scale=scale,
+                                q_chunk=cfg.attn_q_chunk)
     else:
         kv_out = {"k": k, "v": v}
         out = attention_core(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale)
+                             softcap=softcap, scale=scale,
+                             q_chunk=cfg.attn_q_chunk)
     proj = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return proj, kv_out
 

@@ -1,5 +1,5 @@
-"""Unified model API: the :class:`Model` facade for the ``dense`` and ``ssm``
-(mamba2) families.
+"""Unified model API: the :class:`Model` facade for the ``dense``, ``ssm``
+(mamba2) and ``hybrid`` (zamba2) families.
 
     model.forward(params, batch, return_cache=False)
     model.decode_step(params, cache, batch)
@@ -15,11 +15,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import common, mamba2, transformer
+from repro_torch.models import common, hybrid, mamba2, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba2}
-_NOT_PORTED = {"moe": "MoE", "hybrid": "hybrid (zamba2)",
-               "audio": "whisper and vision",
+_FAMILY_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+_NOT_PORTED = {"moe": "MoE", "audio": "whisper and vision",
                "vlm": "whisper and vision"}
 
 

@@ -103,11 +103,18 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
                   grad_accum: int = 1):
     """Grads of grpo_loss (a tree like ``params``, in its dtypes) and the
     metrics. With ``grad_accum`` > 1 the batch is split into that many
-    microbatches along the batch axis; their grads accumulate in f32 and
-    are averaged, and so are the metrics."""
+    equal microbatches along the batch axis (``ValueError`` unless
+    ``grad_accum`` divides it); their grads accumulate in f32 and are
+    averaged, and so are the metrics."""
     if grad_accum <= 1:
         grads, metrics = _value_and_grad(params, model, batch, grpo_cfg)
         return common.canonical_unflatten(params, grads), metrics
+    n = next(iter(batch.values())).shape[0]
+    if n % grad_accum:
+        # the reference's reshape to (grad_accum, B // grad_accum, ...)
+        # refuses this batch too
+        raise ValueError(f"grad_accum {grad_accum} does not divide the "
+                         f"batch of {n}")
     micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
     acc, metrics = None, []
     for i in range(grad_accum):

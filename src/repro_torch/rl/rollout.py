@@ -2,8 +2,8 @@
 
 The ``generate`` service primitive. Sampling is temperature-based from an
 explicit ``torch.Generator`` (on the logits' device), greedy when
-``temperature <= 0``; behavior logprobs are returned for importance-sampled
-objectives. The loop runs on the host with ``pos`` a host int, and nothing
+``greedy`` is set or ``temperature <= 0``; behavior logprobs are returned
+for importance-sampled objectives. The loop runs on the host with ``pos`` a host int, and nothing
 in it reads a device value back, so the card runs ahead of Python.
 """
 from __future__ import annotations
@@ -20,15 +20,17 @@ from repro_torch.models.registry import Model
 class RolloutConfig:
     max_new_tokens: int = 32
     temperature: float = 1.0
+    greedy: bool = False
     eos_id: int = 2
 
 
 def _pad_cache(cache, extra: int):
-    """Grow the cache's T axis (axis ndim-3 of (L, B, T, K, D)) by ``extra``
-    zero slots."""
+    """Grow the self-attention caches' T axis (axis ndim-3 of
+    (..., B, T, K, D): the dense family's ``k``/``v``, the hybrid's
+    ``attn_k``/``attn_v``) by ``extra`` zero slots."""
     out = {}
     for k, v in cache.items():
-        if k in ("k", "v") and torch.is_tensor(v) and v.ndim >= 4:
+        if k in ("k", "v", "attn_k", "attn_v") and torch.is_tensor(v) and v.ndim >= 4:
             shape = list(v.shape)
             shape[v.ndim - 3] = extra
             out[k] = torch.cat([v, v.new_zeros(shape)], dim=v.ndim - 3)
@@ -51,7 +53,7 @@ def rollout(model: Model, params, prompt_tokens, gen: torch.Generator,
 
     def sample(logits):
         logits = logits.float()
-        if cfg.temperature <= 0:
+        if cfg.greedy or cfg.temperature <= 0:
             tok = torch.argmax(logits, dim=-1)
         else:
             probs = torch.softmax(logits / cfg.temperature, dim=-1)

@@ -49,6 +49,9 @@ def _randn(gen, shape, dtype, dev):
     (2, 128, 128, 14, 2, 64, True, 64, None, None),    # window
     (2, 128, 128, 14, 2, 64, True, 0, 50.0, 0.125),    # softcap + scale
     (2, 77, 131, 14, 2, 64, False, 0, None, None),     # non-causal, ragged T
+    (2, 200, 200, 32, 32, 112, True, 0, None, None),   # zamba2: MHA, D = 112
+    (2, 128, 128, 8, 2, 112, True, 64, None, None),    # D = 112, GQA, window
+    (16, 512, 512, 32, 32, 112, True, 0, None, None),  # zamba2 prefill
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, s, t, h, kh, d, causal,
                                               window, softcap, scale, dtype):
@@ -73,6 +76,8 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, t, h, kh, d, causal,
     (2, 256, 8, 2, 64, 255), (2, 256, 8, 1, 128, 200),
     (16, 192, 14, 2, 64, 0), (16, 192, 14, 2, 64, 127),
     (16, 192, 14, 2, 64, 191),                          # qwen2 decode, g = 7
+    (2, 256, 8, 2, 112, 100), (16, 576, 32, 32, 112, 0),
+    (16, 576, 32, 32, 112, 575),                        # zamba2 decode, g = 1
 ])
 def test_decode_attention_kernel_matches_plain(dev, b, t, h, kh, d, pos,
                                                dtype):
@@ -90,7 +95,7 @@ def test_decode_attention_kernel_matches_plain(dev, b, t, h, kh, d, pos,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("g", [1, 4, 7, 8, 16])
 def test_decode_attention_at_split_edges(dev, g, d, dtype):
     """pos at 0 (every split but the first empty), on the last key of a
@@ -116,7 +121,7 @@ def test_decode_attention_at_split_edges(dev, g, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("t", [4096, 8192])
 def test_decode_attention_long_cache_single_sequence(dev, t, d, dtype):
     """The long-tail straggler: B = 1 over a long cache, 16 splits of the
@@ -136,7 +141,7 @@ def test_decode_attention_long_cache_single_sequence(dev, t, d, dtype):
 
 
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("h,kh,window,softcap", [
     (4, 4, 0, None),           # g = 1
     (8, 2, 16, None),          # g = 4, window
@@ -205,6 +210,7 @@ def _check_ssd(x, dt, A, B, C, chunk, dtype):
     (2, 96, 3, 8, 128, 32),
     (2, 40, 3, 64, 16, 16),
     (16, 512, 80, 64, 128, 256),      # mamba2-2.7b prefill
+    (16, 512, 112, 64, 64, 256),      # zamba2-7b prefill
 ])
 def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, chunk, dtype):
     gen = torch.Generator(device=dev).manual_seed(2)

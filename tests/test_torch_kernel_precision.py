@@ -181,10 +181,12 @@ def emulate_flash(q, k, v, *, causal: bool = True):
     return _bf16(out.permute(0, 2, 1, 3))
 
 
-@pytest.mark.parametrize("h,kh", [(4, 4), (14, 2)])     # g = 1 and 7
-def test_flash_bf16_probabilities_match_jax_kernel(h, kh):
+@pytest.mark.parametrize("h,kh,d", [
+    pytest.param(4, 4, 64, id="4-4"), pytest.param(14, 2, 64, id="14-2"),
+    pytest.param(4, 4, 112, id="4-4-112")])     # g = 1 and 7; zamba2's D
+def test_flash_bf16_probabilities_match_jax_kernel(h, kh, d):
     rng = np.random.default_rng(0)
-    b, s, d = 2, 128, 64
+    b, s = 2, 128
     (jq, tq), (jk, tk), (jv, tv) = [
         _pair(rng.standard_normal(shape))
         for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
@@ -276,6 +278,10 @@ def emulate_decode_split(q, k, v, pos: int, splits: int):
     (14, 2, 192, 24, 8, 128),
     (4, 4, 100, 99, 8, 128),
     (14, 2, 512, 400, 2, 128),
+    (14, 2, 192, 191, 8, 112),    # D = 112
+    (4, 4, 100, 99, 8, 112),
+    (32, 32, 576, 575, 1, 112),   # zamba2's decode: MHA, one split
+    (32, 32, 576, 300, 1, 112),
 ])
 def test_decode_split_emulation_matches_jax_kernel_and_plain(h, kh, t, pos,
                                                              splits, d):
@@ -301,6 +307,7 @@ def test_decode_split_emulation_matches_jax_kernel_and_plain(h, kh, t, pos,
     (2, 2, 192, 132, 8),       # stops at 16 keys a split (span 24)
     (64, 2, 192, 132, 2),      # a wide batch fills the card with few
     (1, 1, 20, 132, 1),        # too short to split
+    (16, 32, 576, 132, 1),     # zamba2 decode: 512 blocks fill the card
 ])
 def test_decode_splits_fill_the_card(b, kh, t, sms, splits):
     """The split count comes from the batch, the KV heads and the cache

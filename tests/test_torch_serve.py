@@ -143,6 +143,38 @@ def test_serial_and_bounded_drivers_match_serve_mode():
             assert torch.equal(a, b)
 
 
+def test_rollout_greedy_flag_samples_greedily():
+    """``RolloutConfig(greedy=True)`` takes the argmax at any temperature,
+    as the reference's (``repro/rl/rollout.py:57``), and draws nothing from
+    the generator; at temperature 0 it is the same rollout."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl.rollout import RolloutConfig, rollout
+
+    cfg = get_config("qwen2-0.5b").replace(**dict(OVERRIDES))
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    # the seeded init's unit-scale tied embedding makes the policy one-hot
+    # (tests/test_torch_train.py); scaled by 1/16 a sample can differ
+    params["embed"]["embedding"].mul_(1 / 16)
+    prompts = torch.as_tensor(_prompts(), dtype=torch.long)
+    runs = []
+    for rc in (RolloutConfig(max_new_tokens=5, temperature=1.5, greedy=True),
+               RolloutConfig(max_new_tokens=5, temperature=0.0)):
+        gen = torch.Generator().manual_seed(1)
+        state = gen.get_state()
+        runs.append(rollout(model, params, prompts, gen, rc))
+        assert torch.equal(gen.get_state(), state)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    # the first token is the argmax of the prefill's last logits
+    logits = model.forward(params, {"tokens": prompts})[0][:, -1]
+    assert torch.equal(runs[0][0][:, 0], logits.argmax(-1))
+    sampled = rollout(model, params, prompts, torch.Generator().manual_seed(1),
+                      RolloutConfig(max_new_tokens=5, temperature=1.5))
+    assert not torch.equal(sampled[0], runs[0][0])
+
+
 def test_state_manager_moves_and_times_state_between_tiers():
     from repro_torch.core.state_manager import StateManager, Tier
 
@@ -211,13 +243,17 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
         "serve.main(['--device', 'cpu', '--arch', 'mamba2-2.7b', '--batch',",
         "            '2', '--prompt-len', '8', '--max-new', '4', '--layers',",
         "            '2', '--d-model', '128', '--rounds', '2'])",
+        "serve.main(['--device', 'cpu', '--arch', 'zamba2-7b', '--batch',",
+        "            '2', '--prompt-len', '8', '--max-new', '4', '--layers',",
+        "            '2', '--d-model', '128', '--rounds', '2'])",
+        "assert 'repro_torch.models.hybrid' in names, names",
     ])
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
-    assert proc.stdout.count("round ") == 4, proc.stdout
+    assert proc.stdout.count("round ") == 6, proc.stdout
 
 
 def test_port_trains_two_grpo_jobs_without_jax_or_reference_package():

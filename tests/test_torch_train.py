@@ -163,9 +163,53 @@ def test_attention_function_grads_match_jax_xla_branch(h, kh, dtype):
         _close_rel(t.grad, j, rel, f"d{name}")
 
 
-def test_attention_function_backward_is_the_xla_branch_on_the_cpu():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xla_attention_chunks_queries_as_the_reference(dtype):
+    """At S = 300 the queries go in a 256-row chunk and a ragged 44-row one
+    (padded, each checkpointed): the output and the q, k, v gradients equal
+    the unchunked computation's and jax.vjp of the reference's chunked
+    attention_core. GQA 14:2."""
+    from repro_torch.kernels.flash_attention import xla_attention
+    rng = np.random.default_rng(11)
+    b, s, h, kh, d = 1, 300, 14, 2, 16
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d),
+                          (b, s, h, d))]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv, jct = (jnp.asarray(a).astype(jdt) for a in arrs)
+    pos = jnp.arange(s)
+
+    def jfn(q, k, v):
+        return jl.attention_core(q, k, v, q_positions=pos, kv_positions=pos,
+                                 causal=True, window=0, softcap=None,
+                                 scale=d ** -0.5, impl="xla", q_chunk=256)
+
+    jout, vjp = jax.vjp(jfn, jq, jk, jv)
+    jgrads = vjp(jct)
+    tq, tk, tv, tct = (torch.from_numpy(a).to(tdt) for a in arrs)
+    runs = {}
+    for q_chunk in (256, 0):
+        leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        out = xla_attention(*leaves, causal=True, q_chunk=q_chunk)
+        out.backward(tct)
+        runs[q_chunk] = [out] + [t.grad for t in leaves]
+    # one chunk's rows see the same keys in the same order: the output is
+    # the same bits; dk, dv sum the chunks' parts in another order
+    assert torch.equal(runs[256][0], runs[0][0])
+    rel = BF16_REL if dtype == "bfloat16" else F32_TOL
+    for name, got, want, j in zip(["out", "dq", "dk", "dv"], runs[256],
+                                  runs[0], [jout, *jgrads]):
+        assert got.dtype == tdt
+        _close_rel(got, want, 1e-5 if dtype == "float32" else rel, name)
+        _close_rel(got, j, rel, name)
+
+
+@pytest.mark.parametrize("q_chunk", [256, 8])
+def test_attention_function_backward_is_the_xla_branch_on_the_cpu(q_chunk):
     """The Function's grads equal plain autograd through xla_attention
-    (what its backward recomputes), bit for bit."""
+    (what its backward recomputes) at the same query chunk, bit for bit:
+    one block of 19 rows, and blocks of 8 (a reduced config's
+    ``attn_q_chunk`` is 32)."""
     from repro_torch.kernels.flash_attention import xla_attention
     g = torch.Generator().manual_seed(0)
     q = torch.randn((2, 19, 14, 16), generator=g).bfloat16()
@@ -176,7 +220,7 @@ def test_attention_function_backward_is_the_xla_branch_on_the_cpu():
     for fn in (ops.flash_attention, functools.partial(xla_attention,
                                                       scale=None)):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        fn(*leaves, causal=True).backward(ct)
+        fn(*leaves, causal=True, q_chunk=q_chunk).backward(ct)
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
@@ -268,6 +312,21 @@ def test_compute_grads_match_jax(grad_accum):
         _close_rel(g, jflat[k], what=k)
     for k in jmet:
         _close_rel(tmet[k], jmet[k], what=k)
+
+
+@pytest.mark.parametrize("b", [6, 10])
+def test_compute_grads_refuses_a_batch_grad_accum_does_not_divide(b):
+    """As the reference's reshape to (accum, B // accum, ...) refuses it:
+    at B = 6 ``chunk(4)`` gives three pieces, at B = 10 four unequal ones
+    that would be averaged with equal weight."""
+    jm, jp, tm, params, _ = _loss_inputs()
+    batch = _seeded_batch(3, b=b)
+    with pytest.raises(TypeError):          # the reference's reshape
+        jgrpo.compute_grads(jp, jm, _jbatch(batch), jgrpo.GRPOConfig(), None,
+                            4)
+    with pytest.raises(ValueError, match="does not divide"):
+        tgrpo.compute_grads(params, tm, _tbatch(batch), tgrpo.GRPOConfig(),
+                            4)
 
 
 def params_dtype(params, key):
