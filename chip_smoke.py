@@ -37,12 +37,12 @@ Phases (any failure raises and the process exits non-zero):
    new Router once the qwen2 one is released;
 7. whole-path parity for mamba2-2.7b, as phase 5, at full depth;
 8. the GRPO training path at full qwen2-0.5b width and depth, on a new
-   Router once the mamba2 one is released: jobs A and B as
-   ``RLControllerGRPO`` on group 0, two steps each (generate -> pack ->
-   update_actor), submitted round-robin and drained as
-   ``PlexCluster.run(interleave=True)`` does, with each op's seconds and
-   kernel launches, every context switch's seconds and bytes (parameters
-   and f32 AdamW moments), the steps' metrics and the peak card memory;
+   ``PlexCluster`` once the mamba2 router is released: jobs A and B
+   (``RLControllerGRPO``) on group 0, two steps each (generate -> pack ->
+   update_actor), through ``PlexCluster.run(interleave=True)``, with each
+   op's seconds and kernel launches, every context switch's seconds and
+   bytes (parameters and f32 AdamW moments), each job's bill (every
+   submitted op billed), the steps' metrics and the peak card memory;
    then one ``update_actor`` on a seeded batch with non-zero advantages
    (the gradient is non-zero, the moments change, the job's tensors are
    updated in place) and one more under the profiler;
@@ -57,7 +57,18 @@ Phases (any failure raises and the process exits non-zero):
     decode), as phase 6, once every earlier router and the pinned host
     buffers they held are released;
 11. whole-path parity for zamba2-7b, as phase 5, at full width cut to 15
-    blocks (2 applications, 1 trailing block) for the CPU side.
+    blocks (2 applications, 1 trailing block) for the CPU side;
+12. the training entry point: ``python -m repro_torch.launch.train`` at
+    full qwen2-0.5b width and depth (two jobs, two steps each) in a child
+    process on its default device, the card, with the kernels' launch
+    counts set to 0 before it and printed after;
+13. the control plane live on the card: a serving ``PlexCluster`` whose
+    ``PlacementDirector`` cold-places two full-width training jobs on
+    their own groups, re-fits them onto one group (migrating one live:
+    its f32 leaves bit-exact across the move, no copy on one card),
+    retires the profiling group and spawns one for a third job; every job
+    completes, its bill equals its exec logs, and ``remove_job`` returns
+    the third job's bytes to the card.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -125,6 +136,18 @@ TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
 TRAIN_OVERRIDES = ()
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 4, 128
 TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
+
+# phase 12: the training entry point at the full config (0 keeps the
+# config's own depth, width and vocab), phase 8's shapes
+TRAIN_CLI = ["--arch", ARCH, "--jobs", "2", "--steps", "2", "--batch-size",
+             "16", "--group-size", "4", "--max-new-tokens", "64",
+             "--seq-len", "128", "--layers", "0", "--d-model", "0",
+             "--vocab", "0"]
+# phase 13: the jobs the director places, phase 8's shapes with 16 new
+# tokens a step
+CP_STEPS = {"auto-a": 3, "auto-b": 3, "auto-c": 2}
+CP_NEW = 16
+MEM_TOL = 0.1e9            # remove_job's release, against the job's bytes
 
 
 def fail(msg: str):
@@ -730,27 +753,27 @@ def counted(wpg, job, log):
 def train_phase(torch, dev, records):
     """Two GRPO jobs' steps through Router -> HRRS -> WPG at full width,
     then a seeded update and a profiled one."""
-    from repro_torch.core.controller import (JobConfig, RLControllerGRPO,
-                                             run_interleaved)
-    from repro_torch.core.router import Router
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
     from repro_torch.kernels import ops
     from repro_torch.models import common
 
     n_new = TRAIN["max_new_tokens"]
     print(f"phase 8: GRPO training {ARCH} at full width and depth, jobs A "
-          f"and B on group 0 ({TRAIN}, overrides {TRAIN_OVERRIDES}), steps "
-          f"submitted round-robin and drained")
-    router = Router()
-    ctls = {job: RLControllerGRPO(JobConfig(
+          f"and B on group 0 ({TRAIN}, overrides {TRAIN_OVERRIDES}) through "
+          f"PlexCluster.run(interleave=True)")
+    cluster = PlexCluster(n_groups=1)     # the CUDA devices; one card here
+    router = cluster.router
+    ctls = {job: cluster.add_job(JobConfig(
         job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
-        **TRAIN), router) for seed, job in enumerate("AB", start=1)}
+        **TRAIN)) for seed, job in enumerate("AB", start=1)}
     log = []
     for job, c in ctls.items():
         counted(c.dep.wpg, job, log)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     t0 = time.perf_counter()
-    run_interleaved(router, list(ctls.values()))
+    billing = cluster.run(interleave=True)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -786,6 +809,23 @@ def train_phase(torch, dev, records):
                 sw["load_bytes"] not in load:
             fail(f"switch to {sw['to_job']} moved {sw['offload_bytes']} / "
                  f"{sw['load_bytes']} B, the jobs hold {nbytes}")
+    # an init and a generate and an update a step, each billed
+    submitted = 1 + 2 * TRAIN["steps"]
+    for job, c in ctls.items():
+        rec = billing[job]
+        wpg = c.dep.wpg
+        print(f"  bill {job}: busy {rec.busy_seconds} s, switch "
+              f"{rec.switch_seconds} s, steps {rec.steps}, gpu-seconds a "
+              f"step {rec.gpu_seconds_per_step()}")
+        billed = cluster._billed_ops.get(wpg.spec.deployment_id)
+        if billed != submitted or len(wpg.exec_log) != submitted or \
+                rec.steps != TRAIN["steps"]:
+            fail(f"job {job}: {billed} ops billed of {len(wpg.exec_log)} "
+                 f"run, {submitted} submitted; {rec.steps} steps billed")
+        if not math.isclose(rec.busy_seconds,
+                            sum(dt for _, dt in wpg.exec_log)):
+            fail(f"job {job}: busy {rec.busy_seconds} s is not its exec "
+                 f"log's")
     for job, c in ctls.items():
         if len(c.metrics_log) != TRAIN["steps"]:
             fail(f"job {job}: {len(c.metrics_log)} steps recorded")
@@ -836,7 +876,7 @@ def train_phase(torch, dev, records):
         fail("the update replaced the job's tensors")
     print(f"  {len(keys)} entries kept their tensors across the update")
     profile_round(torch, lambda: done(dep.update_actor(batch)))
-    return router
+    return cluster
 
 
 def train_parity_phase(torch, dev):
@@ -934,6 +974,188 @@ def train_parity_phase(torch, dev):
           "backward")
 
 
+# ------------------------------------- phases 12, 13: the cluster
+
+def train_launches_want(layers, steps, n_new):
+    """Launches of ``steps`` GRPO steps: K1 in each generate's prefill and
+    each update_actor's forward, K2 in each decode step."""
+    return {"flash_attention": steps * 2 * layers,
+            "decode_attention": steps * layers * n_new, "ssd": 0}
+
+
+def train_cli_phase(records):
+    """``python -m repro_torch.launch.train`` at the full config in a child
+    process on its default device. The child runs the module as ``-m``
+    does (runpy) between zeroing and printing the kernels' launch
+    counts."""
+    cmd = " ".join(TRAIN_CLI)
+    print(f"phase 12: python -m repro_torch.launch.train {cmd} (a child "
+          f"process, its default device)")
+    code = "\n".join([
+        "import json, runpy, sys",
+        "from repro_torch.kernels import ops",
+        f"sys.argv = ['repro_torch.launch.train'] + {TRAIN_CLI!r}",
+        "ops.reset_launches()",
+        "runpy.run_module('repro_torch.launch.train', run_name='__main__',",
+        "                 alter_sys=True)",
+        "print('launches ' + json.dumps(ops.LAUNCHES))"])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.monotonic() - t0
+    for line in proc.stdout.splitlines():
+        print(f"  {line}")
+    if proc.returncode != 0:
+        fail(f"launch.train exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    for job in ("job0", "job1"):
+        steps = [ln for ln in lines if ln.startswith(f"[{job}] steps=")]
+        loss = [ln for ln in lines if ln.startswith(f"[{job}] loss first=")]
+        if not steps or steps[0].split()[1] != "steps=2":
+            fail(f"{job} did not print 2 steps")
+        first, last = (float(loss[0].split()[i].split("=")[1])
+                       for i in (2, 3))
+        if not (math.isfinite(first) and math.isfinite(last)):
+            fail(f"{job}: loss {first}, {last}")
+    tail = lines[-2].split()
+    switches = int(tail[1].split("=")[1])
+    if switches < 3 or tail[2] != "device=cuda:0":
+        fail(f"launch.train: {lines[-2]}")
+    launches = json.loads(lines[-1].split(" ", 1)[1])
+    want = train_launches_want(24, 4, 64)
+    print(f"  child process {wall} s; launches {launches}, want {want}")
+    if launches != want:
+        fail(f"launch.train launches {launches}, want {want}")
+    for k in ("flash_attention", "decode_attention"):
+        records[k]["cluster_launches"] = launches[k]
+
+
+def control_plane_phase(torch, dev, records):
+    """The reference's serve auto-placement flow
+    (tests/test_control_plane.py::test_serve_auto_placement_end_to_end) at
+    full width and depth on the card, then the release of a removed
+    job's bytes."""
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.control_plane import DirectorConfig
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.kernels import ops
+
+    print(f"phase 13: the control plane live, {ARCH} at full width and "
+          f"depth, jobs {CP_STEPS} (steps) added with group_id=None, "
+          f"{CP_NEW} new tokens a step")
+    c = PlexCluster(n_groups=1, director_cfg=DirectorConfig(
+        horizon=240.0, cold_reserve_s=30.0, min_groups=1))
+    router = c.router
+    moves = []
+    migrate_job = router.migrate_job
+
+    def f32_entries(job, group):
+        sm = router.state_managers[group]
+        pre = f"{job}:{job}-train/"
+        return {k: e.ref for k, e in sm.entries.items()
+                if k.startswith(pre) and e.ref.dtype == torch.float32}
+
+    def traced_migrate(job, src, dst):
+        # the job is held and quiesced here: no op runs between the reads
+        before = {k: v.clone() for k, v in f32_entries(job, src).items()}
+        ptrs = {k: v.data_ptr() for k, v in f32_entries(job, src).items()}
+        moved = migrate_job(job, src, dst)
+        after = f32_entries(job, dst)
+        moves.append(dict(
+            router.migrate_log[-1], f32_leaves=len(before),
+            bit_exact=before.keys() == after.keys() and all(
+                torch.equal(v, after[k]) for k, v in before.items()),
+            same_storage=all(after[k].data_ptr() == p
+                             for k, p in ptrs.items())))
+        return moved
+
+    router.migrate_job = traced_migrate
+
+    def cfg(job, seed):
+        return JobConfig(job_id=job, model_name=ARCH, seed=seed,
+                         overrides=TRAIN_OVERRIDES,
+                         **dict(TRAIN, max_new_tokens=CP_NEW,
+                                steps=CP_STEPS[job]))
+
+    def kinds():
+        return [e["event"] for e in c.director.events]
+
+    def wait(done, what):
+        deadline = time.monotonic() + 300
+        while not done():
+            if c.client_errors or time.monotonic() > deadline:
+                fail(f"{what}; client errors {c.client_errors}; director "
+                     f"events {c.director.events}")
+            time.sleep(0.05)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with c.serve():
+        c.add_job(cfg("auto-a", 1), group_id=None)
+        c.add_job(cfg("auto-b", 2), group_id=None)
+        wait(lambda: all(c.director.job_state(j).phase == "warm"
+                         for j in ("auto-a", "auto-b")), "no warm promotion")
+        ga, gb = (c.director.job_state(j).group_id
+                  for j in ("auto-a", "auto-b"))
+        if ga != gb:
+            fail(f"warm jobs on groups {ga} and {gb}: {c.director.events}")
+        wait(lambda: "retire_group" in kinds(),
+             "the profiling group never retired")
+        spawns = kinds().count("spawn_group")
+        c.add_job(cfg("auto-c", 3), group_id=None)
+        gc_ = c.director.job_state("auto-c").group_id
+        if kinds().count("spawn_group") != spawns + 1 or gc_ == ga:
+            fail(f"auto-c on group {gc_} without a spawn: "
+                 f"{c.director.events}")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for e in c.director.events:
+        print(f"  director: {e}")
+    for m in moves:
+        print(f"  migration: {m}")
+    print(f"  {wall} s in serve(); launches {launches}")
+    job_bytes = {}
+    for job, steps in CP_STEPS.items():
+        ctl, rec = c.controllers[job], c.billing[job]
+        wpg = ctl.dep.wpg
+        job_bytes[job] = wpg.sm.job_bytes(wpg.job_prefix)
+        logged = sum(dt for _, dt in wpg.exec_log)
+        group = router.group_of[ctl.dep.deployment_id]
+        print(f"  bill {job}: busy {rec.busy_seconds} s (exec log "
+              f"{logged} s), switch {rec.switch_seconds} s, steps "
+              f"{rec.steps}, gpu-seconds a step {rec.gpu_seconds_per_step()}"
+              f"; {job_bytes[job]} B on group {group}")
+        if ctl.steps_completed != steps or rec.steps != steps or \
+                not math.isclose(rec.busy_seconds, logged):
+            fail(f"{job}: {ctl.steps_completed} steps, bill {rec}")
+        if not all(math.isfinite(m["loss"]) for m in ctl.metrics_log):
+            fail(f"{job}: non-finite loss")
+    if not any(m["bytes"] == job_bytes[m["job"]] and not m["cross_mesh"]
+               and m["bit_exact"] for m in moves):
+        fail(f"no live migration of a whole job: {moves}")
+    want = train_launches_want(24, sum(CP_STEPS.values()), CP_NEW)
+    if launches != want:
+        fail(f"control-plane launches {launches}, want {want}")
+    for k in ("flash_attention", "decode_attention"):
+        records[k]["control_plane_launches"] = launches[k]
+
+    # every entry of auto-c on the card, wherever the last switch left it
+    wpg = c.controllers["auto-c"].dep.wpg
+    wpg.ensure_resident()
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    c.remove_job("auto-c")
+    del wpg
+    gc.collect()
+    drop = before - torch.cuda.memory_allocated(dev)
+    print(f"  remove_job(auto-c): card memory allocated fell by {drop} B; "
+          f"the job held {job_bytes['auto-c']} B")
+    if abs(drop - job_bytes["auto-c"]) > MEM_TOL:
+        fail(f"remove_job released {drop} B of {job_bytes['auto-c']} B")
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -1026,9 +1248,9 @@ def main():
     del router, wpg
     release(torch, dev, "mamba2 router")
 
-    router = train_phase(torch, dev, records)
-    del router
-    release(torch, dev, "training router")
+    cluster = train_phase(torch, dev, records)
+    del cluster
+    release(torch, dev, "training cluster")
     train_parity_phase(torch, dev)
     release(torch, dev, "training parity WPGs")
 
@@ -1040,6 +1262,10 @@ def main():
     del router
     release(torch, dev, "zamba2 router")
     hybrid_parity_phase(torch, dev, 11)
+
+    train_cli_phase(records)
+    control_plane_phase(torch, dev, records)
+    release(torch, dev, "control-plane cluster")
     print(f"all phases passed in {time.monotonic() - t_start} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

@@ -10,17 +10,16 @@ future as the next op's argument is the dependency edge.
 
 Controllers run under the serial ``run()`` loop (submit + ``drain()``),
 ``drive()`` against a live ``Router.serve()`` plane, or
-:func:`run_interleaved`, which steps several jobs round-robin on one
-router as ``PlexCluster.run(interleave=True)`` does. ``RLControllerPPO``
-waits for the PPO port, ``PlexCluster`` for the Router's control-plane
-methods (ROADMAP.md, Queue 1).
+:meth:`repro_torch.core.cluster.PlexCluster.run`, which steps several jobs
+round-robin on one router and bills them. ``RLControllerPPO`` waits for
+the PPO port (ROADMAP.md, Queue 1, item 4).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -202,24 +201,3 @@ class RLControllerGRPO(_RLControllerBase):
         self._step_idx += 1
         return [metrics_f]
 
-
-def run_interleaved(router: Router,
-                    controllers: Sequence[_RLControllerBase]) -> None:
-    """Run every job to completion on ``router`` as
-    ``PlexCluster.run(interleave=True)`` drives them (``cluster.py:308-365``,
-    without its billing and placement director): each job's init, a drain,
-    then rounds of one ``submit_step`` per unfinished job and a drain. A
-    failed step raises."""
-    tails = [c.submit_init() for c in controllers if c.steps_completed == 0]
-    router.drain()
-    remaining = {id(c): c.cfg.steps - c.steps_completed for c in controllers}
-    while any(n > 0 for n in remaining.values()):
-        for c in controllers:
-            if remaining[id(c)] > 0:
-                tails += c.submit_step()
-                remaining[id(c)] -= 1
-        router.drain()
-    for f in tails:
-        f.result()
-    for c in controllers:
-        c.steps_completed = c.cfg.steps

@@ -13,9 +13,19 @@ same admission path (HRRS scoring + lock-gated start in ``TaskExecutor``):
 - :meth:`serve` / :meth:`shutdown` — one dispatch worker thread per node
   group parks on the executor's condition variable and admits work the
   moment it arrives; :meth:`create_deployment` on a new group while
-  serving spawns that group's worker.
+  serving spawns that group's worker, and :meth:`teardown` cancels a
+  departing deployment's queued operations.
 - :meth:`run_until_idle` — a bounded session of the same worker loop.
 - :meth:`step` / :meth:`drain` — the serial driver on the same path.
+
+The control methods that ``PlexCluster`` and the ``PlacementDirector``
+call are the reference's: group lifecycle (:meth:`ensure_group`,
+:meth:`retire_group`), telemetry, tenant binding, and live re-placement
+(:meth:`reassign_job` → :meth:`migrate_job` → ``StateManager.migrate``).
+Groups that lease the same device (every group on one H100) run their
+dispatch threads at once on that device, as the reference does on one
+device. The process plane and multi-device slices are not ported
+(ROADMAP.md, Queue 1, items 6 and 7).
 
 Futures passed as operation arguments are dataflow edges (see
 :mod:`repro_torch.core.api`); an operation that raises resolves its future
@@ -52,10 +62,18 @@ class Router:
         self.group_of: Dict[str, int] = {}       # deployment -> node group
         self.state_managers: Dict[int, StateManager] = {}
         self.device_plane = device_plane or DevicePlane()
+        # realized migration costs, drained by the PlacementDirector to
+        # calibrate its migration-cost floor
+        self.migrate_log: List[dict] = []
         self.executor = TaskExecutor(now=now, policy=policy)
-        # HRRS priority weight per job; 1.0 (the default) leaves the score
-        # unchanged
+        # per-job tenant binding and HRRS priority weight; 1.0 (the
+        # default) leaves the score unchanged
         self.job_priority: Dict[str, float] = {}
+        self.job_tenant: Dict[str, str] = {}
+        # set by PlexCluster; tenant_telemetry() merges its snapshot
+        self.tenant_ledger = None
+        # dispatch workers abandoned while hung in wpg.execute
+        self._abandoned: List[threading.Thread] = []
         # per-job queued-op table, keyed by req_id for O(1) finalize
         self.request_queues: Dict[str, Dict[int, api.QueuedOperation]] = {}
         self.pending: Dict[int, api.QueuedOperation] = {}
@@ -64,8 +82,11 @@ class Router:
         # exceptions raised by user callbacks during future resolution; a
         # broken callback must not kill a dispatch thread mid-protocol
         self.callback_errors: List[Tuple[int, BaseException]] = []
+        # serve plane: one stop token per group worker (so retire_group can
+        # stop one) and the plane-wide shutdown token
         self._serving = False
         self._serve_stop = threading.Event()
+        self._serve_stops: Dict[int, threading.Event] = {}
         self._serve_threads: Dict[int, threading.Thread] = {}
         self._serve_executed: Dict[int, List[int]] = {}
         self._serve_err_start = 0
@@ -81,6 +102,11 @@ class Router:
                                   group_id))
             self.state_managers[group_id] = sm
         return sm
+
+    def mesh_domains(self) -> Dict[int, int]:
+        """group id -> slice index (the placement layer's domain map: a
+        move between different domains pays the cross-device copy)."""
+        return self.device_plane.domains()
 
     def create_deployment(self, spec: api.DeploymentSpec, group_id: int = 0):
         """Register a deployment (low level; returns the WPG). While serving,
@@ -106,14 +132,82 @@ class Router:
         self.create_deployment(spec, group_id=group_id)
         return api.Deployment(spec, self)
 
+    def teardown(self, deployment_id: str):
+        """Detach a deployment from the (possibly live) plane.
+
+        Its queued operations are cancelled: each resolves its future with a
+        teardown error, and anything depending on them is poisoned through
+        the normal failure path. An operation already RUNNING completes and
+        resolves its future normally, and its managed state is dropped once
+        it has. The job's request queue is dropped once its last deployment
+        detaches."""
+        cancelled: List[Tuple[api.QueuedOperation, Exception]] = []
+        ex = self.executor
+        with ex.cv:
+            wpg = self.wpgs.pop(deployment_id, None)
+            spec = self.deployments.pop(deployment_id, None)
+            self.group_of.pop(deployment_id, None)
+            if spec is not None:
+                err = RuntimeError(f"deployment {deployment_id} torn down")
+                for qop in list(self.pending.values()):
+                    if qop.deployment_id != deployment_id:
+                        continue
+                    task = ex.tasks.get(qop.req_id)
+                    if task is None or task.state != State.QUEUED:
+                        # RUNNING (possibly admitted but not yet executing):
+                        # pin the backend so the op completes normally
+                        qop.pinned_wpg = wpg
+                        continue
+                    ex.finish(task, error=str(err))
+                    self._finalize(qop)
+                    cancelled.append((qop, err))
+                if not any(s.job_id == spec.job_id
+                           for s in self.deployments.values()):
+                    self.request_queues.pop(spec.job_id, None)
+                    self.job_priority.pop(spec.job_id, None)
+                    self.job_tenant.pop(spec.job_id, None)
+            if cancelled:
+                # hold the idle guard across the error callbacks below (a
+                # callback may resubmit; same protocol as _reap_and_resolve)
+                ex.inflight += 1
+        if wpg is not None:
+            # an op pinned mid-execute still reads this deployment's state:
+            # let it drain before the entries are dropped (bounded; submits
+            # to the torn-down deployment are refused, so its pending ops
+            # can only shrink)
+            with ex.cv:
+                ex.cv.wait_for(
+                    lambda: not any(q.deployment_id == deployment_id
+                                    for q in self.pending.values()),
+                    timeout=120.0)
+            wpg.sm.unregister(wpg.sm.keys_for(wpg.job_prefix))
+        if cancelled:
+            try:
+                for qop, err in cancelled:
+                    self._resolve_future(qop, None, err)
+            finally:
+                with ex.cv:
+                    ex.inflight -= 1
+                    ex.cv.notify_all()
+
     # -------------------------------------------------------------- submit
+    def register_job_tenant(self, job_id: str, tenant_id: str,
+                            priority: float = 1.0):
+        """Bind a job to its tenant and HRRS priority weight (1.0 leaves the
+        score unchanged). Cleared when the job's last deployment
+        detaches."""
+        with self.executor.cv:
+            self.job_tenant[job_id] = tenant_id
+            self.job_priority[job_id] = priority
+
     def submit_queued_operation(self, qop: api.QueuedOperation) -> api.Future:
         """Non-blocking API handler (§5.2.2): wrap + enqueue, return at once.
         Thread-safe: callbacks submit follow-ups from dispatch threads."""
         with self.executor.cv:
             if qop.deployment_id not in self.group_of:
                 raise RuntimeError(
-                    f"unknown deployment {qop.deployment_id!r}")
+                    f"unknown deployment {qop.deployment_id!r} "
+                    "(never created, or torn down)")
             qop.arrival_time = self.now()
             self.request_queues.setdefault(qop.job_id, {})[qop.req_id] = qop
             req = hrrs.Request(req_id=qop.req_id, job_id=qop.job_id,
@@ -237,10 +331,15 @@ class Router:
         OUTSIDE the executor lock, so callbacks may submit follow-ups."""
         with self.executor.cv:
             qop = self.pending[task.request.req_id]
-            wpg = self.wpgs.get(qop.deployment_id)
+            # an op RUNNING when its deployment tore down keeps executing on
+            # the pinned backend, so it still completes (and bills) normally
+            wpg = self.wpgs.get(qop.deployment_id) or qop.pinned_wpg
         result, err = None, None
         try:
             qop.resolve_args()
+            if wpg is None:
+                raise RuntimeError(
+                    f"deployment {qop.deployment_id} torn down")
             if qop.op != api.Op.INIT:
                 self._handle_job_transition(group_id, qop, wpg)
             result = wpg.execute(qop)
@@ -333,9 +432,10 @@ class Router:
             if group_id in self._serve_threads:
                 return
             counter = self._serve_executed.setdefault(group_id, [0])
+            stop = self._serve_stops[group_id] = threading.Event()
             t = threading.Thread(
                 target=self._worker_loop,
-                args=(group_id, self._serve_stop, True, counter, 0),
+                args=(group_id, stop, True, counter, 0),
                 name=f"serve-g{group_id}", daemon=True)
             self._serve_threads[group_id] = t
         t.start()
@@ -348,6 +448,7 @@ class Router:
             if self._serving:
                 raise RuntimeError("already serving")
             self._serve_stop = threading.Event()
+            self._serve_stops = {}
             self._serve_threads = {}
             self._serve_executed = {}
             self._serve_err_start = len(self.callback_errors)
@@ -364,6 +465,8 @@ class Router:
             return
         with self.executor.cv:
             self._serve_stop.set()
+            for stop in self._serve_stops.values():
+                stop.set()
             self.executor.cv.notify_all()
         deadline = None if timeout is None else time.monotonic() + timeout
         for t in self._serve_threads.values():
@@ -373,9 +476,12 @@ class Router:
         with self.executor.cv:
             self._serving = False
             self._serve_threads = {}
+            self._serve_stops = {}
+            self._abandoned.extend(leaked)
         for t in leaked:
             logger.warning("serve worker %s still hung in execute at "
-                           "shutdown; abandoned as a daemon", t.name)
+                           "shutdown; abandoned as a daemon (see "
+                           "abandoned_workers())", t.name)
         self._raise_callback_errors(self._serve_err_start)
 
     def __enter__(self) -> "Router":
@@ -401,6 +507,223 @@ class Router:
         with ex.cv:
             return ex.cv.wait_for(
                 lambda: ex.outstanding() == 0 and ex.inflight == 0, timeout)
+
+    def abandoned_workers(self) -> List[str]:
+        """Names of dispatch workers abandoned while hung in ``execute``
+        (the threads are daemons and exit when their op returns; entries
+        prune themselves here)."""
+        with self.executor.cv:
+            self._abandoned = [t for t in self._abandoned if t.is_alive()]
+            return [t.name for t in self._abandoned]
+
+    # ------------------------------------------- group lifecycle / telemetry
+    def known_groups(self) -> List[int]:
+        with self.executor.cv:
+            return sorted(set(self.group_of.values())
+                          | set(self.state_managers)
+                          | set(self._serve_threads))
+
+    def ensure_group(self, group_id: int) -> StateManager:
+        """Register a node group with the control plane (a capacity
+        spawn, §4.4): its StateManager exists from here on, and while
+        serving a dispatch worker is spawned for it."""
+        with self.executor.cv:
+            sm = self._group_sm(group_id)
+            serving = self._serving
+        if serving:
+            self._ensure_serve_worker(group_id)
+        return sm
+
+    def retire_group(self, group_id: int, timeout: float = 30.0):
+        """Capacity-adjustment retire: stop one group's dispatch worker,
+        forget its scheduling state and return its device lease. Refuses
+        while the group still hosts deployments or open tasks."""
+        ex = self.executor
+        with ex.cv:
+            live = [d for d, g in self.group_of.items() if g == group_id]
+            if live:
+                raise RuntimeError(
+                    f"group {group_id} still hosts deployments {live}")
+            stuck = [t.request.req_id for t in ex.tasks.values()
+                     if t.group_id == group_id
+                     and t.state in (State.QUEUED, State.RUNNING)]
+            if stuck:
+                raise RuntimeError(
+                    f"group {group_id} still has open tasks {stuck}")
+            t = self._serve_threads.pop(group_id, None)
+            stop = self._serve_stops.pop(group_id, None)
+            if stop is not None:
+                stop.set()
+            ex.cv.notify_all()
+        if t is not None:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"group {group_id} worker did not exit in {timeout}s")
+        try:
+            ex.drop_group(group_id)
+        except RuntimeError:
+            # an attach raced the retire and submitted work: put the
+            # dispatch worker back so the new deployment is not stranded
+            if self._serving:
+                self._ensure_serve_worker(group_id)
+            raise
+        with ex.cv:
+            # an attach that raced past drop_group owns the group again:
+            # leave its (empty) StateManager alone
+            if not any(g == group_id for g in self.group_of.values()):
+                sm = self.state_managers.get(group_id)
+                if sm is not None and not sm.entries:
+                    del self.state_managers[group_id]
+                    self.device_plane.release(group_id)
+
+    def group_telemetry(self) -> Dict[int, dict]:
+        """Per-group queue depth and occupancy (the §4.4 capacity
+        adjuster's input): queue_depth (QUEUED ops), running (an op holds
+        the group lock), busy_seconds (measured execution), resident_job,
+        deployments, worker (a live serve thread)."""
+        ex = self.executor
+        with ex.cv:
+            groups = (set(self.group_of.values()) | set(self.state_managers)
+                      | set(self._serve_threads))
+            out: Dict[int, dict] = {}
+            for g in sorted(groups):
+                lock = ex.locks.get(g)
+                out[g] = {
+                    "queue_depth": ex.queued_count.get(g, 0),
+                    "running": bool(lock and lock.holder is not None),
+                    "busy_seconds": ex.group_busy.get(g, 0.0),
+                    "resident_job": ex.resident_job.get(g),
+                    "deployments": sorted(
+                        d for d, gg in self.group_of.items() if gg == g),
+                    "worker": g in self._serve_threads,
+                }
+        return out
+
+    def tenant_telemetry(self) -> Dict[str, dict]:
+        """Per-tenant snapshot beside :meth:`group_telemetry`:
+        queue_depth, running, jobs and groups from the plane, merged with
+        the :class:`~repro_torch.core.tenancy.TenantLedger`'s accounting
+        (gpu_seconds, steps_total, slo_attainment, step_p95_s,
+        pending_jobs) where one is wired."""
+        ex = self.executor
+        out: Dict[str, dict] = {}
+
+        def slot(tenant: str) -> dict:
+            return out.setdefault(tenant, {
+                "queue_depth": 0, "running": 0,
+                "jobs": set(), "groups": set()})
+
+        with ex.cv:
+            for t in ex.tasks.values():
+                if t.state not in (State.QUEUED, State.RUNNING):
+                    continue
+                s = slot(self.job_tenant.get(t.request.job_id, "default"))
+                if t.state == State.QUEUED:
+                    s["queue_depth"] += 1
+                else:
+                    s["running"] += 1
+            for dep_id, spec in self.deployments.items():
+                s = slot(self.job_tenant.get(spec.job_id, "default"))
+                s["jobs"].add(spec.job_id)
+                s["groups"].add(self.group_of[dep_id])
+            for job_id, tenant in self.job_tenant.items():
+                slot(tenant)["jobs"].add(job_id)
+        if self.tenant_ledger is not None:
+            for tenant, acct in self.tenant_ledger.snapshot().items():
+                slot(tenant).update(acct)
+        for s in out.values():
+            s["jobs"] = sorted(s["jobs"])
+            s["groups"] = sorted(s["groups"])
+        return out
+
+    # ------------------------------------------------- elastic re-placement
+    def migrate_job(self, job_id: str, src_group: int, dst_group: int) -> int:
+        """Move a job's managed state across groups (§4.5.3). Callers
+        quiesce and hold the job first (:meth:`reassign_job`). The move
+        runs outside the executor lock, so other groups keep dispatching;
+        only the map swaps take it. The realized cost is appended to
+        :attr:`migrate_log`."""
+        with self.executor.cv:
+            src = self.state_managers[src_group]
+            dst = self._group_sm(dst_group)
+            targets = [(d, w) for d, w in self.wpgs.items()
+                       if w.spec.job_id == job_id]
+        t0 = self.now()
+        moved = 0
+        cross = False
+        for _, wpg in targets:
+            moved += src.migrate(wpg.job_prefix, dst)
+            cross = cross or bool(src.last_migrate["cross_mesh"])
+        dt = self.now() - t0
+        with self.executor.cv:
+            for dep_id, wpg in targets:
+                wpg.sm = dst
+                self.group_of[dep_id] = dst_group
+            if self.executor.resident_job.get(src_group) == job_id:
+                self.executor.resident_job[src_group] = None
+            self.migrate_log.append({
+                "job": job_id, "src": src_group, "dst": dst_group,
+                "bytes": moved, "seconds": dt, "cross_mesh": cross,
+                "t": self.now()})
+            if len(self.migrate_log) > 1024:
+                del self.migrate_log[:len(self.migrate_log) - 1024]
+        return moved
+
+    def reassign_job(self, job_id: str, dst_group: int,
+                     timeout: float = 120.0) -> int:
+        """Realize a re-placement against the live plane: hold the job's
+        admissions, wait for its RUNNING ops to drain, migrate its state,
+        re-home its queued ops onto ``dst_group``, release. Billing stays
+        continuous: the exec logs live on the WPGs, which survive."""
+        ex = self.executor
+        ex.hold_job(job_id)
+        try:
+            with ex.cv:
+                ok = ex.cv.wait_for(lambda: not ex.job_running(job_id),
+                                    timeout)
+            if not ok:
+                raise TimeoutError(
+                    f"job {job_id} did not quiesce within {timeout}s")
+            with ex.cv:
+                src_groups = {g for d, g in self.group_of.items()
+                              if self.deployments[d].job_id == job_id}
+            moved = 0
+            for src in src_groups:
+                if src != dst_group:
+                    moved += self.migrate_job(job_id, src, dst_group)
+            if self._serving:
+                self._ensure_serve_worker(dst_group)
+            ex.rehome_job(job_id, dst_group)
+        finally:
+            ex.release_job(job_id)
+        return moved
+
+    def reassign_jobs(self, moves, timeout: float = 120.0) -> List[tuple]:
+        """Realize a batch of moves (the §4.3.2 repack loop's output), each
+        through :meth:`reassign_job`, moves out of a group before moves
+        into it; a cycle is broken at the lowest job id. A failing move is
+        captured in its slot and the rest still run. Returns ``(move,
+        moved_bytes, error)`` in execution order; a move is anything with
+        ``job_id`` / ``src_group`` / ``dst_group``."""
+        remaining = sorted(moves, key=lambda m: m.job_id)
+        ordered = []
+        while remaining:
+            pick = next((m for m in remaining
+                         if not any(o.src_group == m.dst_group
+                                    for o in remaining if o is not m)),
+                        remaining[0])
+            remaining.remove(pick)
+            ordered.append(pick)
+        results: List[tuple] = []
+        for m in ordered:
+            try:
+                moved = self.reassign_job(m.job_id, m.dst_group,
+                                          timeout=timeout)
+                results.append((m, moved, None))
+            except Exception as e:  # noqa: BLE001 - per-move isolation
+                results.append((m, 0, e))
+        return results
 
     # -------------------------------------------------- bounded driver
     def run_until_idle(self, timeout: Optional[float] = None) -> int:
@@ -442,9 +765,11 @@ class Router:
                         ex.cv.notify_all()
                 t.join(timeout=max(0.0, deadline + 1.0 - time.monotonic()))
                 if t.is_alive():
+                    with ex.cv:
+                        self._abandoned.append(t)
                     logger.warning("dispatch worker %s hung in execute past "
-                                   "the abandon grace; leaked as a daemon",
-                                   t.name)
+                                   "the abandon grace; leaked as a daemon "
+                                   "(see abandoned_workers())", t.name)
                 break
         if timed_out.is_set():
             with ex.cv:

@@ -17,8 +17,14 @@ Updates are in place (:meth:`write`): the reference re-registers a new
 tree after every step, which here would allocate the pinned host buffers
 of a train deployment (its parameters and f32 AdamW moments) again at its
 next offload. Weight sync (:meth:`sync_weights`) therefore returns a copy.
-The DISK tier, capacity eviction, migration and the host optimizer step of
-``repro.core.state_manager`` are not ported yet (ROADMAP.md, Queue 1).
+
+Migration (:meth:`migrate`) hands a job's entries to another group's
+manager. Between groups that lease the same device (every group on one
+H100) a DEVICE entry changes owner without a copy; across devices it is
+copied to the destination's device. The DISK tier, capacity eviction, the
+cross-process ``export_state`` / ``import_state`` and the host optimizer
+step of ``repro.core.state_manager`` are not ported yet (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -59,7 +65,9 @@ class StateManager:
         self.mesh_slice = mesh_slice
         self.entries: Dict[str, Entry] = {}
         self._bw_estimate: Dict[str, float] = {}   # bytes/s per direction
-        self.bytes_moved: Dict[str, int] = {"offload": 0, "load": 0}
+        self.bytes_moved: Dict[str, int] = {"offload": 0, "load": 0,
+                                            "migrate": 0}
+        self.last_migrate: Optional[Dict[str, object]] = None
 
     @property
     def device(self) -> torch.device:
@@ -169,6 +177,45 @@ class StateManager:
         dt = self.clock() - t0
         self._record("load", moved, dt)
         return dt
+
+    def migrate(self, job_id: str, dst: "StateManager") -> int:
+        """Cross-group migration (§4.5.3): hand the job's entries to
+        ``dst`` and drop them here. Returns the bytes moved.
+
+        A DEVICE entry whose destination has the same device changes owner
+        as it is (``cross_mesh`` False: a round trip through the host would
+        buy nothing); across devices it is copied to ``dst``'s device, and
+        the clock is read after a sync. A HOST entry moves with its pinned
+        buffer. Transactional: nothing is dropped here until every entry
+        has landed on ``dst``; a failure in the middle rolls ``dst`` back
+        and leaves this manager as it was."""
+        cross_mesh = dst.device != self.device
+        self._sync()
+        t0 = self.clock()
+        keys = list(self.keys_for(job_id))
+        staged: List[str] = []
+        moved = 0
+        try:
+            for k in keys:
+                e = self.entries[k]
+                ref = e.ref
+                if e.tier == Tier.DEVICE and cross_mesh:
+                    ref = ref.to(dst.device, non_blocking=True)
+                dst.entries[k] = dataclasses.replace(e, ref=ref, refcount=1)
+                staged.append(k)
+                moved += e.nbytes
+            dst._sync()
+        except Exception:
+            for k in staged:     # rollback: the source still owns the state
+                dst.entries.pop(k, None)
+            raise
+        for k in keys:
+            self.unregister([k])
+        dt = self.clock() - t0
+        self._record("migrate", moved, dt)
+        self.last_migrate = {"bytes": moved, "seconds": dt,
+                             "cross_mesh": cross_mesh, "keys": len(keys)}
+        return moved
 
     # --------------------------------------------------------- estimates
     def load_time_estimate(self, nbytes: int) -> float:

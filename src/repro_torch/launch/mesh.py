@@ -4,7 +4,8 @@ The :class:`DevicePlane` cuts the device list into one-device
 :class:`MeshSlice`\\ s and leases them to node groups with the leasing rule
 of ``repro.launch.mesh.DevicePlane``: the lowest free slice first, then the
 least-loaded shared one. On one H100 every group shares the one slice, as
-the JAX plane does on one device. The plane defaults to the CUDA devices
+the JAX plane does on one device; a retired group returns its lease
+(:meth:`DevicePlane.release`). The plane defaults to the CUDA devices
 and raises when there are none; tests pass ``devices=[torch.device("cpu")]``.
 Multi-device slices wait for the sharding port (ROADMAP.md, Queue 1).
 """
@@ -60,3 +61,20 @@ class DevicePlane:
                 self._owner[group_id] = idx
                 self._holders[idx] = self._holders.get(idx, 0) + 1
             return slices[idx]
+
+    def release(self, group_id: int):
+        """Return ``group_id``'s lease (a retired group)."""
+        with self._lock:
+            idx = self._owner.pop(group_id, None)
+            if idx is not None:
+                self._holders[idx] = max(0, self._holders.get(idx, 1) - 1)
+
+    def slice_index(self, group_id: int) -> Optional[int]:
+        with self._lock:
+            return self._owner.get(group_id)
+
+    def domains(self) -> Dict[int, int]:
+        """group id -> slice index for every leased group (the placement
+        layer's mesh-domain map: moves across domains pay the copy)."""
+        with self._lock:
+            return dict(self._owner)

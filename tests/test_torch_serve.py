@@ -258,8 +258,9 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
 
 def test_port_trains_two_grpo_jobs_without_jax_or_reference_package():
     """Every module imports with ``jax`` and ``repro`` blocked; two GRPO
-    jobs then take two interleaved steps each on one CPU group, and the
-    context switches move each job's AdamW state with its parameters."""
+    jobs then take two interleaved steps each on one CPU group of a
+    ``PlexCluster``, which bills both steps, and the context switches move
+    each job's AdamW state with its parameters."""
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
@@ -270,20 +271,21 @@ def test_port_trains_two_grpo_jobs_without_jax_or_reference_package():
         "for m in pkgutil.walk_packages(repro_torch.__path__,",
         "                               'repro_torch.'):",
         "    importlib.import_module(m.name)",
-        "from repro_torch.core.controller import (JobConfig,",
-        "    RLControllerGRPO, run_interleaved)",
-        "from repro_torch.core.router import Router",
+        "from repro_torch.core.cluster import PlexCluster",
+        "from repro_torch.core.controller import JobConfig",
         "from repro_torch.launch.mesh import DevicePlane",
         f"tiny = {OVERRIDES!r}",
-        "router = Router(device_plane=DevicePlane(devices=['cpu']))",
-        "ctls = [RLControllerGRPO(JobConfig(",
+        "cluster = PlexCluster(device_plane=DevicePlane(devices=['cpu']))",
+        "router = cluster.router",
+        "ctls = [cluster.add_job(JobConfig(",
         "    job_id=j, model_name='qwen2-0.5b', batch_size=4, group_size=2,",
         "    prompt_len=12, max_new_tokens=4, seq_len=16, steps=2, seed=s,",
-        "    overrides=tiny), router)",
+        "    overrides=tiny))",
         "    for s, j in enumerate('AB', 1)]",
-        "run_interleaved(router, ctls)",
+        "billing = cluster.run(interleave=True)",
         "sm = router.state_managers[0]",
         "for c in ctls:",
+        "    assert billing[c.cfg.job_id].steps == 2",
         "    pre = c.dep.wpg.job_prefix",
         "    assert len(c.metrics_log) == 2, c.metrics_log",
         "    assert all(math.isfinite(m['loss']) for m in c.metrics_log)",
