@@ -61,14 +61,40 @@ Phases (any failure raises and the process exits non-zero):
 12. the training entry point: ``python -m repro_torch.launch.train`` at
     full qwen2-0.5b width and depth (two jobs, two steps each) in a child
     process on its default device, the card, with the kernels' launch
-    counts set to 0 before it and printed after;
+    counts set to 0 before it and printed after, and ``--ckpt-dir`` under a
+    temporary directory: what it wrote after the run is listed;
 13. the control plane live on the card: a serving ``PlexCluster`` whose
     ``PlacementDirector`` cold-places two full-width training jobs on
     their own groups, re-fits them onto one group (migrating one live:
     its f32 leaves bit-exact across the move, no copy on one card),
     retires the profiling group and spawns one for a third job; every job
     completes, its bill equals its exec logs, and ``remove_job`` returns
-    the third job's bytes to the card.
+    the third job's bytes to the card;
+14. phase 8 for mamba2-2.7b at full width and depth (K3 under its
+    autograd Function in every update_actor's forward: 64 launches a
+    generate and 64 an update, none of K1 or K2), once the host's
+    ``MemTotal`` and ``MemAvailable`` are printed and shown to hold both
+    jobs' pinned train state (27,025,822,724 B a job, which every switch
+    moves);
+15. training parity for the ssm and hybrid families: one update_actor on
+    the card against the CPU's plain path, mamba2-2.7b at 4 layers and
+    zamba2-7b at 8 blocks (one application of the shared block between
+    Mamba2 blocks), full width; then K3's Function against plain autograd
+    through ``ssd_chunked`` at the training shape (B=16 S=128 H=80 P=64
+    N=128) and K3's timing there (the record's ``training`` row);
+16. PPO: a PPO job (actor and critic) and a GRPO job of qwen2-0.5b at full
+    width on group 0, two steps each, through ``PlexCluster.run``, with
+    launch counts, both bills and the critic's divergence from the actor
+    after SYNC_WEIGHTS and a value step; a seeded PPO actor step with
+    token-level advantages (a non-zero gradient that moves the moments);
+    then ``OPTIM_STEP(host=True)`` at lr 1e-2 against the device AdamW (no
+    clip, warmup or weight decay): every parameter leaf moves, the host
+    parameters agree within 2e-3 and the card-resident moments within a
+    relative 1e-5;
+17. checkpoints and the DISK tier: a full-width qwen2-0.5b training job's
+    state to DISK and back, one ``host_capacity`` eviction to DISK, then
+    ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
+    on the card; the temporary files are removed at the end.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -81,8 +107,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -135,6 +163,9 @@ TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
              seq_len=128, steps=2)
 TRAIN_OVERRIDES = ()
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 4, 128
+# phase 15's zamba2 parity: the fewest blocks (period 7) that hold one
+# application of the shared block with Mamba2 blocks on both sides
+HYB_TRAIN_PARITY_LAYERS = 8
 TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
 
 # phase 12: the training entry point at the full config (0 keeps the
@@ -533,7 +564,7 @@ def ssd_timing(torch, gen, dev, h, n, cases):
     d_kernel = device_ms(torch, kernel, sets, 10)
     flops = ssd_flops(b, s, h, p, n, SSM_CHUNK)
     t_bound, by = bound(per_call, flops)
-    shape = f"B={b} S={s} H={h} P={p} N={n} chunk={SSM_CHUNK}"
+    shape = f"B={b} S={s} H={h} P={p} N={n} chunk={min(SSM_CHUNK, s)}"
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
           f"plain {t_plain} ms, no library call computes an SSD scan, bound "
           f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
@@ -733,6 +764,14 @@ def seeded_train_batch(forward, b, s, p_len, seed):
     return batch
 
 
+def moment_sums(wpg):
+    """Each f32 first-moment leaf's sum of magnitudes."""
+    from repro_torch.models import common
+
+    return {k: v.abs().sum().item() for k, v in
+            common.canonical_flat(wpg.opt_state().mu).items()}
+
+
 def counted(wpg, job, log):
     """Wrap a WPG's ``execute`` to log each op's job, name, seconds (from
     its exec_log) and the kernel launches it made."""
@@ -750,22 +789,26 @@ def counted(wpg, job, log):
     wpg.execute = run
 
 
-def train_phase(torch, dev, records):
-    """Two GRPO jobs' steps through Router -> HRRS -> WPG at full width,
-    then a seeded update and a profiled one."""
+def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
+    """Two GRPO jobs' steps of ``arch`` through Router -> HRRS -> WPG at
+    full width, then a seeded update and a profiled one. Returns the
+    cluster."""
+    from repro_torch.configs import get_config
     from repro_torch.core.cluster import PlexCluster
     from repro_torch.core.controller import JobConfig
     from repro_torch.kernels import ops
     from repro_torch.models import common
 
+    overrides = TRAIN_OVERRIDES if overrides is None else overrides
     n_new = TRAIN["max_new_tokens"]
-    print(f"phase 8: GRPO training {ARCH} at full width and depth, jobs A "
-          f"and B on group 0 ({TRAIN}, overrides {TRAIN_OVERRIDES}) through "
-          f"PlexCluster.run(interleave=True)")
+    print(f"phase {phase}: GRPO training {arch} at full width and depth, "
+          f"jobs A and B on group 0 ({TRAIN}, overrides {overrides}) "
+          f"through PlexCluster.run(interleave=True)")
+    cfg = get_config(arch).replace(**dict(overrides))
     cluster = PlexCluster(n_groups=1)     # the CUDA devices; one card here
     router = cluster.router
     ctls = {job: cluster.add_job(JobConfig(
-        job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
+        job_id=job, model_name=arch, seed=seed, overrides=overrides,
         **TRAIN)) for seed, job in enumerate("AB", start=1)}
     log = []
     for job, c in ctls.items():
@@ -777,21 +820,20 @@ def train_phase(torch, dev, records):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    layers = ctls["A"].dep.wpg.cfg.num_layers
-    want = {"init": {"flash_attention": 0, "decode_attention": 0, "ssd": 0},
-            "generate": {"flash_attention": layers,
-                         "decode_attention": layers * n_new, "ssd": 0},
-            "update_actor": {"flash_attention": layers,
-                             "decode_attention": 0, "ssd": 0}}
+    want = {"init": launches_per_op(cfg, "init", n_new),
+            "generate": launches_per_op(cfg, "generate", n_new),
+            "update_actor": launches_per_op(cfg, "update_actor", n_new)}
     for job, op, sec, grew in log:
         print(f"  job {job} {op}: {sec} s, launches {grew}")
         if grew != want[op]:
             fail(f"job {job} {op}: launches {grew}, want {want[op]}")
     print(f"  {len(log)} ops in {wall} s; launches {launches}; peak card "
-          f"memory {peak} B")
+          f"memory {peak} B (card total "
+          f"{torch.cuda.get_device_properties(dev).total_memory} B)")
     sm = router.state_managers[0]
     nbytes = {job: sm.job_bytes(c.dep.wpg.job_prefix)
               for job, c in ctls.items()}
+    print(f"  train state a job: {nbytes} B")
     for sw in router.switch_log:
         print(f"  switch to {sw['to_job']}: offload {sw['t_offload']} s "
               f"{sw['offload_bytes']} B, load {sw['t_load']} s "
@@ -817,15 +859,7 @@ def train_phase(torch, dev, records):
         print(f"  bill {job}: busy {rec.busy_seconds} s, switch "
               f"{rec.switch_seconds} s, steps {rec.steps}, gpu-seconds a "
               f"step {rec.gpu_seconds_per_step()}")
-        billed = cluster._billed_ops.get(wpg.spec.deployment_id)
-        if billed != submitted or len(wpg.exec_log) != submitted or \
-                rec.steps != TRAIN["steps"]:
-            fail(f"job {job}: {billed} ops billed of {len(wpg.exec_log)} "
-                 f"run, {submitted} submitted; {rec.steps} steps billed")
-        if not math.isclose(rec.busy_seconds,
-                            sum(dt for _, dt in wpg.exec_log)):
-            fail(f"job {job}: busy {rec.busy_seconds} s is not its exec "
-                 f"log's")
+        check_bill(cluster, rec, [wpg], submitted, TRAIN["steps"])
     for job, c in ctls.items():
         if len(c.metrics_log) != TRAIN["steps"]:
             fail(f"job {job}: {len(c.metrics_log)} steps recorded")
@@ -834,10 +868,11 @@ def train_phase(torch, dev, records):
                   f"{m['grad_norm']}, lr {m['lr']}, mean reward {r}")
             if not all(math.isfinite(v) for v in m.values()):
                 fail(f"job {job} step {i}: non-finite metrics {m}")
-    for k in ("flash_attention", "decode_attention"):
-        records[k]["train_launches"] = dict(
-            total=launches[k], per_generate=want["generate"][k],
-            per_update_actor=want["update_actor"][k])
+    for k, per_gen in want["generate"].items():
+        if per_gen or want["update_actor"][k]:
+            records[k].setdefault("train_launches", {})[arch] = dict(
+                total=launches[k], per_generate=per_gen,
+                per_update_actor=want["update_actor"][k])
 
     # random weights earn no reward, so the steps above had zero
     # advantages: a seeded batch makes the gradient non-zero
@@ -854,22 +889,19 @@ def train_phase(torch, dev, records):
     keys = sm.keys_for(wpg.job_prefix)
     ptrs = {k: sm.entries[k].ref.data_ptr() for k in keys}
 
-    def mu_sums():
-        return {k: v.abs().sum().item() for k, v in
-                common.canonical_flat(wpg.opt_state().mu).items()}
-
-    mu0 = mu_sums()
+    mu0 = moment_sums(wpg)
+    torch.cuda.reset_peak_memory_stats(dev)
     m = done(dep.update_actor(batch))
-    mu1 = mu_sums()
+    mu1 = moment_sums(wpg)
     print(f"  seeded update_actor (job A, B={TRAIN['batch_size']} "
           f"S={TRAIN['seq_len']}): {wpg.exec_log[-1][1]} s, loss "
           f"{m['loss']}, pg_loss {m['pg_loss']}, kl {m['kl']}, grad_norm "
-          f"{m['grad_norm']}, lr {m['lr']}")
+          f"{m['grad_norm']}, lr {m['lr']}; peak card memory "
+          f"{torch.cuda.max_memory_allocated(dev)} B")
     still = [k for k in mu1 if mu1[k] == mu0[k]]
     print(f"  f32 first moments changed in {len(mu1) - len(still)} of "
           f"{len(mu1)} leaves (unchanged: {still})")
-    if not m["grad_norm"] > 0 or len(still) > 1 or (
-            still and still != ["layers/attn/bk"]):
+    if not m["grad_norm"] > 0 or set(still) - {"layers/attn/bk"}:
         fail("the seeded update did not move the moments")
     if sm.keys_for(wpg.job_prefix) != keys or any(
             sm.entries[k].ref.data_ptr() != p for k, p in ptrs.items()):
@@ -879,30 +911,68 @@ def train_phase(torch, dev, records):
     return cluster
 
 
-def train_parity_phase(torch, dev):
-    """One update_actor on the card and on the CPU's plain path from the
-    same parameters and batch, then K1's Function against autograd
-    through the XLA-branch attention at the training shape."""
+def launches_per_op(cfg, op, n_new):
+    """The kernel launches one op of a GRPO or PPO step makes: K1 in each
+    attention layer's prefill or training forward, K2 in each decode step
+    of each attention layer, K3 in each Mamba2 block's prefill or training
+    forward."""
+    from repro_torch.models import hybrid
+
+    if cfg.family == "hybrid":
+        attn = hybrid._layout(cfg)[0]
+        mamba = cfg.num_layers - attn
+    else:
+        attn = cfg.num_layers if cfg.family == "dense" else 0
+        mamba = cfg.num_layers - attn
+    zero = {"flash_attention": 0, "decode_attention": 0, "ssd": 0}
+    if op in ("init", "optim_step", "sync_weights"):
+        return zero
+    return {"flash_attention": attn,
+            "decode_attention": attn * n_new if op == "generate" else 0,
+            "ssd": mamba}
+
+
+def check_bill(cluster, rec, wpgs, submitted, steps):
+    """Fail unless every op the job's deployments ran was billed, they ran
+    ``submitted`` ops, the job's busy seconds are their exec logs' and
+    ``steps`` steps were billed."""
+    billed = sum(cluster._billed_ops.get(w.spec.deployment_id, 0)
+                 for w in wpgs)
+    ran = sum(len(w.exec_log) for w in wpgs)
+    logged = sum(dt for w in wpgs for _, dt in w.exec_log)
+    if billed != submitted or ran != submitted or rec.steps != steps:
+        fail(f"{rec.job_id}: {billed} ops billed of {ran} run, {submitted} "
+             f"submitted; {rec.steps} steps billed")
+    if not math.isclose(rec.busy_seconds, logged):
+        fail(f"{rec.job_id}: busy {rec.busy_seconds} s is not its exec "
+             f"logs' {logged} s")
+
+
+def update_parity(torch, dev, phase, arch, overrides):
+    """One update_actor of ``arch`` (cut by ``overrides``) on the card and
+    on the CPU's plain path from the same parameters and batch: loss,
+    pg_loss and kl within 5e-2, grad_norm within 5 %, each leaf's f32 mu
+    within 5e-2 * max|mu|. Returns the worst |diff| / tolerance."""
     from repro_torch.core import api
     from repro_torch.core.state_manager import StateManager
     from repro_torch.core.worker import WorkerProcessGroup
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import xla_attention
     from repro_torch.launch.mesh import MeshSlice
     from repro_torch.models import common
     from repro_torch.train.optimizer import AdamWConfig
 
-    print(f"phase 9: training parity card vs CPU plain, {ARCH} at full "
-          f"width cut to {PARITY_LAYERS} layers (depth only), B={PARITY_B} "
-          f"S={PARITY_S}, AdamW {TRAIN_LR}, tied embedding scaled by 1/64")
     spec = api.DeploymentSpec(
-        deployment_id="parity-train", job_id="P", model_name=ARCH,
-        role="train", overrides=(("num_layers", PARITY_LAYERS),)
-        + TRAIN_OVERRIDES)
+        deployment_id=f"parity-{arch}", job_id="P", model_name=arch,
+        role="train", overrides=overrides)
     adamw = AdamWConfig(**TRAIN_LR)
     card = WorkerProcessGroup(spec, StateManager(
         mesh_slice=MeshSlice(0, dev)), adamw_cfg=adamw)
     cpu = WorkerProcessGroup(spec, StateManager(), adamw_cfg=adamw)
+    cfg = card.cfg
+    print(f"phase {phase}: training parity card vs CPU plain, {arch} at "
+          f"full width cut to {cfg.num_layers} layers (depth only), "
+          f"B={PARITY_B} S={PARITY_S}, AdamW {TRAIN_LR}"
+          + (", tied embedding scaled by 1/64" if cfg.tie_embeddings
+             else ""))
     # the seeded init's unit-scale tied embedding gives logits near 1e3
     # (a one-hot policy, mean token logprob about -800), where one bf16
     # step of a logit is 4 nats and the two sides' logprobs, ratios and kl
@@ -910,7 +980,8 @@ def train_parity_phase(torch, dev):
     # spread and a bf16 step of a logit is a few hundredths
     params = card.model.init_params(
         torch.Generator(device=dev).manual_seed(3), dev)
-    params["embed"]["embedding"].mul_(1 / 64)
+    if cfg.tie_embeddings:
+        params["embed"]["embedding"].mul_(1 / 64)
     for w in (card, cpu):
         w.execute(api.make_op(spec, api.Op.INIT, params=params))
     del params
@@ -929,9 +1000,9 @@ def train_parity_phase(torch, dev):
         print(f"  {k}: card {got}, cpu {want}, |diff| {abs(got - want)}, "
               f"tolerance {tol}")
         if not abs(got - want) <= tol:
-            fail(f"training parity {k}: {got} vs {want}")
+            fail(f"training parity {arch} {k}: {got} vs {want}")
     if not out["cpu"]["grad_norm"] > 0:
-        fail("training parity: zero gradient")
+        fail(f"training parity {arch}: zero gradient")
     mu = {w: common.canonical_flat(x.opt_state().mu)
           for w, x in (("card", card), ("cpu", cpu))}
     for k, want in mu["cpu"].items():
@@ -939,10 +1010,21 @@ def train_parity_phase(torch, dev):
         tol = 5e-2 * want.abs().max().item()
         worst = max(worst, err / tol if tol else 0.0)
         if not err <= tol:
-            fail(f"training parity: mu {k} max|diff| {err} > {tol}")
+            fail(f"training parity {arch}: mu {k} max|diff| {err} > {tol}")
     print(f"  f32 mu of {len(mu['cpu'])} leaves within 5e-2 * max|mu| "
           f"(worst |diff| / tolerance over all checks {worst})")
+    return worst
 
+
+def train_parity_phase(torch, dev):
+    """One update_actor on the card and on the CPU's plain path from the
+    same parameters and batch, then K1's Function against autograd
+    through the XLA-branch attention at the training shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import xla_attention
+
+    update_parity(torch, dev, 9, ARCH,
+                  (("num_layers", PARITY_LAYERS),) + TRAIN_OVERRIDES)
     gen = torch.Generator(device=dev).manual_seed(5)
     b, s, h, kh = TRAIN["batch_size"], TRAIN["seq_len"], H, KH
 
@@ -974,27 +1056,386 @@ def train_parity_phase(torch, dev):
           "backward")
 
 
+def ssm_parity_phase(torch, dev, records):
+    """Phase 15: update_actor parity for mamba2 and zamba2, then K3's
+    Function against plain autograd through ``ssd_chunked`` at the
+    training shape, and K3's timing there."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    update_parity(torch, dev, 15, SSM_ARCH,
+                  (("num_layers", PARITY_LAYERS),))
+    release(torch, dev, "mamba2 parity WPGs")
+    update_parity(torch, dev, 15, HYB_ARCH,
+                  (("num_layers", HYB_TRAIN_PARITY_LAYERS),))
+    release(torch, dev, "zamba2 parity WPGs")
+
+    b, s = TRAIN["batch_size"], TRAIN["seq_len"]
+    h, p, n = SSM_H, SSM_HD, SSM_N
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    args = (randn(b, s, h, p), F.softplus(randn(b, s, h, dtype=torch.float32)),
+            -torch.exp(randn(h, dtype=torch.float32)), randn(b, s, 1, n),
+            randn(b, s, 1, n))
+    ct = randn(b, s, h, p)
+    print(f"phase 15: K3's Function vs autograd through ssd_chunked, B={b} "
+          f"S={s} H={h} P={p} N={n} (one chunk of {s}), bf16 x, B, C")
+    grads = {}
+    for name, fn in (("function", lambda *a: ops.ssd(*a, chunk=SSM_CHUNK)),
+                     ("ssd_chunked", lambda *a: ssd_chunked(
+                         *a, min(SSM_CHUNK, s)))):
+        leaves = [t.clone().requires_grad_() for t in args]
+        before = ops.LAUNCHES["ssd"]
+        fn(*leaves)[0].backward(ct)
+        torch.cuda.synchronize()
+        grew = ops.LAUNCHES["ssd"] - before
+        if grew != (1 if name == "function" else 0):
+            fail(f"{name} launched K3 {grew} times")
+        grads[name] = [t.grad.float() for t in leaves]
+    for name, got, want in zip(["x", "dt", "A", "B", "C"],
+                               grads["function"], grads["ssd_chunked"]):
+        err = (got - want).abs().max().item()
+        tol = 5e-2 * want.abs().max().item()
+        print(f"  d{name}: max|diff| {err}, tolerance {tol} (|expect| max "
+              f"{want.abs().max().item()})")
+        if not err <= tol:
+            fail(f"K3's Function d{name} disagrees with ssd_chunked")
+    print("  K3 launched once by the Function's forward, none by its "
+          "backward")
+    print("phase 15: K3 at the training shape")
+    records["ssd"]["training"] = ssd_timing(torch, gen, dev, h, n,
+                                            (("training", s),))
+
+
+def ppo_phase(torch, dev, records):
+    """Phase 16: a PPO job (actor and critic) and a GRPO job of qwen2-0.5b
+    at full width on group 0, two steps each, through PlexCluster.run; a
+    seeded PPO actor step; then OPTIM_STEP(host=True) against the device
+    AdamW."""
+    import numpy as np
+    from repro_torch.core import api
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.core.state_manager import StateManager, Tier
+    from repro_torch.core.worker import WorkerProcessGroup
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MeshSlice
+    from repro_torch.models import common
+    from repro_torch.train import optimizer as opt
+
+    n_new, steps = TRAIN["max_new_tokens"], TRAIN["steps"]
+    print(f"phase 16: PPO (actor and critic) and GRPO jobs of {ARCH} at "
+          f"full width on group 0 ({TRAIN}) through PlexCluster.run")
+    cluster = PlexCluster(n_groups=1)
+    ppo = cluster.add_job(JobConfig(job_id="ppo", model_name=ARCH, seed=1,
+                                    **TRAIN), algo="ppo")
+    grpo = cluster.add_job(JobConfig(job_id="grpo", model_name=ARCH, seed=2,
+                                     **TRAIN))
+    log = []
+    for dep in (ppo.dep, ppo.critic, grpo.dep):
+        counted(dep.wpg, dep.deployment_id, log)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    billing = cluster.run(interleave=True)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cfg = ppo.dep.wpg.cfg
+    for dep_id, op, sec, grew in log:
+        print(f"  {dep_id} {op}: {sec} s, launches {grew}")
+        if grew != launches_per_op(cfg, op, n_new):
+            fail(f"{dep_id} {op}: launches {grew}")
+    want = step_launches(cfg, PPO_STEP + GRPO_STEP, n_new, steps)
+    print(f"  {len(log)} ops in {wall} s; launches {launches}, want {want}; "
+          f"peak card memory {torch.cuda.max_memory_allocated(dev)} B")
+    if launches != want:
+        fail(f"PPO + GRPO launches {launches}, want {want}")
+    sm = cluster.router.state_managers[0]
+    for dep in (ppo.dep, ppo.critic, grpo.dep):
+        print(f"  {dep.deployment_id}: {sm.job_bytes(dep.wpg.job_prefix)} B")
+    for sw in cluster.router.switch_log:
+        print(f"  switch to {sw['to_job']}: offload {sw['t_offload']} s "
+              f"{sw['offload_bytes']} B, load {sw['t_load']} s "
+              f"{sw['load_bytes']} B")
+    # PPO: 2 inits, then 8 ops a step (actor 5, critic 3); GRPO: 1 + 2
+    for ctl, wpgs, submitted in (
+            (ppo, [ppo.dep.wpg, ppo.critic.wpg], 2 + 8 * steps),
+            (grpo, [grpo.dep.wpg], 1 + 2 * steps)):
+        rec = billing[ctl.cfg.job_id]
+        print(f"  bill {ctl.cfg.job_id}: busy {rec.busy_seconds} s, switch "
+              f"{rec.switch_seconds} s, steps {rec.steps}, gpu-seconds a "
+              f"step {rec.gpu_seconds_per_step()}")
+        check_bill(cluster, rec, wpgs, submitted, steps)
+    for i, m in enumerate(ppo.metrics_log):
+        print(f"  ppo step {i}: {m}")
+        if not {"pg_loss", "value_loss", "step"} <= m.keys() or not all(
+                math.isfinite(v) for v in m.values()) or m["step"] != i + 1:
+            fail(f"ppo step {i}: metrics {m}")
+    if len(ppo.metrics_log) != steps:
+        fail(f"ppo: {len(ppo.metrics_log)} steps recorded")
+    actor = common.canonical_flat(ppo.dep.wpg.params())
+    critic = common.canonical_flat(ppo.critic.wpg.params())
+    differ = [k for k in actor if not torch.equal(actor[k].cpu(),
+                                                  critic[k].cpu())]
+    print(f"  the critic (synced actor + one value step) differs from the "
+          f"actor in {len(differ)} of {len(actor)} leaves")
+    if not differ:
+        fail("the critic's value step changed nothing")
+    records["flash_attention"]["ppo_launches"] = launches["flash_attention"]
+    records["decode_attention"]["ppo_launches"] = launches["decode_attention"]
+
+    # random weights earn no reward, so the steps above had zero
+    # advantages: a seeded batch with token-level advantages gives the
+    # actor a non-zero PPO gradient, and its step moves the moments
+    router, dep = cluster.router, ppo.dep
+
+    def done(fut):
+        router.drain()
+        return fut.result()
+
+    batch = seeded_train_batch(lambda b: done(dep.forward(b)),
+                               TRAIN["batch_size"], TRAIN["seq_len"],
+                               TRAIN["prompt_len"], 4)
+    rng = np.random.default_rng(4)
+    batch["advantages"] = (rng.standard_normal(batch["loss_mask"].shape)
+                           * batch["loss_mask"]).astype(np.float32)
+    fb = done(dep.forward_backward(batch, objective="ppo"))
+    pg = float(fb["metrics"]["pg_loss"])
+    mu0 = moment_sums(dep.wpg)
+    m = done(dep.optim_step(fb["grads"]))
+    mu1 = moment_sums(dep.wpg)
+    still = [k for k in mu1 if mu1[k] == mu0[k]]
+    print(f"  seeded PPO actor step (B={TRAIN['batch_size']} "
+          f"S={TRAIN['seq_len']}, token-level advantages): pg_loss {pg}, "
+          f"{m}; f32 first moments changed in {len(mu1) - len(still)} of "
+          f"{len(mu1)} leaves (unchanged: {still})")
+    if not (math.isfinite(pg) and m["grad_norm"] > 0) \
+            or set(still) - {"layers/attn/bk"}:
+        fail("the seeded PPO actor step did not move the moments")
+    del cluster, router, ppo, grpo, dep, actor, critic, fb
+    release(torch, dev, "PPO cluster")
+
+    # OPTIM_STEP(host=True) against the device AdamW with no clip, warmup
+    # or weight decay, at lr 1e-2 (as tests/test_state_manager.py
+    # configures it): a first Adam step moves each parameter by about lr,
+    # several bf16 steps at the init's scale and 5x the tolerance
+    cfg = opt.AdamWConfig(lr=1e-2, grad_clip=0.0, warmup_steps=0,
+                          weight_decay=0.0)
+    spec = api.DeploymentSpec(deployment_id="host-train", job_id="H",
+                              model_name=ARCH, role="train")
+    wpg = WorkerProcessGroup(spec, StateManager(mesh_slice=MeshSlice(0, dev)),
+                             adamw_cfg=cfg)
+    wpg.execute(api.make_op(spec, api.Op.INIT, 5))
+    wpg.offload()                    # makes the pinned buffers
+    wpg.ensure_resident()
+    sm = wpg.sm
+    hosts = {k: sm.entries[k].host for k in sm.keys_for(wpg.job_prefix,
+                                                        "params")}
+    moments = {k: sm.entries[k].ref for k in sm.keys_for(wpg.job_prefix,
+                                                         "opt")}
+
+    def clone(tree):
+        return common.tree_map(torch.clone, tree, is_leaf=torch.is_tensor)
+
+    p0 = clone(wpg.params())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grads = common.tree_map(
+        lambda p: (torch.randn(p.shape, generator=gen, device=dev)
+                   * 1e-2).to(p.dtype), p0, is_leaf=torch.is_tensor)
+    out = wpg.execute(api.make_op(spec, api.Op.OPTIM_STEP, grads, host=True))
+    host_s = wpg.exec_log[-1][1]
+    same_buf = all(sm.entries[k].ref is h and sm.entries[k].tier == Tier.HOST
+                   for k, h in hosts.items())
+    in_place = all(sm.entries[k].ref is t and sm.entries[k].tier == Tier.DEVICE
+                   for k, t in moments.items())
+    dev_p = clone(p0)
+    dev_st = opt.init(dev_p, cfg)
+    opt.update_(grads, dev_st, dev_p, cfg)
+    host_p = common.canonical_flat(wpg.params())
+    host_st = wpg.opt_state()
+    worst, moves, start = 0.0, [], common.canonical_flat(p0)
+    for k, v in common.canonical_flat(dev_p).items():
+        h = host_p[k].to(dev).float()
+        worst = max(worst, (h - v.float()).abs().max().item())
+        moves.append((h - start[k].float()).abs())
+    moved = sum(bool(d.max() > 0) for d in moves)
+    mean_move = (sum(d.sum().item() for d in moves)
+                 / sum(d.numel() for d in moves))
+    rel = {}
+    for mom in ("mu", "nu"):
+        want = common.canonical_flat(getattr(dev_st, mom))
+        rel[mom] = max(((t - want[k]).abs().max()
+                        / want[k].abs().max()).item()
+                       for k, t in common.canonical_flat(
+                           getattr(host_st, mom)).items())
+    print(f"  OPTIM_STEP(host=True) on {ARCH} ({sm.job_bytes(wpg.job_prefix)}"
+          f" B of state) at lr {cfg.lr}: {out}, {host_s} s; parameters on "
+          f"the host in their pinned buffers: {same_buf}; moments updated "
+          f"in place on the card: {in_place}; {moved} of {len(moves)} "
+          f"parameter leaves moved, by {mean_move} on average; "
+          f"max|host - device AdamW| {worst} (f32 tolerance 2e-3); moments' "
+          f"max relative error {rel} (tolerance 1e-5)")
+    if out != {"step": 1, "host": True} or not same_buf or not in_place \
+            or moved != len(moves) or not worst <= 2e-3 \
+            or not mean_move > cfg.lr / 2 or not max(rel.values()) <= 1e-5 \
+            or (int(host_st.step), int(dev_st.step)) != (1, 1):
+        fail("the host optimizer step disagrees with the device AdamW")
+
+
+def checkpoint_phase(torch, dev, tmp):
+    """Phase 17: a full-width qwen2-0.5b training job's state to DISK and
+    back (and one host_capacity eviction), then checkpoint_all ->
+    fail_node -> restore_all, each bit-exact on the card."""
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.core.state_manager import Tier
+
+    print(f"phase 17: checkpoints and the DISK tier, a {ARCH} training job "
+          f"at full width (one step of {CP_NEW} new tokens), files under "
+          f"{tmp}")
+    cluster = PlexCluster(n_groups=1)
+    ctl = cluster.add_job(JobConfig(
+        job_id="ck", model_name=ARCH, seed=4,
+        **dict(TRAIN, steps=1, max_new_tokens=CP_NEW)))
+    cluster.run()
+    wpg = ctl.dep.wpg
+    sm = wpg.sm
+    sm.disk_dir = os.path.join(tmp, "disk")
+    keys = sm.keys_for(wpg.job_prefix)
+    nbytes = sm.job_bytes(wpg.job_prefix)
+    kept = {k: sm.entries[k].ref.clone() for k in keys}
+
+    def bit_exact():
+        return all(sm.entries[k].tier == Tier.DEVICE
+                   and torch.equal(sm.entries[k].ref, v)
+                   for k, v in kept.items())
+
+    t_off = wpg.offload(Tier.DISK)
+    on_disk = sum(os.path.getsize(os.path.join(sm.disk_dir, f))
+                  for f in os.listdir(sm.disk_dir))
+    print(f"  DEVICE -> DISK: {nbytes} B in {t_off} s ({len(keys)} spill "
+          f"files, {on_disk} B on disk); usage {sm.usage()}")
+    t_load = wpg.ensure_resident()
+    print(f"  DISK -> DEVICE: {nbytes} B in {t_load} s; bit-exact "
+          f"{bit_exact()}; spill files left {os.listdir(sm.disk_dir)}")
+    if not bit_exact() or sm.usage()["DISK"] or os.listdir(sm.disk_dir):
+        fail("the DISK round trip changed the job's state")
+
+    # one eviction: the job on the host, a capacity just below it
+    wpg.offload()
+    sm.host_capacity = sm.usage()["HOST"] - 1
+    probe = sm.register("probe", {"x": torch.zeros(1, device=dev)})
+    evicted = [k for k in keys if sm.entries[k].tier == Tier.DISK]
+    print(f"  host_capacity {sm.host_capacity} B: registering an entry "
+          f"evicted {evicted} to DISK; usage {sm.usage()}")
+    if len(evicted) != 1 or sm.usage()["HOST"] > sm.host_capacity:
+        fail(f"one eviction to DISK expected, got {evicted}")
+    sm.unregister(probe)
+    sm.host_capacity = float("inf")
+    t_load = wpg.ensure_resident()
+    print(f"  back to DEVICE in {t_load} s; bit-exact {bit_exact()}")
+    if not bit_exact():
+        fail("the eviction round trip changed the job's state")
+
+    t0 = time.perf_counter()
+    paths = cluster.checkpoint_all(os.path.join(tmp, "ckpt"))
+    t_ck = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(p, f)) for p in paths.values()
+               for f in os.listdir(p))
+    params = {k: v for k, v in kept.items() if "/params/" in k}
+    lost = cluster.fail_node(0)
+    t0 = time.perf_counter()
+    cluster.restore_all(paths)
+    t_rs = time.perf_counter() - t0
+    back = {k: sm.entries[k] for k in sm.keys_for(wpg.job_prefix, "params")}
+    exact = back.keys() == params.keys() and all(
+        e.tier == Tier.DEVICE and e.ref.device == dev
+        and torch.equal(e.ref, params[k]) for k, e in back.items())
+    print(f"  checkpoint_all: {paths} in {t_ck} s ({size} B on disk); "
+          f"fail_node lost {len(lost)} entries; restore_all in {t_rs} s; "
+          f"{len(back)} parameter leaves bit-exact on the card: {exact}")
+    if not exact or len(lost) != len(keys):
+        fail("checkpoint_all -> fail_node -> restore_all is not bit-exact")
+
+
+def mamba2_train_phase(torch, dev, records):
+    """Phase 14: phase 8's two GRPO jobs for mamba2-2.7b at full width and
+    depth, once the card and the pinned host memory of earlier phases are
+    released; fails unless the host can pin both jobs' train state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config(SSM_ARCH))
+    n = model.param_count()
+    # the parameters (bf16, but A_log, D and dt_bias in f32), f32 mu and
+    # nu, the int32 step
+    state = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
+                common.canonical_flat(model.param_specs()).values()) \
+        + 2 * 4 * n + 4
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            mem[key] = int(val.split()[0]) * 1024
+    print(f"phase 14: {SSM_ARCH} training needs {state} B of train state a "
+          f"job, pinned on the host for two jobs: {2 * state} B; MemTotal "
+          f"{mem['MemTotal']} B, MemAvailable {mem.get('MemAvailable')} B")
+    if mem.get("MemAvailable", mem["MemTotal"]) < 2 * state:
+        fail(f"the host cannot pin two {SSM_ARCH} jobs' train state "
+             f"({2 * state} B)")
+    cluster = train_phase(torch, dev, records, 14, SSM_ARCH, ())
+    sm = cluster.router.state_managers[0]
+    held = {c.cfg.job_id: sm.job_bytes(c.dep.wpg.job_prefix)
+            for c in cluster.controllers.values()}
+    if set(held.values()) != {state}:
+        fail(f"the jobs hold {held} B, want {state} B each")
+    total = records["ssd"]["train_launches"][SSM_ARCH]["total"]
+    if total != 2 * TRAIN["steps"] * 2 * SSM_LAYERS:
+        fail(f"K3 launched {total} times in the 4 steps")
+    return cluster
+
+
 # ------------------------------------- phases 12, 13: the cluster
 
-def train_launches_want(layers, steps, n_new):
-    """Launches of ``steps`` GRPO steps: K1 in each generate's prefill and
-    each update_actor's forward, K2 in each decode step."""
-    return {"flash_attention": steps * 2 * layers,
-            "decode_attention": steps * layers * n_new, "ssd": 0}
+# the ops of one step of each algorithm, in the order the controllers
+# submit them
+GRPO_STEP = ("generate", "update_actor")
+PPO_STEP = ("generate", "forward", "forward", "forward_backward",
+            "optim_step", "sync_weights", "forward_backward", "optim_step")
 
 
-def train_cli_phase(records):
+def step_launches(cfg, ops, n_new, steps=1):
+    """The kernel launches of ``steps`` steps made of ``ops``."""
+    per_op = [launches_per_op(cfg, op, n_new) for op in ops]
+    return {k: steps * sum(p[k] for p in per_op) for k in per_op[0]}
+
+
+def train_launches_want(steps, n_new):
+    """Launches of ``steps`` GRPO steps of the full ARCH: K1 in each
+    generate's prefill and each update_actor's forward, K2 in each decode
+    step."""
+    from repro_torch.configs import get_config
+    return step_launches(get_config(ARCH), GRPO_STEP, n_new, steps)
+
+
+def train_cli_phase(records, tmp):
     """``python -m repro_torch.launch.train`` at the full config in a child
-    process on its default device. The child runs the module as ``-m``
-    does (runpy) between zeroing and printing the kernels' launch
-    counts."""
-    cmd = " ".join(TRAIN_CLI)
-    print(f"phase 12: python -m repro_torch.launch.train {cmd} (a child "
-          f"process, its default device)")
+    process on its default device, checkpointing under ``tmp`` after the
+    run. The child runs the module as ``-m`` does (runpy) between zeroing
+    and printing the kernels' launch counts."""
+    ckpt_dir = os.path.join(tmp, "launch_train")
+    argv = TRAIN_CLI + ["--ckpt-dir", ckpt_dir]
+    print(f"phase 12: python -m repro_torch.launch.train {' '.join(argv)} "
+          f"(a child process, its default device)")
     code = "\n".join([
         "import json, runpy, sys",
         "from repro_torch.kernels import ops",
-        f"sys.argv = ['repro_torch.launch.train'] + {TRAIN_CLI!r}",
+        f"sys.argv = ['repro_torch.launch.train'] + {argv!r}",
         "ops.reset_launches()",
         "runpy.run_module('repro_torch.launch.train', run_name='__main__',",
         "                 alter_sys=True)",
@@ -1019,17 +1460,29 @@ def train_cli_phase(records):
                        for i in (2, 3))
         if not (math.isfinite(first) and math.isfinite(last)):
             fail(f"{job}: loss {first}, {last}")
-    tail = lines[-2].split()
+    tail = next(ln for ln in lines if ln.startswith("wall=")).split()
     switches = int(tail[1].split("=")[1])
     if switches < 3 or tail[2] != "device=cuda:0":
-        fail(f"launch.train: {lines[-2]}")
+        fail(f"launch.train: {' '.join(tail)}")
     launches = json.loads(lines[-1].split(" ", 1)[1])
-    want = train_launches_want(24, 4, 64)
+    want = train_launches_want(4, 64)
     print(f"  child process {wall} s; launches {launches}, want {want}")
     if launches != want:
         fail(f"launch.train launches {launches}, want {want}")
     for k in ("flash_attention", "decode_attention"):
         records[k]["cluster_launches"] = launches[k]
+    # what --ckpt-dir wrote after the run
+    written = {}
+    for dep in sorted(os.listdir(ckpt_dir)):
+        path = os.path.join(ckpt_dir, dep)
+        written[dep] = {f: os.path.getsize(os.path.join(path, f))
+                        for f in sorted(os.listdir(path))}
+        with open(os.path.join(path, "metadata.json")) as f:
+            meta = json.load(f)
+        print(f"  {path}: {written[dep]}; {len(meta['tensors'])} tensors, "
+              f"step {meta['step']}, job {meta['job_id']}")
+    if sorted(written) != ["job0-train", "job1-train"]:
+        fail(f"--ckpt-dir wrote {written}")
 
 
 def control_plane_phase(torch, dev, records):
@@ -1135,7 +1588,7 @@ def control_plane_phase(torch, dev, records):
     if not any(m["bytes"] == job_bytes[m["job"]] and not m["cross_mesh"]
                and m["bit_exact"] for m in moves):
         fail(f"no live migration of a whole job: {moves}")
-    want = train_launches_want(24, sum(CP_STEPS.values()), CP_NEW)
+    want = train_launches_want(sum(CP_STEPS.values()), CP_NEW)
     if launches != want:
         fail(f"control-plane launches {launches}, want {want}")
     for k in ("flash_attention", "decode_attention"):
@@ -1263,9 +1716,22 @@ def main():
     release(torch, dev, "zamba2 router")
     hybrid_parity_phase(torch, dev, 11)
 
-    train_cli_phase(records)
-    control_plane_phase(torch, dev, records)
-    release(torch, dev, "control-plane cluster")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train_cli_phase(records, tmp)
+        control_plane_phase(torch, dev, records)
+        release(torch, dev, "control-plane cluster")
+
+        cluster = mamba2_train_phase(torch, dev, records)
+        del cluster
+        release(torch, dev, "mamba2 training cluster")
+        ssm_parity_phase(torch, dev, records)
+        ppo_phase(torch, dev, records)
+        release(torch, dev, "host-step WPG")
+        checkpoint_phase(torch, dev, tmp)
+        release(torch, dev, "checkpoint cluster")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

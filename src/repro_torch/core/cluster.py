@@ -17,10 +17,12 @@ Two operating modes:
   :meth:`remove_job` detaches one (queued ops cancel, in-flight ops
   resolve), and billing stays incremental throughout.
 
-Not ported yet, each raising ``NotImplementedError`` naming its item of
-ROADMAP.md's Queue 1: ``algo="ppo"`` (item 4), :meth:`checkpoint_all` and
-:meth:`restore_all` (item 5), ``process_plane=True`` (item 6) and
-``devices_per_group`` > 1 (item 7).
+Jobs run GRPO (``algo="grpo"``) or PPO (``algo="ppo"``: an actor and a
+critic deployment). :meth:`checkpoint_all` materialises every deployment's
+parameters and :meth:`restore_all` loads them back, after
+:meth:`fail_node` too. Not ported yet, each raising
+``NotImplementedError`` naming its item of ROADMAP.md's Queue 1:
+``process_plane=True`` (item 6) and ``devices_per_group`` > 1 (item 7).
 """
 from __future__ import annotations
 
@@ -33,13 +35,13 @@ from repro_torch.core import api
 from repro_torch.core import tenancy
 from repro_torch.core.control_plane import DirectorConfig, PlacementDirector
 from repro_torch.core.controller import (JobConfig, RLControllerGRPO,
-                                         _RLControllerBase)
+                                         RLControllerPPO, _RLControllerBase)
 from repro_torch.core.router import Router
 from repro_torch.core.state_manager import Tier
 from repro_torch.core.worker import _not_ported
 from repro_torch.launch.mesh import DevicePlane
 
-CONTROLLER_TYPES = {"grpo": RLControllerGRPO}
+CONTROLLER_TYPES = {"grpo": RLControllerGRPO, "ppo": RLControllerPPO}
 
 
 @dataclasses.dataclass
@@ -139,8 +141,6 @@ class PlexCluster:
         ``queue_on_deny=True``, parked in its tenant's pending queue
         (returns None) and replayed automatically when :meth:`remove_job`
         frees capacity. Unknown tenants are always a hard denial."""
-        if algo == "ppo":
-            raise _not_ported("RLControllerPPO (algo='ppo')", "item 4, PPO")
         tenant_id = getattr(cfg, "tenant", tenancy.DEFAULT_TENANT)
         reason = self.admission.check(
             tenant_id, cfg.job_id, self.director.placement_feasible())
@@ -436,10 +436,20 @@ class PlexCluster:
         return lost
 
     def checkpoint_all(self, base_dir: str) -> Dict[str, str]:
-        raise _not_ported("PlexCluster checkpoints", "item 5, checkpoints")
+        """Materialise every deployment's parameters under
+        ``base_dir/<deployment id>``, whichever tier holds them. Returns
+        deployment id -> checkpoint path."""
+        paths = {}
+        for dep_id, wpg in self.router.wpgs.items():
+            paths[dep_id] = wpg._op_save_checkpoint(f"{base_dir}/{dep_id}")
+        return paths
 
     def restore_all(self, paths: Dict[str, str]):
-        raise _not_ported("PlexCluster checkpoints", "item 5, checkpoints")
+        """Load each deployment's checkpoint back (into the tensors it
+        holds, or registered anew on its group's device after
+        :meth:`fail_node`)."""
+        for dep_id, path in paths.items():
+            self.router.wpgs[dep_id]._op_load_checkpoint(path)
 
     def migrate_job(self, job_id: str, src_group: int, dst_group: int):
         """Elastic re-placement: move a job's managed state across groups

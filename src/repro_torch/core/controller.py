@@ -1,6 +1,6 @@
 """RLController: the algorithm side of the decoupling (paper §4.1).
 
-The port of ``repro.core.controller`` for GRPO. A controller holds no model
+The port of ``repro.core.controller``. A controller holds no model
 state and expresses the RLVR loop purely through the remote service API:
 generate -> (verify, pack) -> update actor. A step is a straight-line
 dataflow chain against the client API: each ``Deployment`` method returns
@@ -11,8 +11,8 @@ future as the next op's argument is the dependency edge.
 Controllers run under the serial ``run()`` loop (submit + ``drain()``),
 ``drive()`` against a live ``Router.serve()`` plane, or
 :meth:`repro_torch.core.cluster.PlexCluster.run`, which steps several jobs
-round-robin on one router and bills them. ``RLControllerPPO`` waits for
-the PPO port (ROADMAP.md, Queue 1, item 4).
+round-robin on one router and bills them. ``RLControllerGRPO`` runs one
+train deployment; ``RLControllerPPO`` an actor and a critic.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import api
 from repro_torch.core.router import Router
 from repro_torch.rl import data as data_lib
+from repro_torch.rl import ppo as ppo_lib
 from repro_torch.rl import reward as reward_lib
 
 
@@ -79,9 +80,11 @@ class _RLControllerBase:
     def submit_init(self) -> api.Future:
         return self.dep.init(self.cfg.seed, exec_estimate=1.0)
 
-    def _pack(self, prompts, answers, gen_result) -> Dict[str, torch.Tensor]:
-        """Verify and pack a rollout into a GRPO batch of CPU tensors (the
-        WPG moves it to its device)."""
+    def _pack(self, prompts, answers, gen_result,
+              include_rewards: bool = False) -> Dict[str, torch.Tensor]:
+        """Verify and pack a rollout into a train batch of CPU tensors (the
+        WPG moves it to its device); with ``include_rewards`` the raw
+        rewards too (a critic's value targets need them)."""
         toks = torch.as_tensor(gen_result["tokens"]).cpu().numpy()
         logps = torch.as_tensor(gen_result["logprobs"]).cpu().numpy()
         texts = [data_lib.decode(t) for t in toks]
@@ -90,7 +93,10 @@ class _RLControllerBase:
         batch = data_lib.pack_rollout_batch(
             np.asarray(prompts), toks, logps, rewards,
             self.cfg.group_size, self.cfg.seq_len)
-        return {k: torch.from_numpy(v) for k, v in batch.items()}
+        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        if include_rewards:
+            out["rewards"] = torch.from_numpy(np.asarray(rewards))
+        return out
 
     def _gate(self) -> tuple:
         """One-step-async staleness gate (§6.3): generation of step k waits
@@ -201,3 +207,98 @@ class RLControllerGRPO(_RLControllerBase):
         self._step_idx += 1
         return [metrics_f]
 
+
+
+class RLControllerPPO(_RLControllerBase):
+    """PPO over the same service API as a TWO-ROLE job: an actor
+    (role="train") and a critic deployment (role="critic", whose values
+    are the worker's logsumexp readout), with the fused update split into
+    the primitive ops (paper Tab. 2): GENERATE -> FORWARD (behavior
+    logprobs) + critic FORWARD (values) -> GAE advantages (client-side) ->
+    actor FORWARD_BACKWARD (clipped surrogate) + OPTIM_STEP ->
+    SYNC_WEIGHTS re-basing the critic onto the updated actor -> critic
+    FORWARD_BACKWARD (clipped value loss) + OPTIM_STEP on the fresh
+    backbone (sync before the value step, so it is never clobbered)."""
+
+    def __init__(self, cfg: JobConfig, router: Router, group_id: int = 0):
+        super().__init__(cfg, router, group_id=group_id)
+        self.ppo_cfg = ppo_lib.PPOConfig()
+        self.critic_spec = api.DeploymentSpec(
+            deployment_id=f"{cfg.job_id}-critic", job_id=cfg.job_id,
+            model_name=cfg.model_name, role="critic",
+            overrides=cfg.overrides)
+        self.critic: api.Deployment = router.deploy(self.critic_spec,
+                                                    group_id=group_id)
+
+    def submit_init(self) -> api.Future:
+        return api.gather(super().submit_init(),
+                          self.critic.init(self.cfg.seed, exec_estimate=1.0))
+
+    def _merge_ppo(self, triple):
+        """Client-side join: behavior logprobs + critic values -> GAE
+        advantages and the clipped value loss's targets."""
+        batch, logp, values = triple
+        toks = batch["tokens"].numpy()
+        behave = np.zeros(toks.shape, np.float32)
+        behave[:, 1:] = torch.as_tensor(logp).float().cpu().numpy()
+        vals = torch.as_tensor(values).float().cpu().numpy()   # (B, S)
+        mask = batch["loss_mask"].numpy().astype(np.float32)
+        rewards = batch["rewards"].numpy().astype(np.float32)  # (B,)
+        # terminal verifiable reward at the last response token
+        r_seq = np.zeros(toks.shape, np.float32)
+        last = (mask * np.arange(toks.shape[1])).argmax(axis=1)
+        r_seq[np.arange(toks.shape[0]), last] = rewards
+        adv = ppo_lib.gae_advantages(torch.from_numpy(r_seq),
+                                     torch.from_numpy(vals),
+                                     torch.from_numpy(mask),
+                                     self.ppo_cfg).numpy()
+        return dict(batch,
+                    behavior_logprobs=torch.from_numpy(behave),
+                    advantages=torch.from_numpy(adv),        # token-level
+                    value_targets=torch.from_numpy(adv + vals),
+                    old_values=torch.from_numpy(vals))
+
+    def submit_step(self, gen_estimate: float = 1.0,
+                    train_estimate: float = 1.0) -> List[api.Future]:
+        cfg = self.cfg
+        prompts, problems = next(self.batches)
+        answers = [p.answer for p in problems]
+
+        gen_f = self.dep.generate(prompts, max_new_tokens=cfg.max_new_tokens,
+                                  exec_estimate=gen_estimate,
+                                  after=self._gate())
+        batch_f = gen_f.then(
+            lambda res: self._pack(prompts, answers, res,
+                                   include_rewards=True))
+        # behavior logprobs under the pre-update policy (the first ratio is
+        # exactly 1) and the critic's values, as FORWARD ops on both roles
+        logp_f = self.dep.forward(batch_f, exec_estimate=train_estimate)
+        vals_f = self.critic.forward(batch_f, output="values",
+                                     exec_estimate=train_estimate)
+        merged_f = api.gather(batch_f, logp_f, vals_f).then(self._merge_ppo)
+        fb_f = self.dep.forward_backward(merged_f, objective="ppo",
+                                         exec_estimate=train_estimate)
+        opt_f = self.dep.optim_step(fb_f.then(lambda r: r["grads"]),
+                                    exec_estimate=train_estimate)
+        # once the actor updated, re-base the critic onto it, THEN take the
+        # value step on top (old_values were read under the pre-step critic)
+        sync_f = self.dep.sync_weights(self.critic,
+                                       exec_estimate=train_estimate,
+                                       after=(opt_f,))
+        vfb_f = self.critic.forward_backward(merged_f, objective="value",
+                                             exec_estimate=train_estimate,
+                                             after=(sync_f,))
+        vopt_f = self.critic.optim_step(vfb_f.then(lambda r: r["grads"]),
+                                        exec_estimate=train_estimate)
+        self._updates[self._step_idx] = vopt_f
+
+        def _record(triple):
+            fb, opt_res, vfb = triple
+            metrics = {k: float(v) for k, v in fb["metrics"].items()}
+            metrics["value_loss"] = float(vfb["metrics"]["value_loss"])
+            metrics.update(opt_res)
+            return self._record_metrics(metrics)
+
+        metrics_f = api.gather(fb_f, opt_f, vfb_f).then(_record)
+        self._step_idx += 1
+        return [metrics_f, vopt_f]

@@ -1,8 +1,9 @@
 """Model State Manager: per-node-group authority over tensor residency
-(paper §4.5), the two tiers the serving path moves between:
+(paper §4.5), three tiers:
 
     DEVICE  — tensors on the node group's device (its slice's device)
     HOST    — CPU tensors, pinned when the device is CUDA (async DMA)
+    DISK    — ``.npy`` spill files under ``disk_dir`` (bf16 as uint16)
 
 Tensors are indexed by canonical logical key
 (:func:`repro_torch.models.common.canonical_flat`), which deduplicates
@@ -11,36 +12,48 @@ per-direction bandwidth EWMAs; HRRS reads its C_setup estimates from
 ``load_time_estimate`` / ``offload_time_estimate``. A CUDA copy returns
 before its bytes have moved, so both transfers synchronize the device
 before they read the clock: otherwise the times would be the enqueue, not
-the copy; ``bytes_moved`` counts what each direction moved.
+the copy; ``bytes_moved`` counts what each direction moved. With a
+``device_capacity`` or ``host_capacity``, the least recently touched
+entries are evicted DEVICE -> HOST -> DISK (§4.5.1).
 
-Updates are in place (:meth:`write`): the reference re-registers a new
-tree after every step, which here would allocate the pinned host buffers
-of a train deployment (its parameters and f32 AdamW moments) again at its
-next offload. Weight sync (:meth:`sync_weights`) therefore returns a copy.
+Updates are in place (:meth:`write`, and ``optimizer.update_`` on the
+gathered tensors): the reference re-registers a new tree after every
+step, which here would allocate the pinned host buffers of a train
+deployment (its parameters and f32 AdamW moments) again at its next
+offload. An entry that goes to DISK gives up its pinned buffer: freeing
+host memory is what the tier is for.
 
 Migration (:meth:`migrate`) hands a job's entries to another group's
 manager. Between groups that lease the same device (every group on one
 H100) a DEVICE entry changes owner without a copy; across devices it is
-copied to the destination's device. The DISK tier, capacity eviction, the
-cross-process ``export_state`` / ``import_state`` and the host optimizer
-step of ``repro.core.state_manager`` are not ported yet (ROADMAP.md,
-Queue 1).
+copied to the destination's device. A checkpoint is materialised from the
+managed state, whichever tier holds it (:meth:`materialize_checkpoint`),
+and :meth:`host_optimizer_step` is the CPU AdamW of ZeRO-offload (§4.5.4).
+The cross-process ``export_state`` / ``import_state`` of
+``repro.core.state_manager`` are not ported yet (ROADMAP.md, Queue 1,
+item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import itertools
+import os
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.models import common
+from repro_torch.train import checkpoint as ckpt
 
 
 class Tier(enum.IntEnum):
     DEVICE = 0
     HOST = 1
+    DISK = 2
 
 
 @dataclasses.dataclass
@@ -48,18 +61,41 @@ class Entry:
     key: str                         # canonical logical key (job-scoped)
     tier: Tier
     nbytes: int
-    ref: torch.Tensor                # on the device (DEVICE) or the CPU (HOST)
+    ref: Optional[torch.Tensor]      # on the device (DEVICE), the CPU
+    #                                  (HOST), None (DISK)
     refcount: int = 1                # dedup count across logical replicas
     host: Optional[torch.Tensor] = None   # pinned buffer kept for reuse
+    path: Optional[str] = None       # DISK spill file
+    is_bf16: bool = False            # the spill file holds bf16 as uint16
+    last_touch: int = 0              # LRU eviction order
+
+
+def _spill(path: str, t: torch.Tensor) -> bool:
+    """Write ``t`` to an ``.npy`` file; returns whether it was bf16."""
+    arr, dtype = ckpt.to_numpy(t)
+    np.save(path, arr)
+    return dtype == "bfloat16"
+
+
+def _unspill(e: Entry) -> torch.Tensor:
+    arr = np.load(e.path)
+    return ckpt.from_numpy(arr, "bfloat16" if e.is_bf16 else str(arr.dtype))
 
 
 class StateManager:
     """One instance per node group. Owns every byte of managed model state."""
 
     def __init__(self, node_id: str = "node0",
+                 device_capacity: float = float("inf"),
+                 host_capacity: float = float("inf"),
+                 disk_dir: Optional[str] = None,
                  clock: Callable[[], float] = time.monotonic,
                  mesh_slice=None):
         self.node_id = node_id
+        self.device_capacity = device_capacity
+        self.host_capacity = host_capacity
+        self.disk_dir = disk_dir or os.path.join(tempfile.gettempdir(),
+                                                 f"plexrl_{node_id}")
         self.clock = clock
         # the node group's MeshSlice: DEVICE-tier tensors live on its device
         self.mesh_slice = mesh_slice
@@ -68,6 +104,9 @@ class StateManager:
         self.bytes_moved: Dict[str, int] = {"offload": 0, "load": 0,
                                             "migrate": 0}
         self.last_migrate: Optional[Dict[str, object]] = None
+        # LRU order of the entries: a counter, not the injected clock, so
+        # touching an entry costs no clock reading
+        self._touch = itertools.count(1).__next__
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +128,25 @@ class StateManager:
         bw = self._bw_estimate.get(direction, default_bw)
         return nbytes / max(bw, 1.0)
 
+    def _tier_bytes(self, tier: Tier) -> int:
+        return sum(e.nbytes for e in self.entries.values() if e.tier == tier)
+
+    def usage(self) -> Dict[str, int]:
+        return {t.name: self._tier_bytes(t) for t in Tier}
+
+    @staticmethod
+    def _to_host(e: Entry):
+        """Point a device entry at a host copy, in its pinned buffer (made at
+        the first offload, reused after). The copy is asynchronous: sync
+        before the host reads it."""
+        t = e.ref
+        if t.device.type != "cpu":
+            if e.host is None or e.host.shape != t.shape \
+                    or e.host.dtype != t.dtype:
+                e.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            e.host.copy_(t, non_blocking=True)
+            e.ref = e.host
+
     # ----------------------------------------------------------- register
     def register(self, job_id: str, tree, tier: Tier = Tier.DEVICE,
                  prefix: str = "params") -> List[str]:
@@ -102,17 +160,19 @@ class StateManager:
             else:
                 self.entries[key] = Entry(
                     key=key, tier=tier,
-                    nbytes=leaf.numel() * leaf.element_size(), ref=leaf)
+                    nbytes=leaf.numel() * leaf.element_size(), ref=leaf,
+                    last_touch=self._touch())
             keys.append(key)
+        self._evict_if_needed()
         return keys
 
     def write(self, job_id: str, tree, prefix: str = "params") -> None:
         """Copy ``tree``'s values into the job's registered tensors, in
-        place. Each key must be registered, resident on the device and of
-        the same shape and dtype."""
+        place, wherever they are (device or host). Each key must be
+        registered, not on DISK and of the same shape and dtype."""
         for sub, leaf in common.canonical_flat(tree).items():
             e = self.entries[f"{job_id}/{prefix}/{sub}"]
-            if e.tier != Tier.DEVICE or e.ref.shape != leaf.shape \
+            if e.tier == Tier.DISK or e.ref.shape != leaf.shape \
                     or e.ref.dtype != leaf.dtype:
                 raise ValueError(
                     f"{e.key}: cannot write {tuple(leaf.shape)} {leaf.dtype} "
@@ -130,30 +190,34 @@ class StateManager:
                 continue
             e.refcount -= 1
             if e.refcount <= 0:
+                if e.path and os.path.exists(e.path):
+                    os.unlink(e.path)
                 del self.entries[k]
 
     # ------------------------------------------------------ tier movement
-    def offload(self, keys: Sequence[str]) -> float:
-        """Move DEVICE entries to HOST, into pinned buffers reused across
-        switches. Returns elapsed seconds, read off the injected clock after
-        the device has finished the copies."""
+    def offload(self, keys: Sequence[str], to: Tier = Tier.HOST) -> float:
+        """Move entries down to ``to``: DEVICE entries to HOST into pinned
+        buffers reused across switches; any entry to DISK as a spill file
+        (its pinned buffer released). Returns elapsed seconds, read off the
+        injected clock after the device has finished the copies."""
         self._sync()
         t0 = self.clock()
         moved = 0
         for k in keys:
             e = self.entries.get(k)
             # a key may vanish mid-iteration when a deployment detaches
-            if e is None or e.tier == Tier.HOST:
+            if e is None or e.tier >= to:
                 continue
-            t = e.ref
-            if t.device.type != "cpu":
-                if e.host is None or e.host.shape != t.shape \
-                        or e.host.dtype != t.dtype:
-                    e.host = torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True)
-                e.host.copy_(t, non_blocking=True)
-                e.ref = e.host
-            e.tier = Tier.HOST
+            if to == Tier.HOST:
+                self._to_host(e)
+            else:
+                os.makedirs(self.disk_dir, exist_ok=True)
+                path = os.path.join(self.disk_dir,
+                                    k.replace("/", "__") + ".npy")
+                e.is_bf16 = _spill(path, e.ref)
+                e.path, e.ref, e.host = path, None, None
+            e.tier = to
+            e.last_touch = self._touch()
             moved += e.nbytes
         self._sync()
         dt = self.clock() - t0
@@ -161,8 +225,9 @@ class StateManager:
         return dt
 
     def prefetch(self, keys: Sequence[str]) -> float:
-        """Move HOST entries up to DEVICE (scheduler-directed prefetch).
-        Timed like :meth:`offload`."""
+        """Move HOST and DISK entries up to DEVICE (scheduler-directed
+        prefetch); a DISK entry's spill file is read and removed. Timed
+        like :meth:`offload`."""
         self._sync()
         t0 = self.clock()
         moved = 0
@@ -170,13 +235,32 @@ class StateManager:
             e = self.entries.get(k)
             if e is None or e.tier == Tier.DEVICE:
                 continue
+            if e.tier == Tier.DISK:
+                e.ref = _unspill(e)
+                os.unlink(e.path)
+                e.path = None
             e.ref = e.ref.to(self.device, non_blocking=True)
             e.tier = Tier.DEVICE
+            e.last_touch = self._touch()
             moved += e.nbytes
         self._sync()
         dt = self.clock() - t0
         self._record("load", moved, dt)
+        self._evict_if_needed()
         return dt
+
+    def _evict_if_needed(self):
+        """Capacity-aware LRU eviction DEVICE -> HOST -> DISK."""
+        while self._tier_bytes(Tier.DEVICE) > self.device_capacity:
+            victim = min((e for e in self.entries.values()
+                          if e.tier == Tier.DEVICE),
+                         key=lambda e: e.last_touch)
+            self.offload([victim.key], Tier.HOST)
+        while self._tier_bytes(Tier.HOST) > self.host_capacity:
+            victim = min((e for e in self.entries.values()
+                          if e.tier == Tier.HOST),
+                         key=lambda e: e.last_touch)
+            self.offload([victim.key], Tier.DISK)
 
     def migrate(self, job_id: str, dst: "StateManager") -> int:
         """Cross-group migration (§4.5.3): hand the job's entries to
@@ -186,7 +270,8 @@ class StateManager:
         as it is (``cross_mesh`` False: a round trip through the host would
         buy nothing); across devices it is copied to ``dst``'s device, and
         the clock is read after a sync. A HOST entry moves with its pinned
-        buffer. Transactional: nothing is dropped here until every entry
+        buffer. A DISK entry is read from its spill file and lands on HOST,
+        as the reference has it. Transactional: nothing is dropped here until every entry
         has landed on ``dst``; a failure in the middle rolls ``dst`` back
         and leaves this manager as it was."""
         cross_mesh = dst.device != self.device
@@ -198,10 +283,17 @@ class StateManager:
         try:
             for k in keys:
                 e = self.entries[k]
-                ref = e.ref
-                if e.tier == Tier.DEVICE and cross_mesh:
-                    ref = ref.to(dst.device, non_blocking=True)
-                dst.entries[k] = dataclasses.replace(e, ref=ref, refcount=1)
+                if e.tier == Tier.DISK:
+                    # read the spill file: ``unregister`` below deletes it
+                    dst.entries[k] = dataclasses.replace(
+                        e, tier=Tier.HOST, ref=_unspill(e), refcount=1,
+                        path=None, is_bf16=False, host=None)
+                else:
+                    ref = e.ref
+                    if e.tier == Tier.DEVICE and cross_mesh:
+                        ref = ref.to(dst.device, non_blocking=True)
+                    dst.entries[k] = dataclasses.replace(e, ref=ref,
+                                                         refcount=1)
                 staged.append(k)
                 moved += e.nbytes
             dst._sync()
@@ -211,6 +303,7 @@ class StateManager:
             raise
         for k in keys:
             self.unregister([k])
+        dst._evict_if_needed()
         dt = self.clock() - t0
         self._record("migrate", moved, dt)
         self.last_migrate = {"bytes": moved, "seconds": dt,
@@ -231,17 +324,70 @@ class StateManager:
     # ------------------------------------------------------- gather trees
     def gather(self, job_id: str, template, prefix: str = "params"):
         """Rebuild a tree from managed entries (HOST entries stay on the
-        CPU)."""
+        CPU; DISK entries are read from their spill files, lazily, and
+        stay on DISK)."""
         pre = f"{job_id}/{prefix}/"
-        flat = {k[len(pre):]: e.ref for k, e in self.entries.items()
-                if k.startswith(pre)}
+        flat = {k[len(pre):]: _unspill(e) if e.tier == Tier.DISK else e.ref
+                for k, e in self.entries.items() if k.startswith(pre)}
         return common.canonical_unflatten(template, flat)
 
-    def sync_weights(self, job_id: str, template, device,
-                     prefix: str = "params"):
-        """Weight synchronisation to a rollout deployment: a copy of the
-        job's tree on ``device``, so the source's in-place updates never
-        reach it."""
-        return common.tree_map(
-            lambda t: t.to(device, copy=True),
-            self.gather(job_id, template, prefix))
+    def materialize_checkpoint(self, job_id: str, template, path: str,
+                               step: int = 0, prefix: str = "params") -> str:
+        """Checkpoint = materialisation from managed state (§4.5.3): works
+        whichever tier holds the state; no user-triggered export path."""
+        tree = self.gather(job_id, template, prefix)
+        return ckpt.save(path, tree, step=step,
+                         extra_meta={"job_id": job_id, "node": self.node_id})
+
+    # ------------------------------------------- §4.5.4 host optimizer
+    def host_optimizer_step(self, job_id: str, grads_tree, template,
+                            lr: float = 3e-5, b1: float = 0.9,
+                            b2: float = 0.95, eps: float = 1e-8,
+                            prefix: str = "params") -> int:
+        """CPU AdamW over host-resident canonical state (ZeRO-offload): no
+        clip, warmup or weight decay; bias correction by the new step.
+        Returns the new step count.
+
+        The moments are created on HOST at first use, under the device
+        optimizer's ``{job}/opt/mu|nu/...`` keys; moments that already live
+        on DEVICE are updated there, in place, as the reference updates
+        them where they are. A DEVICE parameter is pulled to HOST (into its
+        pinned buffer where it has one) and stays there until the next
+        prefetch. Every tensor is written in place."""
+        pre = f"{job_id}/{prefix}/"
+        step_key = f"{job_id}/opt/step"
+        if step_key not in self.entries:
+            self.entries[step_key] = Entry(
+                step_key, Tier.HOST, 8, ref=torch.zeros((), dtype=torch.int64),
+                last_touch=self._touch())
+        st = self.entries[step_key]
+        step = int(st.ref) + 1
+        st.ref.fill_(step)
+        c1 = 1.0 - b1 ** step
+        c2 = 1.0 - b2 ** step
+        gflat = common.canonical_flat(grads_tree)
+        for sub in gflat:
+            e = self.entries[pre + sub]
+            if e.tier == Tier.DEVICE:
+                self._to_host(e)
+                e.tier = Tier.HOST
+                e.last_touch = self._touch()
+        self._sync()
+        for sub, g in gflat.items():
+            e = self.entries[pre + sub]
+            p = e.ref.float()
+            g32 = g.detach().to("cpu", torch.float32)
+            for mom in ("mu", "nu"):
+                mkey = f"{job_id}/opt/{mom}/{sub}"
+                if mkey not in self.entries:
+                    self.entries[mkey] = Entry(
+                        mkey, Tier.HOST, g32.numel() * 4,
+                        ref=torch.zeros_like(g32), last_touch=self._touch())
+            mu = self.entries[f"{job_id}/opt/mu/{sub}"].ref
+            nu = self.entries[f"{job_id}/opt/nu/{sub}"].ref
+            gm = g32.to(mu.device)
+            mu.copy_(b1 * mu + (1 - b1) * gm)
+            nu.copy_(b2 * nu + (1 - b2) * torch.square(gm))
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+            e.ref.copy_(p - lr * upd.cpu())
+        return step

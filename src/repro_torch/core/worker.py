@@ -5,16 +5,17 @@ guarantee of §4.2/§5.1) on its node group's device, read off the group's
 StateManager slice. Parameters live under the StateManager as canonical
 entries, so context switching (offload/load) never touches worker code.
 
-It runs ``INIT``, ``GENERATE`` and the GRPO training ops: ``FORWARD``
-(logprobs), ``FORWARD_BACKWARD`` (the GRPO objective), ``OPTIM_STEP``
-(AdamW on the device), ``UPDATE_ACTOR`` and ``SYNC_WEIGHTS``. A train or
-critic deployment also keeps its AdamW state under the StateManager
-(``opt`` entries), so a context switch moves it with the parameters. An
-update writes the new parameters and moments INTO the registered device
-tensors (the reference re-registers a new tree), so the entries and their
-pinned host buffers outlive every step. The PPO readouts and objectives,
-the host optimizer step and the checkpoint ops raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+It runs every op of the service API: ``INIT``, ``GENERATE``, ``FORWARD``
+(logprobs, or a critic's values), ``FORWARD_BACKWARD`` (the GRPO, PPO or
+value objective), ``OPTIM_STEP`` (AdamW on the device, or the
+StateManager's host step), ``UPDATE_ACTOR``, ``SYNC_WEIGHTS`` and the
+checkpoint ops. A train or critic deployment also keeps its AdamW state
+under the StateManager (``opt`` entries), so a context switch moves it
+with the parameters. An update writes the new parameters and moments INTO
+the registered tensors, leaf by leaf (``optimizer.update_``; the
+reference re-registers a new tree), so the entries and their pinned host
+buffers outlive every step; a weight sync or a checkpoint load into a
+deployment that holds parameters writes into them too.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from repro_torch.core.state_manager import StateManager, Tier
 from repro_torch.models import common
 from repro_torch.models.registry import Model, build_model
 from repro_torch.rl import grpo
+from repro_torch.rl import ppo as ppo_lib
 from repro_torch.rl import rollout as rollout_lib
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_state import TrainState
 
@@ -74,11 +77,14 @@ class ExecLog:
         return self._items[i]
 
 
-# op -> the ROADMAP item (Queue 1) that ports its handler
-_NOT_PORTED = {
-    api.Op.SAVE_CHECKPOINT: "checkpoints",
-    api.Op.LOAD_CHECKPOINT: "checkpoints",
-}
+def _value_readout(logits):
+    """Critic value estimate per token without a dedicated value head: the
+    free energy (logsumexp) of the f32 logits, squashed to (-1, 1) by tanh
+    of it over sqrt(V). Differentiable in the whole backbone, so the
+    clipped value loss trains a role="critic" deployment through the same
+    FORWARD_BACKWARD / OPTIM_STEP primitives as the actor."""
+    v = torch.logsumexp(logits.float(), dim=-1)
+    return torch.tanh(v / (logits.shape[-1] * 1.0) ** 0.5)
 
 
 def _not_ported(what: str, item: str):
@@ -98,6 +104,7 @@ class WorkerProcessGroup:
         self.cfg = cfg
         self.model: Model = build_model(cfg)
         self.grpo_cfg = grpo_cfg or grpo.GRPOConfig()
+        self.ppo_cfg = ppo_lib.PPOConfig()
         self.adamw_cfg = adamw_cfg or opt.AdamWConfig()
         self._update_actor = grpo.make_update_actor(
             self.model, self.grpo_cfg, self.adamw_cfg)
@@ -130,10 +137,15 @@ class WorkerProcessGroup:
         self.sm.unregister(self.sm.keys_for(self.job_prefix, prefix))
         self.sm.register(self.job_prefix, tree, Tier.DEVICE, prefix)
 
-    def _write(self, params, opt_state: opt.AdamWState):
-        """An update: new values into the registered tensors, in place."""
-        self.sm.write(self.job_prefix, params, "params")
-        self.sm.write(self.job_prefix, opt_state._asdict(), "opt")
+    def _store_params(self, tree):
+        """Parameters from a weight sync or a checkpoint: written into the
+        registered tensors where the deployment holds some, else
+        registered (a copy on the group's device)."""
+        if self.sm.keys_for(self.job_prefix, "params"):
+            self.sm.write(self.job_prefix, tree, "params")
+        else:
+            self._register("params", common.tree_map(
+                lambda t: t.to(self.device, copy=True), tree))
 
     def _batch(self, batch):
         """A train batch (numpy or CPU tensors) on the group's device."""
@@ -152,18 +164,16 @@ class WorkerProcessGroup:
         context switch). Returns elapsed seconds."""
         return self.sm.prefetch(self.sm.keys_for(self.job_prefix))
 
-    def offload(self) -> float:
+    def offload(self, to: Tier = Tier.HOST) -> float:
         """Move this WPG's state to pinned host memory (the 'offload' half
-        of a context switch). Returns elapsed seconds."""
-        return self.sm.offload(self.sm.keys_for(self.job_prefix))
+        of a context switch), or to DISK. Returns elapsed seconds."""
+        return self.sm.offload(self.sm.keys_for(self.job_prefix), to)
 
     # --------------------------------------------------------------- ops
     def execute(self, qop: api.QueuedOperation):
         """Serial execution of one admitted operation. The device is
         synchronized before the op's seconds are logged, so billing records
         the run time, not the enqueue time."""
-        if qop.op in _NOT_PORTED:
-            raise _not_ported(qop.op.value, _NOT_PORTED[qop.op])
         handler = {
             api.Op.INIT: self._op_init,
             api.Op.GENERATE: self._op_generate,
@@ -172,6 +182,8 @@ class WorkerProcessGroup:
             api.Op.OPTIM_STEP: self._op_optim_step,
             api.Op.UPDATE_ACTOR: self._op_update_actor,
             api.Op.SYNC_WEIGHTS: self._op_sync_weights,
+            api.Op.SAVE_CHECKPOINT: self._op_save_checkpoint,
+            api.Op.LOAD_CHECKPOINT: self._op_load_checkpoint,
         }[qop.op]
         t0 = time.monotonic()
         result = handler(*qop.args, **qop.kwargs)
@@ -211,49 +223,79 @@ class WorkerProcessGroup:
         return {"tokens": toks, "logprobs": logps, "alive": alive}
 
     def _op_forward(self, batch, output: str = "logprobs"):
-        """Forward-only primitive: next-token logprobs (compute_log_prob)."""
-        if output == "values":
-            raise _not_ported("FORWARD(output='values')", "PPO")
-        if output != "logprobs":
+        """Forward-only primitive. ``output`` selects the readout:
+        "logprobs" (compute_log_prob, default) or "values" (a critic's
+        value estimates per token)."""
+        if output not in ("logprobs", "values"):
             raise ValueError(f"unknown forward output {output!r}")
         with torch.no_grad():
+            if output == "values":
+                logits, _ = self.model.forward(self.params(),
+                                               self._batch(batch))[:2]
+                return _value_readout(logits)
             return self._logprob(self.params(), self._batch(batch))
 
     def _op_forward_backward(self, batch, objective: str = "grpo"):
-        """Split-phase gradient computation of the GRPO objective."""
-        if objective in ("ppo", "value"):
-            raise _not_ported(f"FORWARD_BACKWARD(objective={objective!r})",
-                              "PPO")
-        if objective != "grpo":
+        """Split-phase gradient computation. ``objective`` selects the loss:
+        "grpo" (default), "ppo" (rl/ppo.py's clipped surrogate) or "value"
+        (the clipped critic loss of a role="critic" deployment)."""
+        params, batch = self.params(), self._batch(batch)
+        if objective == "grpo":
+            grads, metrics = grpo.compute_grads(params, self.model, batch,
+                                                self.grpo_cfg)
+            return {"grads": grads, "metrics": metrics}
+        if objective == "ppo":
+            def loss_fn(p):
+                return ppo_lib.ppo_loss(p, self.model, batch, self.ppo_cfg)
+        elif objective == "value":
+            def loss_fn(p):
+                logits, aux = self.model.forward(p, batch)[:2]
+                vl = ppo_lib.value_loss(
+                    _value_readout(logits), batch["value_targets"],
+                    batch["old_values"], batch["loss_mask"], self.ppo_cfg)
+                return vl + 0.01 * aux, {"value_loss": vl}
+        else:
             raise ValueError(f"unknown objective {objective!r}")
-        grads, metrics = grpo.compute_grads(self.params(), self.model,
-                                            self._batch(batch), self.grpo_cfg)
-        return {"grads": grads, "metrics": metrics}
+        grads, metrics = grpo.value_and_grad(loss_fn, params)
+        return {"grads": common.canonical_unflatten(params, grads),
+                "metrics": metrics}
 
     def _op_optim_step(self, grads, host: bool = False):
         if host:
-            raise _not_ported("OPTIM_STEP(host=True)", "PPO")
-        new_params, new_state, metrics = opt.update(
-            grads, self.opt_state(), self.params(), self.adamw_cfg)
-        self._write(new_params, new_state)
-        return {"step": int(new_state.step),
+            # §4.5.4: CPU optimizer over host-resident canonical state
+            step = self.sm.host_optimizer_step(
+                self.job_prefix, grads, self.model.param_specs(),
+                lr=self.adamw_cfg.lr, b1=self.adamw_cfg.b1,
+                b2=self.adamw_cfg.b2, eps=self.adamw_cfg.eps)
+            return {"step": step, "host": True}
+        state = self.opt_state()
+        metrics = opt.update_(grads, state, self.params(), self.adamw_cfg)
+        return {"step": int(state.step),
                 **{k: float(v) for k, v in metrics.items()}}
 
     def _op_update_actor(self, batch):
         state = TrainState(self.params(), self.opt_state(),
                            torch.zeros((), dtype=torch.int32))
-        new_state, metrics = self._update_actor(state, self._batch(batch))
-        self._write(new_state.params, new_state.opt_state)
+        _, metrics = self._update_actor(state, self._batch(batch))
         return {k: float(v) for k, v in metrics.items()}
 
     def _op_sync_weights(self, target_wpg: "WorkerProcessGroup",
                          target_shardings=None):
-        """Give the rollout deployment ``target_wpg`` a COPY of this
-        deployment's parameters on its device: later in-place updates here
-        leave its weights as they were synced."""
+        """Give the deployment ``target_wpg`` this deployment's parameters
+        on its device: written into the tensors it holds, or a copy
+        registered. Later in-place updates here leave its weights as they
+        were synced."""
         if target_shardings is not None:
             raise _not_ported("SYNC_WEIGHTS into target shardings",
                               "sharding")
-        target_wpg._register("params", self.sm.sync_weights(
-            self.job_prefix, self.model.param_specs(), target_wpg.device))
+        target_wpg._store_params(self.params())
         return {"synced_bytes": self.sm.job_bytes(self.job_prefix)}
+
+    def _op_save_checkpoint(self, path: str, step: int = 0):
+        return self.sm.materialize_checkpoint(
+            self.job_prefix, self.model.param_specs(), path, step)
+
+    def _op_load_checkpoint(self, path: str):
+        tree, meta = ckpt.restore(path, self.model.param_specs())
+        self._store_params(tree)
+        return meta

@@ -9,8 +9,10 @@ a run can show that its path went through the kernels.
 its forward is K1 (or the plain version on the CPU), its backward
 recomputes :func:`repro_torch.kernels.flash_attention.xla_attention` and
 differentiates it, as the JAX package differentiates its XLA attention.
-K3 has no backward: :func:`ssd` refuses a CUDA input that needs a
-gradient rather than hand autograd an output without one.
+:func:`ssd` is one too: its forward is K3 (or ``ref_ssd`` on the CPU), its
+backward recomputes :func:`repro_torch.models.mamba2.ssd_chunked` and
+differentiates it, as the JAX package differentiates ``ssd_chunked``.
+Neither kernel has a backward kernel: the JAX package has none either.
 """
 from __future__ import annotations
 
@@ -87,18 +89,53 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     return out
 
 
+class _SSDScan(torch.autograd.Function):
+    """K3 forward; backward through the autograd of ``ssd_chunked``.
+
+    The forward keeps the intra-chunk scores in f32 (K3's function, and
+    ``ref_ssd``'s); the backward differentiates the reference model's
+    ``ssd_chunked``, which rounds them to x's dtype, so the gradient is
+    the one ``jax.grad`` takes through the JAX model."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        # an unused final state (the training path drops it) comes back
+        # as None, not as a (b, h, p, n) tensor of zeros
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            return ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
+        out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+        _count("ssd")
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from repro_torch.models.mamba2 import ssd_chunked
+
+        saved = ctx.saved_tensors
+        want = [i for i, need in enumerate(ctx.needs_input_grad[:5]) if need]
+        outs = [(0, dy), (1, dstate)]
+        outs = [(i, ct) for i, ct in outs if ct is not None]
+        grads = [None] * 5
+        if want and outs:
+            leaves = [t.detach().requires_grad_(i in want)
+                      for i, t in enumerate(saved)]
+            with torch.enable_grad():
+                res = ssd_chunked(*leaves, ctx.chunk)
+            got = torch.autograd.grad([res[i] for i, _ in outs],
+                                      [leaves[i] for i in want],
+                                      [ct for _, ct in outs],
+                                      allow_unused=True)
+            for i, g in zip(want, got):
+                grads[i] = g
+        return (*grads, None)
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 256):
     """SSD chunk scan, ngroups == 1. x: (b, s, h, p); dt: (b, s, h) f32;
     A: (h,) f32; B, C: (b, s, 1, n). Returns (y, final state (b, h, p, n)
-    f32). The chunk is ``min(chunk, s)``, as ``repro.kernels.ops.ssd``."""
-    chunk = min(chunk, x.shape[1])
-    if x.device.type == "cpu":
-        return ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "K3 has no backward: training mamba2 on the card is not ported "
-            "yet (ROADMAP.md, Queue 1: mamba2 training)")
-    out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
-    _count("ssd")
-    return out
+    f32), differentiable in x, dt, A, B and C. The chunk is
+    ``min(chunk, s)``, as ``repro.kernels.ops.ssd``."""
+    return _SSDScan.apply(x, dt, A, B, C, min(chunk, x.shape[1]))

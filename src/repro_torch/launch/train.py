@@ -11,12 +11,14 @@ given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --jobs 2 --layers 0 --d-model 0 --vocab 0   # the full config
 
-The size flags cut the config (0 keeps the config's own value). Checkpoints
-(``--ckpt-dir``) are not ported yet (ROADMAP.md, Queue 1, item 5).
+The size flags cut the config (0 keeps the config's own value). With
+``--ckpt-dir`` every deployment's parameters are checkpointed there after
+the run.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -65,8 +67,6 @@ def main(argv=None):
     plane = DevicePlane(devices=None if args.device is None
                         else [torch.device(args.device)])
     cluster = PlexCluster(n_groups=1, device_plane=plane)
-    if args.ckpt_dir:
-        cluster.checkpoint_all(args.ckpt_dir)       # raises: not ported
     ov = size_overrides(args)
     for j in range(args.jobs):
         cfg = JobConfig(
@@ -93,6 +93,10 @@ def main(argv=None):
               f"busy_s={rec.busy_seconds} switch_s={rec.switch_seconds}")
     print(f"wall={elapsed:.1f}s switches={len(cluster.router.switch_log)} "
           f"device={cluster.router.state_managers[0].device}")
+
+    if args.ckpt_dir:
+        paths = cluster.checkpoint_all(args.ckpt_dir)
+        print("checkpoints:", json.dumps(paths, indent=1))
 
 
 if __name__ == "__main__":

@@ -6,13 +6,16 @@ decode cache is a fixed-size (conv window, SSM state) pair per layer,
 ``{"conv": (L, B, conv_dim, K-1), "ssm": (L, B, H, P, N) f32, "pos": int}``;
 ``pos`` stays a host int.
 
-The prefill's chunk scan goes through :func:`repro_torch.kernels.ops.ssd`,
-the way the dense attention goes through ``kops.flash_attention``: on the
-card it is K3 (``kernels/csrc/ssd.cu``), on the CPU its plain version
-``ref_ssd``. The JAX package's ``mixer_apply`` calls ``ssd_chunked``
-instead, whose intra-chunk scores are rounded to x's dtype; K3 keeps them
-in f32, as the TPU kernel does. The convolutions and the decode step are
-plain PyTorch, as they are plain jnp in the JAX package.
+The full-sequence chunk scan (a prefill, and the training forward) goes
+through :func:`repro_torch.kernels.ops.ssd`, the way the dense attention
+goes through ``kops.flash_attention``: on the card it is K3
+(``kernels/csrc/ssd.cu``), on the CPU its plain version ``ref_ssd``. The
+JAX package's ``mixer_apply`` calls ``ssd_chunked`` instead, whose
+intra-chunk scores are rounded to x's dtype; K3 keeps them in f32, as the
+TPU kernel does. :func:`ssd_chunked` is ported here as it stands: it is
+what ``ops.ssd``'s backward differentiates, as ``jax.grad`` differentiates
+it in the JAX package. The convolutions and the decode step are plain
+PyTorch, as they are plain jnp in the JAX package.
 """
 from __future__ import annotations
 
@@ -69,6 +72,75 @@ def param_specs(cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------- SSD
+
+def segsum(x):
+    """x: (..., l) -> (..., l, l) with out[i, j] = sum_{j<k<=i} x_k (else
+    -inf)."""
+    l = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    return torch.where(mask, out, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Chunked SSD scan, as ``repro.models.mamba2.ssd_chunked``: the
+    intra-chunk scores are rounded to x's dtype before their product with
+    x, and a ragged tail is zero-padded (dt = 0: decay 1, no state update).
+
+    x: (b, s, h, p); dt: (b, s, h) (post-softplus); A: (h,) (negative);
+    B, C: (b, s, g, n). Returns (y (b, s, h, p), final_state (b, h, p, n)
+    f32). Differentiable: ``kernels/ops.py``'s K3 Function takes its
+    gradient from this function's autograd.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    nc = s // chunk
+    rep = h // g
+
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, 3)
+    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, 3)
+
+    dA = (dtc * A[None, None, None, :]).float()                   # (b,nc,l,h)
+    dA_cs = torch.cumsum(dA, dim=2)
+
+    # intra-chunk (diagonal blocks): quadratic within a chunk
+    L = torch.exp(segsum(dA.transpose(-1, -2)))                  # (b,nc,h,l,l)
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc.float(), Bc.float())
+    scores = scores * L * dtc.transpose(-1, -2)[:, :, :, None, :]
+    y_diag = torch.einsum("bchls,bcshp->bclhp", scores.to(x.dtype), xc)
+
+    # chunk summary states: S_c = sum_j exp(dA_j+1..L) dt_j B_j x_j^T
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)        # (b,nc,l,h)
+    states = torch.einsum("bclhn,bclh,bclhp->bchpn", Bc.float(),
+                          (decay_states * dtc).float(), xc.float())
+
+    # inter-chunk recurrence over nc chunks
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])                   # (b,nc,h)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state.float()
+    entry = []
+    for c in range(nc):
+        entry.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    entry_states = torch.stack(entry, 1)                         # (b,nc,h,p,n)
+
+    # off-diagonal contribution from the incoming state
+    y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", Cc.float(), entry_states,
+                         torch.exp(dA_cs))
+    y = (y_diag.float() + y_off).reshape(b, s, h, p)
+    return y[:, :s_orig].to(x.dtype), state
+
 
 def ssd_decode(state, x, dt, A, B, C):
     """Single-token SSD update, IN PLACE on ``state``.

@@ -84,13 +84,13 @@ def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig):
     return loss, metrics
 
 
-def _value_and_grad(params, model: Model, batch, cfg: GRPOConfig):
-    """Flat {key: grad} of grpo_loss (zeros for an unused leaf, as
-    ``jax.grad``) and the metrics with the loss."""
+def value_and_grad(loss_fn, params):
+    """Flat {key: grad} of ``loss_fn(params) -> (loss, metrics)`` (zeros for
+    an unused leaf, as ``jax.grad``) and the metrics with the loss, all
+    detached."""
     leaves = {k: p.detach().requires_grad_()
               for k, p in common.canonical_flat(params).items()}
-    loss, metrics = grpo_loss(common.canonical_unflatten(params, leaves),
-                              model, batch, cfg)
+    loss, metrics = loss_fn(common.canonical_unflatten(params, leaves))
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
@@ -107,7 +107,8 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
     ``grad_accum`` divides it); their grads accumulate in f32 and are
     averaged, and so are the metrics."""
     if grad_accum <= 1:
-        grads, metrics = _value_and_grad(params, model, batch, grpo_cfg)
+        grads, metrics = value_and_grad(
+            lambda p: grpo_loss(p, model, batch, grpo_cfg), params)
         return common.canonical_unflatten(params, grads), metrics
     n = next(iter(batch.values())).shape[0]
     if n % grad_accum:
@@ -118,8 +119,9 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
     micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
     acc, metrics = None, []
     for i in range(grad_accum):
-        grads, m = _value_and_grad(
-            params, model, {k: v[i] for k, v in micro.items()}, grpo_cfg)
+        mb = {k: v[i] for k, v in micro.items()}
+        grads, m = value_and_grad(
+            lambda p: grpo_loss(p, model, mb, grpo_cfg), params)
         if acc is None:
             acc = {k: g.float() for k, g in grads.items()}
         else:
@@ -137,15 +139,18 @@ def make_update_actor(model: Model, grpo: GRPOConfig = GRPOConfig(),
                       adamw: opt.AdamWConfig = opt.AdamWConfig(),
                       grad_accum: int = 1):
     """``update_actor`` primitive: forward, backward and AdamW.
-    (state, batch) -> (state, metrics)."""
+    (state, batch) -> (state, metrics); the new parameters and moments are
+    written into ``state``'s tensors (``optimizer.update_``)."""
 
     def step(state: TrainState, batch):
         grads, metrics = compute_grads(state.params, model, batch, grpo,
                                        grad_accum)
-        new_params, new_opt, opt_metrics = opt.update(
-            grads, state.opt_state, state.params, adamw)
+        opt_metrics = opt.update_(grads, state.opt_state, state.params,
+                                  adamw)
+        del grads
         metrics = dict(metrics, **opt_metrics)
-        return TrainState(new_params, new_opt, state.step + 1), metrics
+        return TrainState(state.params, state.opt_state,
+                          state.step + 1), metrics
 
     return step
 

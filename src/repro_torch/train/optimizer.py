@@ -7,6 +7,13 @@ corrections from the count after it; gradients are clipped by their
 global norm (squares summed in f32); parameters update in f32 and are cast
 back to their dtype, the moments kept in ``moment_dtype``. The ZeRO
 moment-spec helpers wait for the sharding port (ROADMAP.md, Queue 1).
+
+:func:`update_` is the step: unlike the reference's ``update``, which
+returns new trees, it writes the new values into the parameter and moment
+tensors it is given, leaf by leaf and, within a leaf, in slices along the
+leading (layer) axis, so the f32 temporaries are those of one slice. New
+trees would hold a second copy of the whole train state: 27 GB at
+mamba2-2.7b. A caller that wants the inputs kept clones them first.
 """
 from __future__ import annotations
 
@@ -56,15 +63,28 @@ def _schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm
 
 
+# the most elements of one slice of an in-place update (at least one row
+# of the leading axis: one layer of a stacked leaf)
+_SLICE_ELEMS = 1 << 26
+
+
+def _square_sum(g):
+    """sum(g**2) in f32; squares an f32 copy of a low-precision leaf in
+    place rather than making a second one."""
+    g32 = g.float()
+    return torch.sum(torch.square(g32) if g32 is g else g32.square_())
+
+
 def global_norm(tree):
-    leaves = [torch.sum(torch.square(g.float()))
-              for g in common.canonical_flat(tree).values()]
+    leaves = [_square_sum(g) for g in common.canonical_flat(tree).values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfig()):
-    """One AdamW step. Returns (new_params, new_state, metrics); the inputs
-    are not modified."""
+def update_(grads, state: AdamWState, params,
+            cfg: AdamWConfig = AdamWConfig()):
+    """One AdamW step IN PLACE: the new parameters, moments and step are
+    written into ``params`` and ``state``'s tensors. Returns the metrics.
+    The arithmetic is elementwise, so the slices change no value."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
@@ -84,15 +104,22 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfig()):
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+        return p_new, m_new, v_new
 
     flat = [common.canonical_flat(t)
             for t in (grads, state.mu, state.nu, params)]
-    out = {k: upd(*(f[k] for f in flat)) for k in flat[3]}
+    for k, p in flat[3].items():
+        leaf = [f[k] for f in flat]
+        if p.dim() == 0:
+            slices = [leaf]
+        else:
+            rows = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
+            slices = zip(*(t.split(rows) for t in leaf))
+        for g, m, v, pp in slices:
+            p_new, m_new, v_new = upd(g, m, v, pp)
+            pp.copy_(p_new)
+            m.copy_(m_new)
+            v.copy_(v_new)
+    state.step.copy_(step)
+    return {"grad_norm": gnorm, "lr": lr}
 
-    def tree(i):
-        return common.canonical_unflatten(
-            params, {k: t[i] for k, t in out.items()})
-
-    return tree(0), AdamWState(step, tree(1), tree(2)), {
-        "grad_norm": gnorm, "lr": lr}

@@ -511,22 +511,19 @@ def test_teardown_of_running_best_effort_bills_and_spares_guaranteed():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
+    """The process plane and sharding still raise, naming their Queue 1
+    items; a PPO job (an actor and a critic deployment) now attaches."""
     P = _Pkg("repro_torch")
     for kw, item in (({"process_plane": True}, "item 6"),
                      ({"devices_per_group": 2}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             PlexCluster(device_plane=cpu_plane(), **kw)
     c = PlexCluster(device_plane=cpu_plane(), wpg_factory=SleepWPG)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        c.add_job(_tiny(P, "p", 1), algo="ppo")
-    assert "p" not in c.controllers and c.admission.active_count(
-        "default") == 0
-    from repro_torch.launch import train
-    for call in (lambda: c.checkpoint_all("ckpt"),
-                 lambda: c.restore_all({}),
-                 lambda: train.main(["--device", "cpu", "--ckpt-dir", "c"])):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    ctl = c.add_job(_tiny(P, "p", 1), algo="ppo")
+    assert type(ctl).__name__ == "RLControllerPPO"
+    assert {s.role for s in c.router.deployments.values()} == {"train",
+                                                               "critic"}
+    assert c.admission.active_count("default") == 1
 
 
 # ---------------------------------------------- StateManager.migrate

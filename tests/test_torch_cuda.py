@@ -336,15 +336,36 @@ def test_flash_attention_function_grads_match_xla_attention(dev, b, s, h,
         assert (got - want).abs().max().item() <= bound
 
 
-def test_ssd_refuses_a_gradient_on_the_card(dev):
-    """K3 has no backward: under grad, an input that needs one raises
-    rather than hand autograd an output without a grad_fn; without grad
-    (the serving path) it runs."""
+@pytest.mark.parametrize("b,s,h,chunk", [
+    (16, 128, 80, 256),        # the training shape: one chunk of 128
+    (2, 300, 8, 256),          # ragged: a padded second chunk
+])
+def test_ssd_function_grads_match_ssd_chunked_autograd(dev, b, s, h, chunk):
+    """K3 under its autograd Function: one K3 launch for the forward, none
+    for the backward; y and the x, dt, A, B, C gradients against plain
+    autograd through ``models/mamba2.py::ssd_chunked`` (bf16 x, B, C as
+    the model passes them), within 5e-2 * max|expect|; under no_grad (the
+    serving path) y has no grad_fn."""
+    from repro_torch.models.mamba2 import ssd_chunked
     gen = torch.Generator(device=dev).manual_seed(10)
-    x, dt, A, B, C = _ssd_inputs(gen, 1, 64, 2, 64, 128, torch.bfloat16,
+    x, dt, A, B, C = _ssd_inputs(gen, b, s, h, 64, 128, torch.bfloat16,
                                  torch.bfloat16, dev)
-    with pytest.raises(NotImplementedError, match="mamba2 training"):
-        ops.ssd(x.requires_grad_(), dt, A, B, C)
+    ct = _randn(gen, (b, s, h, 64), torch.bfloat16, dev)
+    grads, outs = [], []
+    for fn in (lambda *a: ops.ssd(*a, chunk=chunk),
+               lambda *a: ssd_chunked(*a, min(chunk, s))):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+        before = ops.LAUNCHES["ssd"]
+        y, _ = fn(*leaves)
+        assert y.grad_fn is not None
+        y.backward(ct)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ssd"] - before == (1 if not outs else 0)
+        outs.append(y.detach().float())
+        grads.append([t.grad.float() for t in leaves])
+    for got, want in [*zip(*grads), tuple(outs)]:
+        bound = 5e-2 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= bound
     with torch.no_grad():
         y, _ = ops.ssd(x, dt, A, B, C)
     assert y.grad_fn is None

@@ -206,21 +206,26 @@ def test_device_plane_leases_lowest_free_then_least_loaded():
     assert plane.slice_for_group(7).device == torch.device("cpu")
 
 
-def test_unported_ops_raise_naming_the_roadmap():
+def test_unported_ops_raise_naming_the_roadmap(tmp_path):
+    """Every op of the service API runs on the port now (the PPO readouts,
+    the host optimizer step, the checkpoint ops); what stays unported, a
+    weight sync into target shardings, raises naming its Queue 1 item."""
     router = Router(device_plane=DevicePlane(devices=[torch.device("cpu")]))
     dep = router.deploy(_spec(api, "A"), group_id=0)
+    other = router.deploy(_spec(api, "B"), group_id=0)
     dep.init(seed=0)
-    futs = {"PPO": [dep.forward({}, output="values"),
-                    dep.forward_backward({}, objective="ppo"),
-                    dep.optim_step({}, host=True)],
-            "checkpoints": [dep.save_checkpoint("ckpt"),
-                            dep.load_checkpoint("ckpt")]}
+    other.init(seed=1)
+    batch = {"tokens": np.arange(24, dtype=np.int32).reshape(2, 12) % 100}
+    path = str(tmp_path / "ckpt")
+    ran = [dep.forward(batch, output="values"), dep.save_checkpoint(path, 3),
+           dep.load_checkpoint(path)]
+    fut = dep.sync_weights(other, target_shardings={})
     router.drain()
-    for item, fs in futs.items():
-        for fut in fs:
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.md.*{item}"):
-                fut.wait(timeout=1)
+    values, saved, meta = (f.result() for f in ran)
+    assert tuple(values.shape) == (2, 12) and bool(values.abs().le(1).all())
+    assert saved == path and meta["step"] == 3
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*sharding"):
+        fut.wait(timeout=1)
 
 
 def test_port_imports_and_serves_without_jax_or_reference_package():

@@ -2,8 +2,39 @@
 
 Inputs are drawn from numpy seeds and fed to both packages; model
 parameters are the JAX package's seeded init carried across by
-``models/convert.py``. The model is qwen2-0.5b cut to two narrow layers
-that keep its GQA group of g = 7, QKV bias, tied embeddings and RoPE.
+``models/convert.py``. The dense model is qwen2-0.5b cut to two narrow
+layers that keep its GQA group of g = 7, QKV bias, tied embeddings and
+RoPE. ``compute_grads`` and the WPG's update are also held for the ssm
+family (``reduced_config("mamba2-2.7b")``: 3 layers) and the hybrid family
+(``reduced_config("zamba2-7b")`` with ``attn_period`` 3 and 7 blocks: two
+applications of the shared block, whose gradient sums over both, and a
+trailing Mamba2 block).
+
+Which JAX run is the reference for those two:
+- mamba2: the JAX model in f32 (the same parameter values upcast, its bf16
+  embedding cast patched out), compiled. Its bf16 run is no tighter
+  reference than the port: op by op, JAX's CPU sums of bf16 cotangents
+  (the gradients of ``D``, ``dt_bias``, norm scales) accumulate in bf16,
+  7 % off a 1,536-term sum where PyTorch's is 0.2 % off
+  (``test_jax_bf16_broadcast_sums_accumulate_in_bf16``), and compiled, XLA
+  skips roundings (``A_log``'s gradient moves by 6 % of its leaf's
+  largest). The port's bf16 gradients are within 3 % of the f32 ones.
+- zamba2: the JAX model in bf16, op by op (``jax.disable_jit``), as
+  ``tests/test_torch_hybrid.py``. At these widths bf16 gradients are far
+  from the f32 reference's (the port's by more than 100 % on some leaves
+  at 7 blocks), so only the same roundings in the same order agree. At 15 reduced blocks the two packages' roundings add
+  up to 8 % of the largest gradient of the smallest leaves; in f32 (the
+  embedding casts patched out) they agree within 1e-5. Hence 7 blocks.
+In the WPG update, AdamW's first step moves a parameter by about
+lr * sign(g), so new parameters are compared where |g| exceeds the
+gradient's own tolerance times max|g| (1e-2 for the dense model, whose
+gradients agree more closely; 5e-2 for the others), and at least a set
+share of the parameters must be compared (``SIGN_FLOOR``).
+
+K3's Function computes its forward with f32 intra-chunk scores
+(``ref_ssd`` on the CPU) and differentiates ``ssd_chunked``, which rounds
+them to bf16; the JAX model's forward is ``ssd_chunked`` itself, so the two
+forwards differ by that rounding only (ROADMAP.md, Queue 3).
 
 Tolerances: f32 quantities 2e-3 (rtol = atol, as tests/test_kernels.py),
 or 1e-5 relative where both sides do the same f32 arithmetic (the
@@ -20,6 +51,8 @@ swallows. The tests scale the embedding by 1/16 (exact in bf16), so the
 policy is spread over the vocabulary and every leaf's gradient is O(1e-3)
 or more.
 """
+import contextlib
+import dataclasses
 import functools
 
 import jax
@@ -28,7 +61,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models.mamba2 as jmamba2
 from repro.configs import get_config as j_get_config
+from repro.configs import reduced_config as j_reduced_config
 from repro.core import api as japi
 from repro.core.controller import JobConfig as JJobConfig
 from repro.core.controller import RLControllerGRPO as JRLControllerGRPO
@@ -62,6 +97,45 @@ OVERRIDES = (("num_layers", 2), ("d_model", 64), ("num_heads", 14),
              ("vocab_size", 128))
 CFG_J = j_get_config("qwen2-0.5b").replace(**dict(OVERRIDES))
 BF16_REL, F32_TOL = 5e-2, 2e-3
+
+
+def _reduced_overrides(arch, **extra):
+    """``reduced_config(arch)`` (and ``extra``) as DeploymentSpec
+    overrides: the fields where it differs from the full config."""
+    full, red = j_get_config(arch), j_reduced_config(arch).replace(**extra)
+    return tuple((f.name, getattr(red, f.name))
+                 for f in dataclasses.fields(red)
+                 if getattr(red, f.name) != getattr(full, f.name))
+
+
+# family -> (arch, overrides) of the models the training tests hold
+FAMILIES = {
+    "dense": ("qwen2-0.5b", OVERRIDES),
+    "ssm": ("mamba2-2.7b", _reduced_overrides("mamba2-2.7b")),
+    "hybrid": ("zamba2-7b", _reduced_overrides("zamba2-7b", attn_period=3,
+                                               num_layers=7)),
+}
+
+
+# where a parameter's gradient decides its first AdamW step (module
+# docstring), and the least share of the parameters that must pass it
+# (above 5e-2 * max|g|: 41 % of mamba2's and of zamba2's at these seeds)
+SIGN_FLOOR = {"dense": (1e-2, 0.5), "ssm": (BF16_REL, 0.35),
+              "hybrid": (BF16_REL, 0.35)}
+
+
+def _jax_side(family, jp, monkeypatch):
+    """The JAX reference for ``family`` (module docstring): its params and
+    the context to run it in."""
+    if family == "ssm":
+        monkeypatch.setattr(jmamba2, "embed_apply",
+                            lambda p, cfg, tokens, ctx=None:
+                            p["embedding"][tokens])
+        return (jax.tree.map(lambda a: a.astype(jnp.float32), jp),
+                contextlib.nullcontext())
+    if family == "hybrid":
+        return jp, jax.disable_jit()
+    return jp, contextlib.nullcontext()
 FAST_LR = dict(lr=1e-3, warmup_steps=1)   # a step larger than a bf16 ulp
 
 
@@ -92,10 +166,11 @@ def _close_rel(port, ref, rel=BF16_REL, what=""):
 IS_ARR = dict(is_leaf=lambda x: hasattr(x, "shape"))
 
 
-def _reference_params(seed=0):
+def _reference_params(seed=0, family="dense"):
     """The JAX package's seeded init with the embedding scaled by 1/16:
     (model, params tree, canonical numpy leaves)."""
-    jm = j_build_model(CFG_J)
+    arch, ov = FAMILIES[family]
+    jm = j_build_model(j_get_config(arch).replace(**dict(ov)))
     jp = jm.init_params(jax.random.PRNGKey(seed))
     jp["embed"]["embedding"] = jp["embed"]["embedding"] / 16
     flat = {k: np.asarray(v)
@@ -226,6 +301,103 @@ def test_attention_function_backward_is_the_xla_branch_on_the_cpu(q_chunk):
         assert torch.equal(a, b)
 
 
+# --------------------------------------------------- K3's autograd Function
+
+def _ssd_arrays(b, s, h, p, n, seed=6):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, h, p)).astype(np.float32),
+            np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
+                np.float32),
+            -np.exp(rng.standard_normal(h)).astype(np.float32),
+            rng.standard_normal((b, s, 1, n)).astype(np.float32),
+            rng.standard_normal((b, s, 1, n)).astype(np.float32),
+            rng.standard_normal((b, s, h, p)).astype(np.float32),
+            rng.standard_normal((b, h, p, n)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_state", [
+    (2, 96, 4, 8, 16, 32, False),       # three chunks; the state unused
+    (2, 21, 4, 8, 16, 8, True),         # ragged S: a padded last chunk
+])
+def test_ssd_function_grads_match_jax_ssd_chunked(b, s, h, p, n, chunk,
+                                                  with_state, dtype):
+    """y and the x, dt, A, B, C gradients of K3's Function (x, B, C in
+    ``dtype``, as the model passes them) against ``jax.vjp`` of the
+    reference's ``ssd_chunked``, its bf16 score downcast included; with
+    the final state's cotangent too, or with the state unused (the
+    training path: its cotangent reaches the backward as None)."""
+    x, dt, A, Bm, Cm, dy, dst = _ssd_arrays(b, s, h, p, n)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jin = [jnp.asarray(x).astype(jdt), jnp.asarray(dt), jnp.asarray(A),
+           jnp.asarray(Bm).astype(jdt), jnp.asarray(Cm).astype(jdt)]
+    (jy, _), vjp = jax.vjp(lambda *a: jmamba2.ssd_chunked(*a, chunk), *jin)
+    jgrads = vjp((jnp.asarray(dy).astype(jdt),
+                  jnp.asarray(dst) if with_state
+                  else jnp.zeros_like(jnp.asarray(dst))))
+    leaves = [torch.from_numpy(x).to(tdt), torch.from_numpy(dt),
+              torch.from_numpy(A), torch.from_numpy(Bm).to(tdt),
+              torch.from_numpy(Cm).to(tdt)]
+    leaves = [t.requires_grad_() for t in leaves]
+    y, state = ops.ssd(*leaves, chunk=chunk)
+    assert y.grad_fn is not None and y.dtype == tdt
+    outs, cts = [y], [torch.from_numpy(dy).to(tdt)]
+    if with_state:
+        outs.append(state)
+        cts.append(torch.from_numpy(dst))
+    torch.autograd.backward(outs, cts)
+    rel = BF16_REL if dtype == "bfloat16" else F32_TOL
+    _close_rel(y, jy, rel, "y")
+    for name, t, j in zip(["x", "dt", "A", "B", "C"], leaves, jgrads):
+        assert t.grad.dtype == t.dtype, name
+        _close_rel(t.grad, j, rel, f"d{name}")
+
+
+def test_ssd_function_backward_is_ssd_chunked_autograd_on_the_cpu():
+    """The Function's gradients equal plain autograd through the port's
+    ``ssd_chunked`` (what its backward recomputes), bit for bit, at a
+    ragged S = 21 in bf16."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    x, dt, A, Bm, Cm, dy, _ = _ssd_arrays(2, 21, 4, 8, 16)
+    args = [torch.from_numpy(x).bfloat16(), torch.from_numpy(dt),
+            torch.from_numpy(A), torch.from_numpy(Bm).bfloat16(),
+            torch.from_numpy(Cm).bfloat16()]
+    grads = []
+    for fn in (lambda *a: ops.ssd(*a, chunk=8),
+               lambda *a: ssd_chunked(*a, 8)):
+        leaves = [t.clone().requires_grad_() for t in args]
+        fn(*leaves)[0].backward(torch.from_numpy(dy).bfloat16())
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_jax_bf16_broadcast_sums_accumulate_in_bf16():
+    """The reference quirk behind the mamba2 reference's f32 run (module
+    docstring): op by op on the CPU, the gradient of a bf16 broadcast
+    multiply (mamba2's ``D * x``) sums its 1,536 terms in bf16, 7 % off
+    the exact sum, where PyTorch's is within 0.5 %."""
+    rng = np.random.default_rng(0)
+    x, y = (rng.standard_normal((8, 24, 16, 8)).astype(np.float32)
+            for _ in range(2))
+    jx, jy = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, y))
+    exact = (np.asarray(jx, np.float32) * np.asarray(jy, np.float32)).sum(
+        (0, 1, 3))
+
+    def f(d):
+        return (d[None, None, :, None].astype(jnp.bfloat16) * jx * jy
+                ).astype(jnp.float32).sum()
+
+    with jax.disable_jit():
+        jg = np.asarray(jax.grad(f)(jnp.ones((16,), jnp.float32)))
+    td = torch.ones(16, requires_grad=True)
+    (td[None, None, :, None].bfloat16() * _t(jx) * _t(jy)).float().sum(
+    ).backward()
+    scale = np.abs(exact).max()
+    assert np.abs(jg - exact).max() > 0.05 * scale
+    assert np.abs(td.grad.numpy() - exact).max() < 0.005 * scale
+
+
 # ------------------------------------------------------------- GRPO pieces
 
 def test_token_logprobs_matches_jax():
@@ -271,15 +443,16 @@ def test_pack_rollout_batch_matches_jax():
                                        atol=1e-5, err_msg=k)
 
 
-def _loss_inputs(seed=3):
-    jm, jp, flat = _reference_params(seed)
-    params = convert.params_from_reference(flat, _port_cfg())
-    return jm, jp, build_model(_port_cfg()), params, _seeded_batch(seed)
+def _loss_inputs(seed=3, family="dense"):
+    jm, jp, flat = _reference_params(seed, family)
+    params = convert.params_from_reference(flat, _port_cfg(family))
+    return jm, jp, build_model(_port_cfg(family)), params, _seeded_batch(seed)
 
 
-def _port_cfg():
+def _port_cfg(family="dense"):
     from repro_torch.configs import get_config
-    return get_config("qwen2-0.5b").replace(**dict(OVERRIDES))
+    arch, ov = FAMILIES[family]
+    return get_config(arch).replace(**dict(ov))
 
 
 @pytest.mark.parametrize("kl_coef", [0.0, 0.1])
@@ -296,11 +469,23 @@ def test_grpo_loss_metrics_match_jax(kl_coef):
     assert abs(float(tmet["pg_loss"])) > 1e-3    # the batch bites
 
 
-@pytest.mark.parametrize("grad_accum", [1, 2])
-def test_compute_grads_match_jax(grad_accum):
-    jm, jp, tm, params, batch = _loss_inputs()
-    jgrads, jmet = jgrpo.compute_grads(jp, jm, _jbatch(batch),
-                                       jgrpo.GRPOConfig(), None, grad_accum)
+def _by_family(cases, families=("ssm", "hybrid")):
+    """``cases`` for the dense model under their old ids, then the first
+    case for each other family: what a case varies besides the model
+    (micro-batching, the op path) is the same code for every family."""
+    dense = [pytest.param(c, "dense", id=str(c)) for c in cases]
+    return dense + [pytest.param(cases[0], f, id=f"{cases[0]}-{f}")
+                    for f in families]
+
+
+@pytest.mark.parametrize("grad_accum,family", _by_family([1, 2]))
+def test_compute_grads_match_jax(grad_accum, family, monkeypatch):
+    jm, jp, tm, params, batch = _loss_inputs(family=family)
+    jp, mode = _jax_side(family, jp, monkeypatch)
+    with mode:
+        jgrads, jmet = jgrpo.compute_grads(jp, jm, _jbatch(batch),
+                                           jgrpo.GRPOConfig(), None,
+                                           grad_accum)
     tgrads, tmet = tgrpo.compute_grads(params, tm, _tbatch(batch),
                                        tgrpo.GRPOConfig(), grad_accum)
     jflat = j_canonical_flat(jgrads, is_leaf=lambda x: hasattr(x, "shape"))
@@ -369,11 +554,10 @@ def test_optimizer_update_matches_jax(case):
     jout = jopt.update(jtree(grads), jopt.AdamWState(
         jnp.asarray(step, jnp.int32), jtree(mu), jtree(nu)), jtree(params),
         jcfg)
-    tout = topt.update(ttree(grads), topt.AdamWState(
-        torch.tensor(step, dtype=torch.int32), ttree(mu), ttree(nu)),
-        ttree(params), tcfg)
+    tp, tst = ttree(params), topt.AdamWState(
+        torch.tensor(step, dtype=torch.int32), ttree(mu), ttree(nu))
+    tm = topt.update_(ttree(grads), tst, tp, tcfg)
     jp, jst, jm = jout
-    tp, tst, tm = tout
     assert int(tst.step) == step + 1
     gnorm = float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
                               for g in grads.values())))
@@ -405,51 +589,57 @@ def test_train_state_init_draws_params_and_zero_moments():
 
 # ------------------------------------------------------------------ the WPG
 
-def _spec(mod, job, dep, role):
+def _spec(mod, job, dep, role, family="dense"):
+    arch, ov = FAMILIES[family]
     return mod.DeploymentSpec(deployment_id=dep, job_id=job,
-                              model_name="qwen2-0.5b", role=role,
-                              overrides=OVERRIDES)
+                              model_name=arch, role=role, overrides=ov)
 
 
-def _wpg_pair():
+def _wpg_pair(family="dense", monkeypatch=None):
     """A JAX WPG and a port WPG (train role) holding the same parameters
-    and zero AdamW moments."""
-    _, jp, flat = _reference_params(5)
-    jw = JWPG(_spec(japi, "A", "A-train", "train"), JStateManager(),
+    and zero AdamW moments, and the context to run the JAX one in."""
+    _, jp, flat = _reference_params(5, family)
+    jp, mode = _jax_side(family, jp, monkeypatch)
+    jw = JWPG(_spec(japi, "A", "A-train", "train", family), JStateManager(),
               adamw_cfg=jopt.AdamWConfig(**FAST_LR))
     jw.execute(japi.make_op(jw.spec, japi.Op.INIT, 0))
     jw._store(params=jp)
-    tw = WorkerProcessGroup(_spec(api, "A", "A-train", "train"),
+    tw = WorkerProcessGroup(_spec(api, "A", "A-train", "train", family),
                             StateManager(),
                             adamw_cfg=topt.AdamWConfig(**FAST_LR))
     tw.execute(api.make_op(tw.spec, api.Op.INIT,
                            params=convert.params_from_reference(flat,
                                                                 tw.cfg)))
-    return jw, tw
+    return jw, tw, mode
 
 
-@pytest.mark.parametrize("path", ["update_actor", "forward_backward+optim"])
-def test_wpg_update_matches_jax_wpg(path):
-    jw, tw = _wpg_pair()
+@pytest.mark.parametrize("path,family", _by_family(
+    ["update_actor", "forward_backward+optim"]))
+def test_wpg_update_matches_jax_wpg(path, family, monkeypatch):
+    jw, tw, mode = _wpg_pair(family, monkeypatch)
     batch = _seeded_batch(5)
-    # the gradient, for the mask below and the first moment
-    jgrads, _ = jgrpo.compute_grads(jw.params(), jw.model, _jbatch(batch),
-                                    jw.grpo_cfg, None)
-    # FORWARD (compute_log_prob) first: it changes nothing
-    jlp = jw.execute(japi.make_op(jw.spec, japi.Op.FORWARD, _jbatch(batch)))
+    with mode:
+        # the gradient, for the mask below and the first moment
+        jgrads, _ = jgrpo.compute_grads(jw.params(), jw.model,
+                                        _jbatch(batch), jw.grpo_cfg, None)
+        # FORWARD (compute_log_prob) first: it changes nothing
+        jlp = jw.execute(japi.make_op(jw.spec, japi.Op.FORWARD,
+                                      _jbatch(batch)))
+        if path == "update_actor":
+            jmet = jw.execute(japi.make_op(jw.spec, japi.Op.UPDATE_ACTOR,
+                                           _jbatch(batch)))
+        else:
+            jfb = jw.execute(japi.make_op(jw.spec, japi.Op.FORWARD_BACKWARD,
+                                          _jbatch(batch)))
+            jmet = dict(jfb["metrics"], **jw.execute(japi.make_op(
+                jw.spec, japi.Op.OPTIM_STEP, jfb["grads"])))
     tlp = tw.execute(api.make_op(tw.spec, api.Op.FORWARD, batch))
     _close_rel(tlp, jlp, what="logprobs")
     if path == "update_actor":
-        jmet = jw.execute(japi.make_op(jw.spec, japi.Op.UPDATE_ACTOR,
-                                       _jbatch(batch)))
         tmet = tw.execute(api.make_op(tw.spec, api.Op.UPDATE_ACTOR, batch))
     else:
-        jfb = jw.execute(japi.make_op(jw.spec, japi.Op.FORWARD_BACKWARD,
-                                      _jbatch(batch)))
         tfb = tw.execute(api.make_op(tw.spec, api.Op.FORWARD_BACKWARD,
                                      batch))
-        jmet = dict(jfb["metrics"], **jw.execute(japi.make_op(
-            jw.spec, japi.Op.OPTIM_STEP, jfb["grads"])))
         tmet = dict(tfb["metrics"], **tw.execute(api.make_op(
             tw.spec, api.Op.OPTIM_STEP, tfb["grads"])))
         assert tmet["step"] == jmet["step"] == 1
@@ -471,12 +661,13 @@ def test_wpg_update_matches_jax_wpg(path):
             # by a constant): its sign is rounding noise
             continue
         g = _n(g)
-        sel = np.abs(g) > 1e-2 * np.abs(g).max()
+        sel = np.abs(g) > SIGN_FLOOR[family][0] * np.abs(g).max()
         compared += int(sel.sum())
         np.testing.assert_allclose(_n(tp[k])[sel], _n(jp[k])[sel],
                                    rtol=2.0 ** -7, atol=1e-6, err_msg=k)
         _close_rel(tmu[k], jmu[k], what=f"mu {k}")
-    assert compared > 0.5 * sum(v.size for v in jg.values())
+    assert compared > SIGN_FLOOR[family][1] * sum(v.size
+                                                  for v in jg.values())
 
 
 def test_update_actor_writes_in_place_and_sync_weights_copies():
