@@ -94,7 +94,21 @@ Phases (any failure raises and the process exits non-zero):
 17. checkpoints and the DISK tier: a full-width qwen2-0.5b training job's
     state to DISK and back, one ``host_capacity`` eviction to DISK, then
     ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
-    on the card; the temporary files are removed at the end.
+    on the card; the temporary files are removed at the end;
+18. the process plane: phase 8's two jobs on two groups through
+    ``PlexCluster.run(concurrent=True)``, first in thread mode, then with
+    each group's WPGs in a spawned child process on the same card
+    (``process_plane=True``): every op runs in its group's child, with
+    exact K1 and K2 launches read there, every op billed, both wall times
+    and a child's CUDA-context memory printed; then a bit-exact
+    cross-child SYNC_WEIGHTS (0.99 GB), job B's 4.94 GB train state moved
+    live to the other child over /dev/shm and back through the disk-spill
+    route (bit-exact each way), and group 1's child killed with SIGKILL
+    mid-generate: the op fails naming the group, its dependent is
+    poisoned, the card memory comes back, the ops done before stay
+    billed, the respawn leaves no segment or spill file, and the job
+    restores the checkpoint it saved through the op path and takes one
+    more step; ``close_processes`` leaves no child and no segment.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -103,11 +117,14 @@ prints no result.
 """
 from __future__ import annotations
 
+import functools
 import gc
+import glob
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1362,6 +1379,383 @@ def checkpoint_phase(torch, dev, tmp):
         fail("checkpoint_all -> fail_node -> restore_all is not bit-exact")
 
 
+def mem_used(torch, dev) -> int:
+    """Bytes in use on the card, every process's (contexts included)."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return total - free
+
+
+def compute_apps() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return "; ".join(out.stdout.strip().splitlines()) or "none listed"
+
+
+def same_bytes(torch, a, b) -> bool:
+    a, b = (torch.as_tensor(x).reshape(-1).view(torch.uint8) for x in (a, b))
+    return torch.equal(a, b)
+
+
+def same_leaves(torch, a, b) -> bool:
+    """Two flat {key: tensor or array} maps hold the same keys and bytes."""
+    return a.keys() == b.keys() and all(
+        same_bytes(torch, a[k], b[k]) for k in a)
+
+
+def child_params(gp, dep):
+    """A deployment's parameters as its child exports them for a sync."""
+    from repro_torch.models import common
+    return common.canonical_flat(gp.call("sync_export", {"dep": dep})[0])
+
+
+def child_state(gp, prefix):
+    """A job's managed state read from its child without moving it, by
+    key: a ``migrate_export`` whose entries above 64 MiB spill to files
+    (read here, then deleted), the rest inline. Prints the read's
+    seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    payload, _ = gp.call("migrate_export",
+                         {"job": prefix, "max_inline": 64 << 20})
+    state = {e["key"]: e["data"] if e["path"] is None else np.load(e["path"])
+             for e in payload["entries"]}
+    for path in payload["spills"]:
+        os.unlink(path)
+    print(f"  read {payload['bytes']} B of {prefix} from group "
+          f"{gp.group_id}'s child in {time.perf_counter() - t0} s")
+    return state
+
+
+def counted_in_child(wpg, job, log):
+    """Wrap a WPGProxy's ``execute`` to log each op's job, name, seconds
+    (its exec-log mirror), the kernel launches it made in the child (read
+    there before and after) and the child's pid."""
+    execute = wpg.execute
+
+    def run(qop):
+        before = wpg.gp.call("probe")[0]["launches"]
+        out = execute(qop)
+        after = wpg.gp.call("probe")[0]
+        log.append((job, qop.op.value, wpg.exec_log[-1][1],
+                    {k: after["launches"][k] - before[k] for k in before},
+                    after["pid"]))
+        return out
+
+    wpg.execute = run
+
+
+def proc_workload(process_plane: bool):
+    """Phase 8's two GRPO jobs, A on group 0 and B on group 1."""
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+
+    cluster = PlexCluster(n_groups=2, process_plane=process_plane)
+    ctls = {job: cluster.add_job(JobConfig(
+        job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
+        **TRAIN), group_id=g)
+        for g, (seed, job) in enumerate(((1, "A"), (2, "B")))}
+    return cluster, ctls
+
+
+def proc_phase(torch, dev, records, tmp):
+    """Phase 18: the process plane. Phase 8's two jobs on two groups, each
+    group's WPGs in a spawned child on the one card, then a cross-child
+    weight sync, a live migration there and back, and a killed child
+    respawned."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shm_transport as shmt
+    from repro_torch.launch.mesh import host_shm_bytes
+    from repro_torch.launch.proc_plane import StateManagerProxy
+
+    t_phase = time.perf_counter()
+    steps, n_new = TRAIN["steps"], TRAIN["max_new_tokens"]
+    cfg = get_config_arch()
+    print(f"phase 18: the process plane, {ARCH} at full width and depth, "
+          f"jobs A and B on groups 0 and 1 ({TRAIN}) through "
+          f"PlexCluster.run(interleave=True, concurrent=True); card "
+          f"{card_line()}; /dev/shm free {host_shm_bytes()} B; "
+          f"shm_available() {shmt.shm_available()}")
+
+    # the same workload in thread mode first: two dispatch threads, one
+    # interpreter
+    cluster, ctls = proc_workload(False)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    billing = cluster.run(interleave=True, concurrent=True)
+    thread_wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = step_launches(cfg, GRPO_STEP, n_new, 2 * steps)
+    print(f"  thread mode: {thread_wall} s for 2 jobs x {steps} steps; "
+          f"launches {launches}")
+    if launches != want:
+        fail(f"thread mode launched {launches}, want {want}")
+    for job, c in ctls.items():
+        check_bill(cluster, billing[job], [c.dep.wpg], 1 + 2 * steps, steps)
+    del cluster, ctls, c
+    release(torch, dev, "thread-mode cluster")
+
+    used0 = mem_used(torch, dev)
+    parent0 = torch.cuda.memory_reserved(dev)
+    cluster, ctls = proc_workload(True)
+    router = cluster.router
+    gps = router.group_procs
+    print(f"  process mode: children {({g: gp.pid() for g, gp in gps.items()})}"
+          f" (parent {os.getpid()}); routes "
+          f"{({g: 'shm' if gp.shm_enabled else 'pickle' for g, gp in gps.items()})}")
+    if len({gp.pid() for gp in gps.values()} | {os.getpid()}) != 3:
+        fail("the groups do not run in two children of their own")
+    log = []
+    for job, c in ctls.items():
+        counted_in_child(c.dep.wpg, job, log)
+    for gp in gps.values():              # the children's counts, zeroed
+        gp.call("probe", {"reset": True})
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    billing = cluster.run(interleave=True, concurrent=True)
+    proc_wall = time.perf_counter() - t0
+    per_op = {op: launches_per_op(cfg, op, n_new)
+              for op in ("init", "generate", "update_actor")}
+    home = {"A": 0, "B": 1}
+    for job, op, sec, grew, pid in log:
+        print(f"  job {job} {op}: {sec} s in pid {pid}, launches {grew}")
+        if grew != per_op[op]:
+            fail(f"job {job} {op}: launches {grew}, want {per_op[op]}")
+        if pid != gps[home[job]].pid():
+            fail(f"job {job} {op} ran in pid {pid}")
+    if any(ops.LAUNCHES.values()):
+        fail(f"the parent launched kernels: {ops.LAUNCHES}")
+    probes = {g: gp.call("probe")[0] for g, gp in gps.items()}
+    child_launches = {k: sum(p["launches"][k] for p in probes.values())
+                      for k in want}
+    if child_launches != want:
+        fail(f"the children launched {child_launches}, want {want}")
+    for job, c in ctls.items():
+        rec = billing[job]
+        print(f"  bill {job}: busy {rec.busy_seconds} s, switch "
+              f"{rec.switch_seconds} s, steps {rec.steps}")
+        check_bill(cluster, rec, [c.dep.wpg], 1 + 2 * steps, steps)
+        if not all(math.isfinite(v) for m in c.metrics_log
+                   for v in m.values()):
+            fail(f"job {job}: non-finite metrics {c.metrics_log}")
+        del c.dep.wpg.execute            # the plain proxy from here on
+    used1 = mem_used(torch, dev)
+    child_reserved = sum(p["cuda_reserved"] or 0 for p in probes.values())
+    ctx = (used1 - used0 - (torch.cuda.memory_reserved(dev) - parent0)
+           - child_reserved) / 2
+    print(f"  process mode: {proc_wall} s for 2 jobs x {steps} steps "
+          f"(thread mode {thread_wall} s); children's launches "
+          f"{child_launches}; card memory in use {used0} -> {used1} B, the "
+          f"children's caching allocators {child_reserved} B, so a child's "
+          f"CUDA context ~{ctx} B; nvidia-smi: {compute_apps()}")
+    for k in ("flash_attention", "decode_attention"):
+        records[k]["process_plane_launches"] = child_launches[k]
+    rtts = sorted(gps[0].ping(timeout=60) for _ in range(200))
+    print(f"  IPC round trip (ping, group 0): median {rtts[100]} s, min "
+          f"{rtts[0]} s, max {rtts[-1]} s over 200")
+
+    # cross-child SYNC_WEIGHTS: job A's train deployment (group 0) into a
+    # rollout deployment of job A on group 1
+    d_roll = router.deploy(api.DeploymentSpec(
+        deployment_id="A-rollout", job_id="A", model_name=ARCH,
+        role="rollout", overrides=TRAIN_OVERRIDES), group_id=1)
+    f = d_roll.init(seed=9)
+    router.run_until_idle()
+    f.result()
+    want_params = child_params(gps[0], "A-train")
+    if same_leaves(torch, child_params(gps[1], "A-rollout"), want_params):
+        fail("the rollout deployment already held job A's parameters")
+    f = ctls["A"].dep.sync_weights(d_roll)
+    router.run_until_idle()
+    f.result()
+    sync_s = ctls["A"].dep.wpg.exec_log[-1][1]
+    nbytes = sum(t.numel() * t.element_size() for t in want_params.values())
+    exact = same_leaves(torch, child_params(gps[1], "A-rollout"),
+                        want_params)
+    print(f"  cross-child SYNC_WEIGHTS (group 0 -> group 1): {nbytes} B of "
+          f"bf16 parameters in {sync_s} s ({nbytes / sync_s / 1e9} GB/s); "
+          f"bit-exact {exact}")
+    if not exact:
+        fail("the cross-child weight sync is not bit-exact")
+    router.teardown("A-rollout")
+    del want_params
+
+    # live migration of job B's train state: group 1 -> group 0 over shm,
+    # then back through the spill tier for leaves above 64 MiB
+    b_prefix = ctls["B"].dep.wpg.job_prefix
+    nbytes = router.state_managers[1].job_bytes(b_prefix)
+    free = host_shm_bytes()
+    if free is None or free < nbytes:
+        fail(f"/dev/shm has {free} B free, less than the {nbytes} B a move "
+             f"of job B writes there")
+    before = child_state(gps[1], b_prefix)
+    moved = router.reassign_job("B", 0)
+    lm = dict(router.state_managers[1].last_migrate)
+    exact = same_leaves(torch, child_state(gps[0], b_prefix), before)
+    print(f"  reassign_job(B, 0): {moved} B in {lm['seconds']} s "
+          f"({moved / lm['seconds'] / 1e9} GB/s; export "
+          f"{lm['export_seconds']} s, import {lm['import_seconds']} s), "
+          f"{lm['keys']} entries, "
+          f"{lm['spilled']} spilled, over shm {lm['shm']}; bit-exact {exact}")
+    if not exact or moved != nbytes or not lm["shm"] or lm["spilled"]:
+        fail("job B's move over shm was not whole and bit-exact")
+    src = router.state_managers[0]
+    src.migrate = functools.partial(StateManagerProxy.migrate, src,
+                                    max_inline_bytes=64 << 20)
+    try:
+        moved = router.reassign_job("B", 1)
+    finally:
+        del src.migrate
+    lm = dict(src.last_migrate)
+    exact = same_leaves(torch, child_state(gps[1], b_prefix), before)
+    left = glob.glob(os.path.join(gps[0].spill_dir(), "export__*"))
+    rate = moved / lm["seconds"] / 1e9
+    print(f"  back through StateManagerProxy.migrate(max_inline_bytes=64 "
+          f"MiB): {moved} B in {lm['seconds']} s ({rate} GB/s; export "
+          f"{lm['export_seconds']} s, import {lm['import_seconds']} s), "
+          f"{lm['spilled']} of {lm['keys']} entries spilled to "
+          f"disk, the rest over shm {lm['shm']}; bit-exact {exact}; spill "
+          f"files left {left}")
+    if not exact or moved != nbytes or not lm["spilled"] or left:
+        fail("job B's move back through the spill tier was not whole and "
+             "bit-exact")
+    del before
+    proc_kill(torch, dev, cluster, ctls, tmp, nbytes)
+
+    procs = [gp._proc for gp in gps.values()]
+    router.close_processes()
+    left = [n for n in os.listdir("/dev/shm")
+            if n.startswith(f"pxl{os.getpid()}g")]
+    alive = [p.pid for p in procs if p.is_alive()]
+    print(f"  close_processes: children alive {alive}, segments left {left};"
+          f" phase 18 took {time.perf_counter() - t_phase} s")
+    if alive or left:
+        fail("close_processes left a child or a segment")
+
+
+def proc_kill(torch, dev, cluster, ctls, tmp, nbytes):
+    """Phase 18's failure: SIGKILL group 1's child while job B's generate
+    runs there, then respawn it and restore the job from the checkpoint
+    its deployment saved through the op path."""
+    from repro_torch.kernels import ops
+
+    router = cluster.router
+    gp = router.group_procs[1]
+    dep = ctls["B"].dep
+    path = os.path.join(tmp, "proc_ckpt_B")
+    f = dep.save_checkpoint(path)
+    router.run_until_idle()
+    f.result()
+    want_params = child_params(gp, "B-train")
+    with cluster._bill_lock:
+        cluster._bill_from_logs()
+    billed, ran = cluster.billing["B"].busy_seconds, len(dep.wpg.exec_log)
+    used_alive = mem_used(torch, dev)
+    smi_alive = compute_apps()
+    prompts = next(ctls["B"].batches)[0]
+    router.serve()
+    gen_f = dep.generate(prompts, max_new_tokens=TRAIN["max_new_tokens"])
+    dep_f = dep.forward(gen_f)
+    busy_since, deadline = None, time.monotonic() + 120
+    while True:            # the channel held for 0.3 s: inside the generate
+        if gp._lock.acquire(blocking=False):
+            gp._lock.release()
+            busy_since = None
+        elif busy_since is None:
+            busy_since = time.monotonic()
+        elif time.monotonic() - busy_since > 0.3:
+            break
+        if gen_f.done() or time.monotonic() > deadline:
+            fail("job B's generate was not caught running")
+        time.sleep(0.01)
+    pid = gp.pid()
+    os.kill(pid, signal.SIGKILL)
+    errors = []
+    for fut in (gen_f, dep_f):
+        try:
+            fut.wait(timeout=120)
+            errors.append(None)
+        except RuntimeError as e:
+            errors.append(str(e))
+    router.shutdown()
+    gp._proc.join(timeout=30)
+    health = router.process_health()
+    used_dead = mem_used(torch, dev)
+    print(f"  SIGKILL pid {pid} (group 1) mid-generate: the op raised "
+          f"{errors[0]!r}; its dependent {errors[1]!r}; health {health}; "
+          f"card memory in use {used_alive} -> {used_dead} B "
+          f"({used_alive - used_dead} B returned); nvidia-smi {smi_alive} "
+          f"-> {compute_apps()}")
+    if errors[0] is None or "group 1 worker process died" not in errors[0] \
+            or "generate" not in errors[0]:
+        fail("the killed generate did not fail naming its group")
+    if errors[1] is None or "prerequisite" not in errors[1]:
+        fail("the generate's dependent was not poisoned")
+    if health != {0: True, 1: False}:
+        fail(f"process_health {health}")
+    if used_alive - used_dead < nbytes:
+        fail("the dead child's card memory was not returned")
+    with cluster._bill_lock:
+        cluster._bill_from_logs()
+    rec = cluster.billing["B"]
+    logged = sum(dt for _, dt in dep.wpg.exec_log)
+    print(f"  bill B: busy {billed} s before the kill, {rec.busy_seconds} s "
+          f"after; {len(dep.wpg.exec_log)} ops logged ({ran} before)")
+    if len(dep.wpg.exec_log) != ran or rec.busy_seconds != billed \
+            or not math.isclose(rec.busy_seconds, logged):
+        fail("the ops completed before the kill are not billed as they were")
+
+    dead = f"pxl{os.getpid()}g1s{gp.spawn_count}c"
+    t0 = time.perf_counter()
+    respawned = router.respawn_dead_groups()
+    gp.ping(timeout=120)
+    t_respawn = time.perf_counter() - t0
+    segs = [n for n in os.listdir("/dev/shm") if n.startswith(dead)]
+    spills = glob.glob(os.path.join(gp.spill_dir(), "export__*"))
+    used_new = mem_used(torch, dev)
+    t0 = time.perf_counter()
+    f_init = dep.init(seed=2)
+    f_load = dep.load_checkpoint(path)
+    router.run_until_idle()
+    f_init.result()
+    f_load.result()
+    t_reload = time.perf_counter() - t0
+    exact = same_leaves(torch, child_params(gp, "B-train"), want_params)
+    probe = gp.call("probe", {"reset": True})[0]
+    ctx = mem_used(torch, dev) - used_new - (probe["cuda_reserved"] or 0)
+    t0 = time.perf_counter()
+    tails = ctls["B"].submit_step()
+    router.run_until_idle()
+    metrics = [t.result() for t in tails]
+    t_step = time.perf_counter() - t0
+    grew = gp.call("probe")[0]["launches"]
+    step_want = step_launches(get_config_arch(), GRPO_STEP,
+                              TRAIN["max_new_tokens"])
+    print(f"  respawn_dead_groups() {respawned}: {t_respawn} s (spawn, "
+          f"handshake, deployment replay; new pid {gp.pid()}); segments of "
+          f"{dead} left {segs}, spill files left {spills}; INIT + "
+          f"LOAD_CHECKPOINT {t_reload} s (CUDA init, the parameters), "
+          f"parameters bit-exact {exact}; the new child's CUDA context "
+          f"~{ctx} B; one more step {t_step} s, metrics {metrics}, "
+          f"launches {grew}")
+    if respawned != [1] or segs or spills or not exact:
+        fail("the respawn left residue or the checkpoint did not restore")
+    if grew != step_want or not all(math.isfinite(v) for m in metrics
+                                    for v in m.values()):
+        fail(f"the step after the restore: launches {grew}, want "
+             f"{step_want}; metrics {metrics}")
+    if any(ops.LAUNCHES.values()):
+        fail(f"the parent launched kernels: {ops.LAUNCHES}")
+
+
+def get_config_arch():
+    from repro_torch.configs import get_config
+    return get_config(ARCH).replace(**dict(TRAIN_OVERRIDES))
+
+
 def mamba2_train_phase(torch, dev, records):
     """Phase 14: phase 8's two GRPO jobs for mamba2-2.7b at full width and
     depth, once the card and the pinned host memory of earlier phases are
@@ -1730,6 +2124,8 @@ def main():
         release(torch, dev, "host-step WPG")
         checkpoint_phase(torch, dev, tmp)
         release(torch, dev, "checkpoint cluster")
+        proc_phase(torch, dev, records, tmp)
+        release(torch, dev, "process-plane cluster")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -20,9 +20,13 @@ Two operating modes:
 Jobs run GRPO (``algo="grpo"``) or PPO (``algo="ppo"``: an actor and a
 critic deployment). :meth:`checkpoint_all` materialises every deployment's
 parameters and :meth:`restore_all` loads them back, after
-:meth:`fail_node` too. Not ported yet, each raising
-``NotImplementedError`` naming its item of ROADMAP.md's Queue 1:
-``process_plane=True`` (item 6) and ``devices_per_group`` > 1 (item 7).
+:meth:`fail_node` too. With ``process_plane=True`` each node group's WPGs
+run in their own worker process (``launch/proc_plane.py``); there, as in
+the reference, :meth:`fail_node`, :meth:`checkpoint_all` and
+:meth:`restore_all` fail (checkpoints go through the deployments'
+``save_checkpoint`` / ``load_checkpoint`` ops instead).
+``devices_per_group`` > 1 raises ``NotImplementedError`` (ROADMAP.md,
+Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -61,18 +65,18 @@ class PlexCluster:
                  director_cfg: Optional[DirectorConfig] = None,
                  devices_per_group: Optional[int] = None,
                  process_plane: bool = False,
+                 proc_wpg_factory: Optional[str] = None,
                  device_plane: Optional[DevicePlane] = None):
         """``device_plane`` leases each node group its device; the default
-        plane carves the CUDA devices (and raises without one)."""
-        if process_plane:
-            raise _not_ported("PlexCluster(process_plane=True)",
-                              "item 6, process plane")
+        plane carves the CUDA devices (and raises without one).
+        ``process_plane`` and ``proc_wpg_factory`` go to the Router."""
         if devices_per_group is not None and devices_per_group > 1:
             raise _not_ported("node groups of more than one device",
                               "item 7, sharding")
         kwargs = {} if wpg_factory is None else {"wpg_factory": wpg_factory}
         self.router = Router(policy=policy, device_plane=device_plane,
-                             **kwargs)
+                             process_plane=process_plane,
+                             proc_wpg_factory=proc_wpg_factory, **kwargs)
         self.controllers: Dict[str, _RLControllerBase] = {}
         self.billing: Dict[str, BillingRecord] = {}
         # incremental billing cursors: exec-log offset per deployment and
@@ -426,10 +430,22 @@ class PlexCluster:
         self._billed_switches = len(self.router.switch_log)
 
     # --------------------------------------------------- fault tolerance
+    def _in_process(self, what: str):
+        """Process mode's failure where the reference's reaches into state
+        that lives in a worker process (an AttributeError there too)."""
+        if self.router.process_plane:
+            raise AttributeError(
+                f"PlexCluster.{what} reads entry tiers and calls WPG methods "
+                "in this process, but in process mode both live in the "
+                "group's worker process; kill the process (respawn_dead_"
+                "groups) or use the save_checkpoint / load_checkpoint ops")
+
     def fail_node(self, group_id: int):
         """Simulate a node failure: device-tier state on the group is lost.
         Jobs must restart from their last checkpoint (or re-init)."""
         sm = self.router.state_managers[group_id]
+        if sm.entries:
+            self._in_process("fail_node")
         lost = [k for k, e in sm.entries.items() if e.tier == Tier.DEVICE]
         for k in lost:
             sm.unregister([k])
@@ -439,6 +455,8 @@ class PlexCluster:
         """Materialise every deployment's parameters under
         ``base_dir/<deployment id>``, whichever tier holds them. Returns
         deployment id -> checkpoint path."""
+        if self.router.wpgs:
+            self._in_process("checkpoint_all")
         paths = {}
         for dep_id, wpg in self.router.wpgs.items():
             paths[dep_id] = wpg._op_save_checkpoint(f"{base_dir}/{dep_id}")
@@ -448,6 +466,8 @@ class PlexCluster:
         """Load each deployment's checkpoint back (into the tensors it
         holds, or registered anew on its group's device after
         :meth:`fail_node`)."""
+        if paths:
+            self._in_process("restore_all")
         for dep_id, path in paths.items():
             self.router.wpgs[dep_id]._op_load_checkpoint(path)
 

@@ -24,8 +24,11 @@ call are the reference's: group lifecycle (:meth:`ensure_group`,
 (:meth:`reassign_job` → :meth:`migrate_job` → ``StateManager.migrate``).
 Groups that lease the same device (every group on one H100) run their
 dispatch threads at once on that device, as the reference does on one
-device. The process plane and multi-device slices are not ported
-(ROADMAP.md, Queue 1, items 6 and 7).
+device. With ``process_plane=True`` each node group's WPGs live in their
+own spawned worker process (:mod:`repro_torch.launch.proc_plane`), which
+the Router supervises (:meth:`process_health`, :meth:`respawn_dead_groups`,
+:meth:`close_processes`). Multi-device slices are not ported (ROADMAP.md,
+Queue 1, item 7).
 
 Futures passed as operation arguments are dataflow edges (see
 :mod:`repro_torch.core.api`); an operation that raises resolves its future
@@ -44,7 +47,10 @@ from repro_torch.core.scheduler import hrrs
 from repro_torch.core.scheduler.executor import State, Task, TaskExecutor
 from repro_torch.core.state_manager import StateManager
 from repro_torch.core.worker import WorkerProcessGroup
-from repro_torch.launch.mesh import DevicePlane
+from repro_torch.launch.mesh import (DevicePlane, device_for_slice,
+                                     env_for_slice)
+from repro_torch.launch.proc_plane import (GroupProcess, StateManagerProxy,
+                                           WPGProxy)
 
 logger = logging.getLogger(__name__)
 
@@ -53,10 +59,25 @@ class Router:
     def __init__(self, now: Callable[[], float] = time.monotonic,
                  policy: str = "hrrs",
                  wpg_factory: Callable[..., object] = WorkerProcessGroup,
-                 device_plane: Optional[DevicePlane] = None):
+                 device_plane: Optional[DevicePlane] = None,
+                 process_plane: bool = False,
+                 proc_wpg_factory: Optional[str] = None,
+                 shm_transport: Optional[bool] = None):
         """``device_plane`` leases each node group its device slice; the
-        default plane carves the CUDA devices (and raises without one)."""
+        default plane carves the CUDA devices (and raises without one).
+
+        ``process_plane=True`` hosts each node group's WPGs in a spawned
+        OS process bound to the group's slice: dispatch crosses a pipe, and
+        groups feed their devices from separate interpreters.
+        ``proc_wpg_factory`` names the child's WPG factory as
+        "module:callable" (None: the real WorkerProcessGroup).
+        ``shm_transport`` picks the shared-memory tensor transport (None:
+        where the host supports it; False: the pickle path)."""
         self.now = now
+        self.process_plane = process_plane
+        self.proc_wpg_factory = proc_wpg_factory
+        self.shm_transport = shm_transport
+        self.group_procs: Dict[int, GroupProcess] = {}
         self.wpgs: Dict[str, object] = {}
         self.deployments: Dict[str, api.DeploymentSpec] = {}
         self.group_of: Dict[str, int] = {}       # deployment -> node group
@@ -94,14 +115,32 @@ class Router:
     # ----------------------------------------------------------- lifecycle
     def _group_sm(self, group_id: int) -> StateManager:
         """The group's StateManager, created (with the group's device slice
-        leased from the plane) on first sight."""
+        leased from the plane) on first sight. In process mode first sight
+        spawns the group's worker process (the ready handshake is awaited
+        on first use) and the StateManager is a
+        :class:`~repro_torch.launch.proc_plane.StateManagerProxy` over its
+        pipe."""
         sm = self.state_managers.get(group_id)
         if sm is None:
-            sm = StateManager(node_id=f"group{group_id}", clock=self.now,
-                              mesh_slice=self.device_plane.slice_for_group(
-                                  group_id))
+            sl = self.device_plane.slice_for_group(group_id)
+            if self.process_plane:
+                sm = self._spawn_group_process(group_id, sl)
+            else:
+                sm = StateManager(node_id=f"group{group_id}", clock=self.now,
+                                  mesh_slice=sl)
             self.state_managers[group_id] = sm
         return sm
+
+    def _spawn_group_process(self, group_id: int, sl) -> StateManagerProxy:
+        gp = GroupProcess(group_id, env=env_for_slice(sl),
+                          slice_index=sl.index,
+                          wpg_factory=self.proc_wpg_factory,
+                          node_id=f"group{group_id}",
+                          shm=self.shm_transport,
+                          device=device_for_slice(sl))
+        self.group_procs[group_id] = gp
+        return StateManagerProxy(gp, mesh_slice=sl,
+                                 node_id=f"group{group_id}")
 
     def mesh_domains(self) -> Dict[int, int]:
         """group id -> slice index (the placement layer's domain map: a
@@ -113,8 +152,10 @@ class Router:
         a deployment on a group without a dispatch worker spawns one."""
         with self.executor.cv:
             sm = self._group_sm(group_id)
-        # built OUTSIDE the cv: a slow model build must not stall dispatch
-        wpg = self.wpg_factory(spec, sm)
+        # built OUTSIDE the cv: a slow model build (or the child's
+        # create_deployment round trip) must not stall dispatch
+        wpg = WPGProxy(spec, sm) if self.process_plane \
+            else self.wpg_factory(spec, sm)
         with self.executor.cv:
             self.wpgs[spec.deployment_id] = wpg
             self.deployments[spec.deployment_id] = spec
@@ -181,6 +222,9 @@ class Router:
                                     for q in self.pending.values()),
                     timeout=120.0)
             wpg.sm.unregister(wpg.sm.keys_for(wpg.job_prefix))
+            close = getattr(wpg, "close", None)
+            if close is not None:       # process mode: drop the child's WPG
+                close()
         if cancelled:
             try:
                 for qop, err in cancelled:
@@ -516,6 +560,36 @@ class Router:
             self._abandoned = [t for t in self._abandoned if t.is_alive()]
             return [t.name for t in self._abandoned]
 
+    # ------------------------------------------------------- process plane
+    def process_health(self) -> Dict[int, bool]:
+        """group id -> worker-process liveness (process mode; empty in
+        thread mode)."""
+        return {gid: gp.alive() for gid, gp in self.group_procs.items()}
+
+    def respawn_dead_groups(self) -> List[int]:
+        """Respawn every dead group worker process in place (deployments
+        replayed, managed state lost: a device failure). The director's
+        capacity adjuster calls this each poll; a no-op in thread mode.
+        Each respawn first reaps the dead incarnation's shm segments and
+        its orphaned ``export__*`` spill files. Returns the group ids."""
+        respawned: List[int] = []
+        for gid, gp in list(self.group_procs.items()):
+            if not gp.alive():
+                logger.warning("group %d worker process died (exitcode %s); "
+                               "respawning", gid,
+                               None if gp._proc is None else gp._proc.exitcode)
+                gp.respawn()
+                respawned.append(gid)
+        return respawned
+
+    def close_processes(self, timeout: float = 10.0):
+        """Shut down every group worker process (protocol shutdown,
+        escalating to terminate). The children are daemons, so an unclosed
+        plane still dies with the parent."""
+        for gp in self.group_procs.values():
+            gp.shutdown(timeout=timeout)
+        self.group_procs.clear()
+
     # ------------------------------------------- group lifecycle / telemetry
     def known_groups(self) -> List[int]:
         with self.executor.cv:
@@ -568,6 +642,7 @@ class Router:
             if self._serving:
                 self._ensure_serve_worker(group_id)
             raise
+        gp = None
         with ex.cv:
             # an attach that raced past drop_group owns the group again:
             # leave its (empty) StateManager alone
@@ -576,12 +651,16 @@ class Router:
                 if sm is not None and not sm.entries:
                     del self.state_managers[group_id]
                     self.device_plane.release(group_id)
+                    gp = self.group_procs.pop(group_id, None)
+        if gp is not None:          # outside the cv: shutdown joins the child
+            gp.shutdown()
 
     def group_telemetry(self) -> Dict[int, dict]:
         """Per-group queue depth and occupancy (the §4.4 capacity
         adjuster's input): queue_depth (QUEUED ops), running (an op holds
         the group lock), busy_seconds (measured execution), resident_job,
-        deployments, worker (a live serve thread)."""
+        deployments, worker (a live serve thread), and in process mode
+        process_alive."""
         ex = self.executor
         with ex.cv:
             groups = (set(self.group_of.values()) | set(self.state_managers)
@@ -598,6 +677,10 @@ class Router:
                         d for d, gg in self.group_of.items() if gg == g),
                     "worker": g in self._serve_threads,
                 }
+        if self.process_plane:
+            for g, d in out.items():
+                gp = self.group_procs.get(g)
+                d["process_alive"] = bool(gp is not None and gp.alive())
         return out
 
     def tenant_telemetry(self) -> Dict[str, dict]:

@@ -26,12 +26,12 @@ host memory is what the tier is for.
 Migration (:meth:`migrate`) hands a job's entries to another group's
 manager. Between groups that lease the same device (every group on one
 H100) a DEVICE entry changes owner without a copy; across devices it is
-copied to the destination's device. A checkpoint is materialised from the
-managed state, whichever tier holds it (:meth:`materialize_checkpoint`),
-and :meth:`host_optimizer_step` is the CPU AdamW of ZeRO-offload (§4.5.4).
-The cross-process ``export_state`` / ``import_state`` of
-``repro.core.state_manager`` are not ported yet (ROADMAP.md, Queue 1,
-item 6).
+copied to the destination's device. Between processes (the process plane)
+:meth:`export_state` stages a job's entries to the host and
+:meth:`import_state` adopts them in the other process. A checkpoint is
+materialised from the managed state, whichever tier holds it
+(:meth:`materialize_checkpoint`), and :meth:`host_optimizer_step` is the
+CPU AdamW of ZeRO-offload (§4.5.4).
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ import itertools
 import os
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+import uuid
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +69,7 @@ class Entry:
     path: Optional[str] = None       # DISK spill file
     is_bf16: bool = False            # the spill file holds bf16 as uint16
     last_touch: int = 0              # LRU eviction order
+    version: int = 0                 # host optimizer steps applied
 
 
 def _spill(path: str, t: torch.Tensor) -> bool:
@@ -75,6 +77,12 @@ def _spill(path: str, t: torch.Tensor) -> bool:
     arr, dtype = ckpt.to_numpy(t)
     np.save(path, arr)
     return dtype == "bfloat16"
+
+
+def _unlink(paths: Sequence[str]):
+    for path in paths:
+        if os.path.exists(path):
+            os.unlink(path)
 
 
 def _unspill(e: Entry) -> torch.Tensor:
@@ -310,6 +318,99 @@ class StateManager:
                              "cross_mesh": cross_mesh, "keys": len(keys)}
         return moved
 
+    # ------------------------------------ cross-PROCESS migration halves
+    def export_state(self, job_id: str, max_inline_bytes: int = 64 << 20
+                     ) -> Dict[str, Any]:
+        """Stage a job's managed state for another process (the process
+        plane's migrate-export): every entry as a host numpy array, bf16 as
+        its 16-bit pattern (``is_bf16``). An entry above
+        ``max_inline_bytes`` spills to ``export__{txn}__<key>.npy`` under
+        ``disk_dir`` (``np.save``, the reference's format) and travels by
+        path. Non-destructive: the source keeps its entries until the
+        importer has committed and the caller drops them.
+
+        Spill files belong to the transfer: the importer deletes them on
+        commit and on rollback (:meth:`import_state`), the caller when the
+        importer died first (``StateManagerProxy.migrate``), and a respawn
+        sweeps what a crash left."""
+        keys = list(self.keys_for(job_id))
+        txn = uuid.uuid4().hex[:12]
+        entries = []
+        spills: List[str] = []
+        total = 0
+        self._sync()
+        t0 = self.clock()
+        for k in keys:
+            e = self.entries[k]
+            if e.tier == Tier.DISK:
+                arr, is_bf16 = np.load(e.path), e.is_bf16
+            else:
+                arr, dtype = ckpt.to_numpy(e.ref)
+                is_bf16 = dtype == "bfloat16"
+            ent = {"key": k, "nbytes": e.nbytes, "version": e.version,
+                   "tier": int(e.tier), "is_bf16": is_bf16, "spec": None,
+                   "path": None, "data": None}
+            if arr.nbytes > max_inline_bytes:
+                os.makedirs(self.disk_dir, exist_ok=True)
+                path = os.path.join(
+                    self.disk_dir,
+                    f"export__{txn}__" + k.replace("/", "__") + ".npy")
+                np.save(path, arr)
+                ent["path"] = path
+                spills.append(path)
+            else:
+                ent["data"] = arr
+            entries.append(ent)
+            total += e.nbytes
+        self._record("migrate", total, self.clock() - t0)
+        return {"job_id": job_id, "entries": entries, "bytes": total,
+                "txn": txn, "spills": spills}
+
+    def import_state(self, payload: Dict[str, Any]) -> int:
+        """Adopt an :meth:`export_state` payload: entries exported from
+        DEVICE land on this manager's device, HOST and DISK ones on HOST.
+        Every entry is copied out of the payload (its tensors may be views
+        over a shared segment that is recycled once this returns). A
+        failure removes every staged entry before it re-raises, so the
+        exporter stays the sole owner; the transfer's spill files are
+        deleted on commit and on rollback. Returns the bytes adopted; the
+        caller synchronises the device before it acks the transfer."""
+        t0 = self.clock()
+        staged: List[str] = []
+        spills = [p for p in payload.get("spills", ())
+                  if p and os.path.basename(p).startswith("export__")]
+        moved = 0
+        try:
+            for ent in payload["entries"]:
+                data = np.load(ent["path"]) if ent["path"] is not None \
+                    else ent["data"]
+                t = torch.as_tensor(data)
+                if ent["is_bf16"]:
+                    t = t.view(torch.bfloat16)
+                if Tier(ent["tier"]) == Tier.DEVICE:
+                    tier, dev = Tier.DEVICE, self.device
+                else:
+                    tier, dev = Tier.HOST, torch.device("cpu")
+                self.entries[ent["key"]] = Entry(
+                    key=ent["key"], tier=tier, nbytes=ent["nbytes"],
+                    ref=t.to(dev, copy=True), version=ent["version"],
+                    last_touch=self._touch())
+                staged.append(ent["key"])
+                moved += ent["nbytes"]
+        except Exception:
+            for k in staged:     # rollback: the exporter still owns the state
+                self.entries.pop(k, None)
+            _unlink(spills)      # the transfer is over: nobody reads them
+            raise
+        _unlink(spills)
+        self._evict_if_needed()
+        dt = self.clock() - t0
+        self._record("load", moved, dt)
+        self.last_migrate = {"bytes": moved, "seconds": dt,
+                             "cross_mesh": True,
+                             "keys": len(payload["entries"])}
+        return moved
+
     # --------------------------------------------------------- estimates
     def load_time_estimate(self, nbytes: int) -> float:
         return self._estimate("load", nbytes, 1e10)
@@ -390,4 +491,5 @@ class StateManager:
             nu.copy_(b2 * nu + (1 - b2) * torch.square(gm))
             upd = (mu / c1) / (torch.sqrt(nu / c2) + eps)
             e.ref.copy_(p - lr * upd.cpu())
+            e.version += 1
         return step

@@ -126,6 +126,11 @@ class WorkerProcessGroup:
         return self.sm.gather(self.job_prefix, self.model.param_specs(),
                               "params")
 
+    def host_params(self):
+        """The parameters as host tensors: the process plane's export for a
+        weight sync into another process."""
+        return common.tree_map(lambda t: t.detach().cpu(), self.params())
+
     def opt_state(self) -> opt.AdamWState:
         specs = self.model.param_specs()
         return opt.AdamWState(**self.sm.gather(
@@ -140,7 +145,9 @@ class WorkerProcessGroup:
     def _store_params(self, tree):
         """Parameters from a weight sync or a checkpoint: written into the
         registered tensors where the deployment holds some, else
-        registered (a copy on the group's device)."""
+        registered (a copy on the group's device). Either way the tree is
+        copied, so its leaves may be views over memory that is reused once
+        this returns (the process plane's shared segments)."""
         if self.sm.keys_for(self.job_prefix, "params"):
             self.sm.write(self.job_prefix, tree, "params")
         else:

@@ -8,10 +8,15 @@ the JAX plane does on one device; a retired group returns its lease
 (:meth:`DevicePlane.release`). The plane defaults to the CUDA devices
 and raises when there are none; tests pass ``devices=[torch.device("cpu")]``.
 Multi-device slices wait for the sharding port (ROADMAP.md, Queue 1).
+
+:func:`env_for_slice` and :func:`device_for_slice` give a process-plane
+child (``launch/proc_plane.py``) its view of a slice: a CUDA slice is the
+only card the child sees, as its ``cuda:0``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -23,6 +28,37 @@ class MeshSlice:
     """A device leased to one or more node groups."""
     index: int
     device: torch.device
+
+
+def env_for_slice(sl: MeshSlice) -> Dict[str, str]:
+    """The environment that makes a spawned group process see exactly its
+    slice's device: ``CUDA_VISIBLE_DEVICES`` set to the slice's card, which
+    the child then sees as ``cuda:0``. A CPU slice (the tests) hides every
+    card. Applied in the child before torch initialises CUDA."""
+    if sl.device.type == "cuda":
+        idx = 0 if sl.device.index is None else sl.device.index
+        return {"CUDA_VISIBLE_DEVICES": str(idx)}
+    return {"CUDA_VISIBLE_DEVICES": ""}
+
+
+def device_for_slice(sl: MeshSlice) -> str:
+    """The device a group process runs on, as a plain string for its
+    config (unpickling a ``torch.device`` would import torch before the
+    environment is applied): ``"cuda:0"`` under :func:`env_for_slice`'s
+    mask, else the slice's own device type."""
+    return "cuda:0" if sl.device.type == "cuda" else sl.device.type
+
+
+def host_shm_bytes(path: str = "/dev/shm") -> Optional[int]:
+    """Free bytes in the host's POSIX shared-memory filesystem, or ``None``
+    where it does not exist. tmpfs backs only the pages written, so a
+    segment larger than this is created without complaint and a write past
+    the free bytes is a SIGBUS in the writer: check before a large move."""
+    try:
+        st = os.statvfs(path)
+    except OSError:
+        return None
+    return st.f_bavail * st.f_frsize
 
 
 class DevicePlane:

@@ -511,13 +511,11 @@ def test_teardown_of_running_best_effort_bills_and_spares_guaranteed():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
-    """The process plane and sharding still raise, naming their Queue 1
-    items; a PPO job (an actor and a critic deployment) now attaches."""
+    """Sharding still raises, naming its Queue 1 item; a PPO job (an actor
+    and a critic deployment) attaches."""
     P = _Pkg("repro_torch")
-    for kw, item in (({"process_plane": True}, "item 6"),
-                     ({"devices_per_group": 2}, "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            PlexCluster(device_plane=cpu_plane(), **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        PlexCluster(device_plane=cpu_plane(), devices_per_group=2)
     c = PlexCluster(device_plane=cpu_plane(), wpg_factory=SleepWPG)
     ctl = c.add_job(_tiny(P, "p", 1), algo="ppo")
     assert type(ctl).__name__ == "RLControllerPPO"
