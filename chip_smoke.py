@@ -20,8 +20,11 @@ Phases (any failure raises and the process exits non-zero):
    (B=16 T=4096 and the single straggler B=1 T=8192, under the record's
    ``long_context``), K3 at mamba2-2.7b's and at a ragged and a short
    sequence; then K1, K2 and K3 at zamba2-7b's shapes (under each record's
-   ``zamba2``: head_dim 112, MHA; state 64), K1's and K2's queries at 3x
-   unit scale (``Q_SCALE``). ``ms`` times back-to-back
+   ``zamba2``: head_dim 112, MHA; state 64) and K1 and K2 at the MoE
+   paths' shapes (``qwen3_moe``: head_dim 128, GQA 32:4; granite's
+   head_dim 64, GQA 24:8 under ``granite_prefill``, ``granite_training``
+   and ``granite``), K1's and K2's queries at 3x unit scale
+   (``Q_SCALE``). ``ms`` times back-to-back
    calls from Python (the wrapper's host cost included); ``device_ms`` and
    ``library_device_ms`` time a CUDA graph of the same calls, the card's
    own time;
@@ -108,7 +111,25 @@ Phases (any failure raises and the process exits non-zero):
     poisoned, the card memory comes back, the ops done before stay
     billed, the respawn leaves no segment or spill file, and the job
     restores the checkpoint it saved through the op path and takes one
-    more step; ``close_processes`` leaves no child and no segment.
+    more step; ``close_processes`` leaves no child and no segment;
+19. the MoE serving path: one Qwen3-30B-A3B job at full width and depth
+    (61,089,411,072 B of parameters on the card) through Router -> WPG
+    -> rollout, INIT then three generates (B=16, prompt 256, 64 new, the
+    last under the profiler), each with exactly 48 K1 and 3,072 K2
+    launches and a peak under 80 GB, the prefill's capacity drops
+    counted;
+20. whole-path parity for Qwen3-30B-A3B at full width cut to 2 layers,
+    as phase 5 at B=16, with the routing recorded on both sides: every
+    flip must be a near-tie of the router's logits, the flips few, and
+    the logits are held where the routing agreed;
+21. phase 8 for granite-moe-3b-a800m at full width and depth, once the
+    host is shown to hold both jobs' pinned train state (32,991,866,884 B
+    a job, which every switch moves, the f32 router and moments
+    bit-exact across it): exactly 256 K1 and 8,192 K2 launches over the
+    four steps, every op billed, and the seeded update moves the router
+    and expert leaves in place;
+22. training parity for granite at full width and 4 layers, as phase 9,
+    the MoE aux loss included.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -173,6 +194,30 @@ HYB_SSM_H, HYB_SSM_N = 112, 64
 HYB_APPS, HYB_MAMBA = 11, 70
 HYB_PARITY_LAYERS = 15
 
+
+# the MoE serving path (phase 19): Qwen3-30B-A3B at full width and depth,
+# one job (batch 16, prompt 256, 64 new): 48 layers of 32 query heads and 4
+# KV heads of width 128, 128 experts top-8; its parity phase (20) cuts depth
+# to 2 layers
+MOE_ARCH = "paper-qwen3-30b-a3b"
+MOE_P = 256
+MOE_H, MOE_KH, MOE_D = 32, 4, 128
+MOE_LAYERS = 48
+MOE_ROUNDS = 3
+MOE_PARITY_LAYERS = 2
+MOE_PARITY_B = 16
+# routing flips card vs CPU, of all choices; every flip must also be a
+# near-tie of the router's logits. At these inputs the card's router logits
+# differ from the CPU's by up to 4e-3, and 38 of the 18,432 choices (0.21 %)
+# flip, each at a k-th to (k+1)-th gap within twice that difference
+# (PERF.md)
+MOE_FLIP_SHARE = 2.5e-3
+# the MoE training path (phase 21): phase 8's two GRPO jobs of granite at
+# full width and depth (32 layers of 24 query heads and 8 KV heads of width
+# 64, 40 experts top-8); its parity phase (22) cuts depth to 4 layers
+GRANITE_ARCH = "granite-moe-3b-a800m"
+GRANITE_H, GRANITE_KH, GRANITE_D = 24, 8, 64
+GRANITE_LAYERS = 32
 
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
 # full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
@@ -406,10 +451,33 @@ def kernel_phase(torch, dev):
         torch, randn, B, HYB_P, HYB_H, HYB_H, HYB_D, iters=50)
     records["decode_attention"]["zamba2"] = decode_timing(
         torch, randn, B, t_cap, t_cap - 1, 200, HYB_H, HYB_H, HYB_D)
-    for name in ("flash_attention", "decode_attention"):
+
+    # the MoE paths: Qwen3-30B-A3B's prefill and last decode step (GQA 8:1,
+    # head_dim 128), granite's generate prefill (S=64), training forward
+    # (S=128) and last decode step (GQA 3:1, head_dim 64)
+    print("phase 3: K1 and K2 at the MoE paths' shapes (bf16: Qwen3-30B-A3B "
+          "H=32 K=4 D=128, granite H=24 K=8 D=64)")
+    t_cap = MOE_P + N_NEW
+    g_prompt, g_seq = TRAIN["prompt_len"], TRAIN["seq_len"]
+    records["flash_attention"]["qwen3_moe"] = flash_timing(
+        torch, randn, B, MOE_P, MOE_H, MOE_KH, MOE_D, iters=100)
+    records["flash_attention"]["granite_prefill"] = flash_timing(
+        torch, randn, B, g_prompt, GRANITE_H, GRANITE_KH, GRANITE_D)
+    records["flash_attention"]["granite_training"] = flash_timing(
+        torch, randn, B, g_seq, GRANITE_H, GRANITE_KH, GRANITE_D)
+    records["decode_attention"]["qwen3_moe"] = decode_timing(
+        torch, randn, B, t_cap, t_cap - 1, 500, MOE_H, MOE_KH, MOE_D)
+    records["decode_attention"]["granite"] = decode_timing(
+        torch, randn, B, g_seq, g_seq - 1, 500, GRANITE_H, GRANITE_KH,
+        GRANITE_D)
+    for name, rows in (("flash_attention", ("zamba2", "qwen3_moe",
+                                            "granite_prefill",
+                                            "granite_training")),
+                       ("decode_attention", ("zamba2", "qwen3_moe",
+                                             "granite"))):
         rec = records[name]
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 rec["zamba2"]["max_abs_err"])
+        rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                 + [rec[r]["max_abs_err"] for r in rows])
     return records
 
 
@@ -594,26 +662,32 @@ def ssd_timing(torch, gen, dev, h, n, cases):
 
 def profile_round(torch, run):
     """``run()`` once more (the resident job, no context switch) with the
-    device traced: the card's busy share and its kernel time by name."""
+    device traced: the card's busy share and its kernel time by name,
+    summed over the profiler's raw device events (``key_averages`` would
+    build a Python event tree: 143 s for a Qwen3-30B-A3B generate's
+    542,451 events). Returns the run's result and the busy seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
     print(f"  profiled round: {wall * 1e3} ms wall, device busy {busy * 1e3} "
-          f"ms ({busy / wall} of wall), {sum(e.count for e in events)} "
-          f"device events")
-    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+          f"ms ({busy / wall} of wall), "
+          f"{sum(n for _, n in by_name.values())} device events")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the ten largest, then the port's own kernels wherever they rank
-    for i, e in enumerate(ranked):
-        if i < 10 or any(tag in e.key for tag in PORT_KERNELS):
-            print(f"    {e.self_device_time_total / 1e3} ms  x{e.count}  "
-                  f"{e.key[:90]}")
+    for i, (name, (ns, n)) in enumerate(ranked):
+        if i < 10 or any(tag in name for tag in PORT_KERNELS):
+            print(f"    {ns / 1e6} ms  x{n}  {name[:90]}")
+    return out, busy
 
 
 def f32_leaves(torch, dep):
@@ -703,20 +777,46 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want):
 
 # ------------------------------------------------ phases 5, 7: parity
 
+def side_logits(torch, model, params, d, prompt, forced, where):
+    """The prefill's logits, then each teacher-forced decode step's, with
+    ``params`` copied to device ``d``."""
+    from repro_torch.models import common
+    from repro_torch.rl.rollout import _pad_cache
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        prm = common.tree_map(lambda t: t.to(d), params,
+                              is_leaf=torch.is_tensor)
+        lg, _, cache = model.forward(prm, {"tokens": prompt.to(d)},
+                                     return_cache=True)
+        steps = [lg.cpu()]
+        cache = _pad_cache(cache, forced.shape[1])
+        for i in range(forced.shape[1]):
+            lg, cache = model.decode_step(
+                prm, cache, {"tokens": forced[:, i:i + 1].to(d)})
+            steps.append(lg.cpu())
+    print(f"  {where} side: {time.perf_counter() - t0} s")
+    return steps
+
+
+def parity_prompt(torch, cfg, b, p, n):
+    """MathDataset prompts (B, p) and seeded forced tokens (B, n)."""
+    from repro_torch.rl import data as data_lib
+
+    prompt = torch.as_tensor(
+        next(data_lib.MathDataset(seed=1).batches(b, p))[0], dtype=torch.long)
+    forced = torch.randint(0, cfg.vocab_size, (b, n),
+                           generator=torch.Generator().manual_seed(2))
+    return prompt, forced
+
+
 def parity_phase(torch, model, params, dev, phase):
     """Prefill and teacher-forced decode logits on the card against the
     same parameters through the plain versions on the CPU."""
-    from repro_torch.models import common
-    from repro_torch.rl import data as data_lib
-    from repro_torch.rl.rollout import _pad_cache
-
     cfg = model.cfg
     runs = {"card": dev, "cpu": torch.device("cpu")}
     b, p, n = 2, 64, 8
-    prompt = torch.as_tensor(next(data_lib.MathDataset(seed=1).batches(b, p))[0],
-                             dtype=torch.long)
-    forced = torch.randint(0, cfg.vocab_size, (b, n),
-                           generator=torch.Generator().manual_seed(2))
+    prompt, forced = parity_prompt(torch, cfg, b, p, n)
     # the CPU test's bound of four bf16 ulps of the largest logit at 4
     # layers (tests/test_torch_model.py), grown with the square root of the
     # depth: independent bf16 roundings per layer add in quadrature
@@ -724,22 +824,9 @@ def parity_phase(torch, model, params, dev, phase):
     print(f"phase {phase}: parity card vs CPU plain, {cfg.name} at "
           f"{cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced decode "
           f"steps (tolerance {rel_tol} * max|logit|)")
-    logits = {}
-    with torch.inference_mode():
-        for where, d in runs.items():
-            t0 = time.perf_counter()
-            prm = common.tree_map(lambda t: t.to(d), params,
-                                  is_leaf=torch.is_tensor)
-            lg, _, cache = model.forward(prm, {"tokens": prompt.to(d)},
-                                         return_cache=True)
-            steps = [lg.cpu()]
-            cache = _pad_cache(cache, n)
-            for i in range(n):
-                lg, cache = model.decode_step(
-                    prm, cache, {"tokens": forced[:, i:i + 1].to(d)})
-                steps.append(lg.cpu())
-            logits[where] = steps
-            print(f"  {where} side: {time.perf_counter() - t0} s")
+    logits = {where: side_logits(torch, model, params, d, prompt, forced,
+                                 where)
+              for where, d in runs.items()}
     worst = 0.0
     for i, (gpu, cpu) in enumerate(zip(logits["card"], logits["cpu"])):
         err = (gpu - cpu).abs().max().item()
@@ -789,6 +876,52 @@ def moment_sums(wpg):
             common.canonical_flat(wpg.opt_state().mu).items()}
 
 
+def digest(torch, t) -> int:
+    """An order-sensitive digest of a tensor's bits, computed where the
+    tensor lives, in slices (the temporaries are those of one slice)."""
+    v = t.detach().reshape(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()])
+    acc = 0
+    for c in v.split(1 << 24):
+        w = torch.arange(1, c.numel() + 1, device=c.device,
+                         dtype=torch.int64)
+        acc = acc * 1_000_003 + int((c.to(torch.int64) * w).sum())
+    return acc
+
+
+def guard_f32(torch, wpg, job, seen, checks, spent):
+    """Wrap a WPG's ``offload`` and ``ensure_resident``: digest its f32
+    entries (parameters such as the MoE router, the AdamW moments) on the
+    card just before an offload, again once the load that brings them back
+    is done, and log ``(job, leaves, bit-exact)`` in ``checks``. The
+    digests' seconds are added to ``spent[0]``, so a wall time around the
+    wrapped calls can leave them out."""
+    sm = wpg.sm
+    offload, load = wpg.offload, wpg.ensure_resident
+
+    def f32():
+        t0 = time.perf_counter()
+        out = {k: digest(torch, sm.entries[k].ref)
+               for k in sm.keys_for(wpg.job_prefix)
+               if sm.entries[k].ref.dtype == torch.float32}
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def run_offload(*args, **kw):
+        if wpg.resident():
+            seen[job] = f32()
+        return offload(*args, **kw)
+
+    def run_load():
+        dt = load()
+        if job in seen:
+            want = seen.pop(job)
+            checks.append((job, len(want), f32() == want))
+        return dt
+
+    wpg.offload, wpg.ensure_resident = run_offload, run_load
+
+
 def counted(wpg, job, log):
     """Wrap a WPG's ``execute`` to log each op's job, name, seconds (from
     its exec_log) and the kernel launches it made."""
@@ -827,9 +960,10 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
     ctls = {job: cluster.add_job(JobConfig(
         job_id=job, model_name=arch, seed=seed, overrides=overrides,
         **TRAIN)) for seed, job in enumerate("AB", start=1)}
-    log = []
+    log, seen, checks, spent = [], {}, [], [0.0]
     for job, c in ctls.items():
         counted(c.dep.wpg, job, log)
+        guard_f32(torch, c.dep.wpg, job, seen, checks, spent)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -844,8 +978,9 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
         print(f"  job {job} {op}: {sec} s, launches {grew}")
         if grew != want[op]:
             fail(f"job {job} {op}: launches {grew}, want {want[op]}")
-    print(f"  {len(log)} ops in {wall} s; launches {launches}; peak card "
-          f"memory {peak} B (card total "
+    print(f"  {len(log)} ops in {wall - spent[0]} s (the f32 digests' "
+          f"{spent[0]} s left out of the {wall} s wall); launches "
+          f"{launches}; peak card memory {peak} B (card total "
           f"{torch.cuda.get_device_properties(dev).total_memory} B)")
     sm = router.state_managers[0]
     nbytes = {job: sm.job_bytes(c.dep.wpg.job_prefix)
@@ -858,6 +993,10 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
     moved = [sw for sw in router.switch_log if sw["t_offload"] > 0]
     if len(moved) < 3:
         fail(f"only {len(moved)} context switches offloaded a job")
+    print(f"  f32 leaves across the switches (job, leaves, bit-exact): "
+          f"{checks}")
+    if len(checks) < 2 or not all(ok for _, _, ok in checks):
+        fail(f"f32 leaves across the switches: {checks}")
     # both jobs are resident after their inits, so the first switch only
     # offloads; every later one moves both jobs' whole state
     for i, sw in enumerate(moved):
@@ -907,14 +1046,27 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
     ptrs = {k: sm.entries[k].ref.data_ptr() for k in keys}
 
     mu0 = moment_sums(wpg)
+    # the MoE's router and expert leaves, which the update must move
+    moe_keys = [k for k in keys if "/params/layers/moe/" in k]
+    moe0 = {k: digest(torch, sm.entries[k].ref) for k in moe_keys}
     torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
     m = done(dep.update_actor(batch))
+    t_update = time.perf_counter() - t0
     mu1 = moment_sums(wpg)
     print(f"  seeded update_actor (job A, B={TRAIN['batch_size']} "
-          f"S={TRAIN['seq_len']}): {wpg.exec_log[-1][1]} s, loss "
-          f"{m['loss']}, pg_loss {m['pg_loss']}, kl {m['kl']}, grad_norm "
+          f"S={TRAIN['seq_len']}): {wpg.exec_log[-1][1]} s ({t_update} s "
+          f"from submit to result), loss {m['loss']}, pg_loss "
+          f"{m['pg_loss']}, kl {m['kl']}, aux {m['aux']}, grad_norm "
           f"{m['grad_norm']}, lr {m['lr']}; peak card memory "
           f"{torch.cuda.max_memory_allocated(dev)} B")
+    still_moe = [k for k in moe_keys
+                 if digest(torch, sm.entries[k].ref) == moe0[k]]
+    if moe_keys:
+        print(f"  MoE leaves moved by the update: "
+              f"{len(moe_keys) - len(still_moe)} of {len(moe_keys)}")
+    if still_moe:
+        fail(f"the seeded update left {still_moe} unchanged")
     still = [k for k in mu1 if mu1[k] == mu0[k]]
     print(f"  f32 first moments changed in {len(mu1) - len(still)} of "
           f"{len(mu1)} leaves (unchanged: {still})")
@@ -939,7 +1091,7 @@ def launches_per_op(cfg, op, n_new):
         attn = hybrid._layout(cfg)[0]
         mamba = cfg.num_layers - attn
     else:
-        attn = cfg.num_layers if cfg.family == "dense" else 0
+        attn = cfg.num_layers if cfg.family in ("dense", "moe") else 0
         mamba = cfg.num_layers - attn
     zero = {"flash_attention": 0, "decode_attention": 0, "ssd": 0}
     if op in ("init", "optim_step", "sync_weights"):
@@ -968,8 +1120,9 @@ def check_bill(cluster, rec, wpgs, submitted, steps):
 def update_parity(torch, dev, phase, arch, overrides):
     """One update_actor of ``arch`` (cut by ``overrides``) on the card and
     on the CPU's plain path from the same parameters and batch: loss,
-    pg_loss and kl within 5e-2, grad_norm within 5 %, each leaf's f32 mu
-    within 5e-2 * max|mu|. Returns the worst |diff| / tolerance."""
+    pg_loss, kl and the MoE aux loss (0 without experts) within 5e-2,
+    grad_norm within 5 %, each leaf's f32 mu within 5e-2 * max|mu|.
+    Returns the worst |diff| / tolerance."""
     from repro_torch.core import api
     from repro_torch.core.state_manager import StateManager
     from repro_torch.core.worker import WorkerProcessGroup
@@ -1010,7 +1163,7 @@ def update_parity(torch, dev, phase, arch, overrides):
         out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR, batch))
         print(f"  {where} update_actor: {w.exec_log[-1][1]} s; {out[where]}")
     worst = 0.0
-    for k in ("loss", "pg_loss", "kl", "grad_norm"):
+    for k in ("loss", "pg_loss", "kl", "aux", "grad_norm"):
         got, want = out["card"][k], out["cpu"][k]
         tol = 5e-2 * (want if k == "grad_norm" else max(1.0, abs(want)))
         worst = max(worst, abs(got - want) / tol)
@@ -1756,18 +1909,22 @@ def get_config_arch():
     return get_config(ARCH).replace(**dict(TRAIN_OVERRIDES))
 
 
-def mamba2_train_phase(torch, dev, records):
-    """Phase 14: phase 8's two GRPO jobs for mamba2-2.7b at full width and
-    depth, once the card and the pinned host memory of earlier phases are
-    released; fails unless the host can pin both jobs' train state."""
+def pinned_train_phase(torch, dev, records, phase, arch):
+    """Phase 8's two GRPO jobs of ``arch`` at full width and depth, once
+    the card and the pinned host memory of earlier phases are released:
+    phase 14 (mamba2-2.7b) and 21 (granite-moe-3b-a800m). Fails unless the
+    host can pin both jobs' train state, every switch moves a whole job
+    and the kernels' launches over the four steps are exactly those of
+    ``launches_per_op``."""
     from repro_torch.configs import get_config
     from repro_torch.models import common
     from repro_torch.models.registry import build_model
 
-    model = build_model(get_config(SSM_ARCH))
+    cfg = get_config(arch)
+    model = build_model(cfg)
     n = model.param_count()
-    # the parameters (bf16, but A_log, D and dt_bias in f32), f32 mu and
-    # nu, the int32 step
+    # the parameters (bf16, but the f32 leaves: mamba2's A_log, D and
+    # dt_bias, the MoE router), f32 mu and nu, the int32 step
     state = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
                 common.canonical_flat(model.param_specs()).values()) \
         + 2 * 4 * n + 4
@@ -1776,21 +1933,25 @@ def mamba2_train_phase(torch, dev, records):
         for line in f:
             key, val = line.split(":", 1)
             mem[key] = int(val.split()[0]) * 1024
-    print(f"phase 14: {SSM_ARCH} training needs {state} B of train state a "
-          f"job, pinned on the host for two jobs: {2 * state} B; MemTotal "
+    print(f"phase {phase}: {arch} training needs {state} B of train state "
+          f"a job, pinned on the host for two jobs: {2 * state} B; MemTotal "
           f"{mem['MemTotal']} B, MemAvailable {mem.get('MemAvailable')} B")
     if mem.get("MemAvailable", mem["MemTotal"]) < 2 * state:
-        fail(f"the host cannot pin two {SSM_ARCH} jobs' train state "
+        fail(f"the host cannot pin two {arch} jobs' train state "
              f"({2 * state} B)")
-    cluster = train_phase(torch, dev, records, 14, SSM_ARCH, ())
+    cluster = train_phase(torch, dev, records, phase, arch, ())
     sm = cluster.router.state_managers[0]
     held = {c.cfg.job_id: sm.job_bytes(c.dep.wpg.job_prefix)
             for c in cluster.controllers.values()}
     if set(held.values()) != {state}:
         fail(f"the jobs hold {held} B, want {state} B each")
-    total = records["ssd"]["train_launches"][SSM_ARCH]["total"]
-    if total != 2 * TRAIN["steps"] * 2 * SSM_LAYERS:
-        fail(f"K3 launched {total} times in the 4 steps")
+    want = step_launches(cfg, GRPO_STEP, TRAIN["max_new_tokens"],
+                         2 * TRAIN["steps"])
+    got = {k: records[k].get("train_launches", {}).get(arch, {}).get(
+        "total", 0) for k in want}
+    print(f"  launches over the {2 * TRAIN['steps']} steps: {got}")
+    if got != want:
+        fail(f"launches over the steps {got}, want {want}")
     return cluster
 
 
@@ -2003,6 +2164,213 @@ def control_plane_phase(torch, dev, records):
         fail(f"remove_job released {drop} B of {job_bytes['auto-c']} B")
 
 
+# ------------------------------------------- phases 19, 20: the MoE
+
+def moe_serve_phase(torch, dev, records):
+    """Phase 19: one Qwen3-30B-A3B job at full width and depth through
+    Router -> HRRS -> WPG -> rollout: INIT, then MOE_ROUNDS batched
+    generates, the last under the profiler, each with exactly MOE_LAYERS K1
+    and MOE_LAYERS * N_NEW K2 launches (the counts set to 0 before each);
+    the prefill's capacity drops are counted on the card. The prompts fill
+    all MOE_P tokens with seeded ids over the vocabulary; round 1 reads
+    MathDataset's prompts as well, ~92 % PAD at this length, whose PADs
+    route alike and overflow the capacity."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.router import Router
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import data as data_lib
+
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    want_bytes = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
+                     common.canonical_flat(model.param_specs()).values())
+    want = {"flash_attention": MOE_LAYERS,
+            "decode_attention": MOE_LAYERS * N_NEW, "ssd": 0}
+    cap = moe.expert_capacity(cfg, MOE_P)
+    print(f"phase 19: serving {MOE_ARCH} at full width and depth, one job "
+          f"(B={B}, prompt {MOE_P}, {N_NEW} new, temperature 0.7; "
+          f"{model.param_count()} parameters, {model.active_param_count()} "
+          f"active; the prefill's capacity {cap} a row and expert)")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    router = Router()                 # the CUDA devices; one card here
+    dep = router.deploy(api.DeploymentSpec(
+        deployment_id="rollout-moe", job_id="M", model_name=MOE_ARCH,
+        role="rollout", overrides=()), group_id=0)
+    rng = np.random.default_rng(0)
+    padded = next(data_lib.MathDataset(seed=0).batches(B, MOE_P))[0]
+    prompt_sets = [("MathDataset", padded) if r == 1 else
+                   ("seeded ids", rng.integers(data_lib.EOS + 1,
+                                               cfg.vocab_size,
+                                               size=(B, MOE_P),
+                                               dtype=np.int32))
+                   for r in range(MOE_ROUNDS)]
+    # each prefill layer's (dropped choices, choices), summed on the card
+    drops = []
+    slot_ranks = moe.slot_ranks
+
+    def counting(expert_ids, e):
+        pos = slot_ranks(expert_ids, e)
+        if expert_ids.shape[1] > 1:
+            drops.append(((pos >= cap).sum(), expert_ids.numel()))
+        return pos
+
+    with router:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dep.init(seed=1).wait(timeout=900)
+        t_init = time.perf_counter() - t0
+        nbytes = router.state_managers[0].job_bytes(dep.wpg.job_prefix)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"  INIT: {t_init} s; parameter bytes on the card {nbytes} "
+              f"(want {want_bytes}); peak card memory through the init "
+              f"{peak} B of {card_bytes} B")
+        if nbytes != want_bytes or peak >= 80e9:
+            fail(f"INIT holds {nbytes} B at a peak of {peak} B")
+        moe.slot_ranks = counting
+        try:
+            for r, (kind, prompts) in enumerate(prompt_sets):
+
+                def run():
+                    return dep.generate(prompts, max_new_tokens=N_NEW,
+                                        temperature=0.7).wait(timeout=600)
+
+                drops.clear()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ops.reset_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                if r == MOE_ROUNDS - 1:
+                    out, busy = profile_round(torch, run)
+                else:
+                    out, busy = run(), None
+                wall = time.perf_counter() - t0
+                end.record()
+                end.synchronize()
+                launches = dict(ops.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated(dev)
+                toks, logps = out["tokens"], out["logprobs"]
+                if tuple(toks.shape) != (B, N_NEW) or \
+                        not bool(((toks >= 0) & (toks < cfg.vocab_size))
+                                 .all()) or \
+                        not bool(torch.isfinite(logps).all()):
+                    fail(f"round {r}: tokens {tuple(toks.shape)} or "
+                         f"logprobs out of range")
+                if launches != want:
+                    fail(f"round {r}: launches {launches}, want {want}")
+                if peak >= 80e9:
+                    fail(f"round {r}: peak card memory {peak} B")
+                dropped = sum(int(d) for d, _ in drops)
+                choices = sum(c for _, c in drops)
+                print(f"  generate {r}: wall {wall * 1e3} ms, device span "
+                      f"{start.elapsed_time(end)} ms (events), device busy "
+                      + (f"{busy * 1e3} ms (profiler)" if busy is not None
+                         else "not measured (unprofiled round)")
+                      + f"; {B * N_NEW / wall} tok/s; launches {launches}; "
+                      f"peak card memory {peak} B; the prefill dropped "
+                      f"{dropped} of {choices} (token, expert) choices in "
+                      f"{len(drops)} layers ({kind} prompts)")
+                if len(drops) != MOE_LAYERS:
+                    fail(f"round {r}: {len(drops)} prefill MoE layers")
+        finally:
+            moe.slot_ranks = slot_ranks
+    path_launches(records, launches, want, "qwen3_moe")
+    return router
+
+
+def moe_parity_phase(torch, dev):
+    """Phase 20: card vs CPU for Qwen3-30B-A3B at full width cut to
+    MOE_PARITY_LAYERS layers, as phase 5 (MathDataset prompts, teacher-
+    forced decode). Each MoE layer's router logits and choices are
+    recorded on both sides, and the CPU side then replays the card's
+    expert ids, with its own gates over them, so both compute one function
+    and every position's logits are held within phase 5's tolerance. The
+    two sides may choose differently where the f32 router's k-th and
+    (k+1)-th logits nearly tie: fails unless every such (token, layer,
+    slot) flip is one (the CPU's gap within twice the token's card-vs-CPU
+    router-logit difference) and the flips stay under MOE_FLIP_SHARE of
+    the choices."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_PARITY_LAYERS)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    b, p, n = MOE_PARITY_B, 64, 8
+    prompt, forced = parity_prompt(torch, cfg, b, p, n)
+    rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
+    print(f"phase 20: parity card vs CPU plain, {MOE_ARCH} at full width "
+          f"cut to {cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced "
+          f"decode steps, the CPU replaying the card's expert ids "
+          f"(tolerance {rel_tol} * max|logit|)")
+    card, cpu_own, logits = [], [], {}
+    route = moe.route
+
+    def recording(router, cfg_, x):
+        out = route(router, cfg_, x)
+        card.append(((x.float() @ router).cpu(), out[1].cpu()))
+        return out
+
+    def replaying(router, cfg_, x):
+        _, ids, aux = route(router, cfg_, x)
+        lg = x.float() @ router
+        cpu_own.append((lg, ids))
+        if len(cpu_own) > len(card) or \
+                card[len(cpu_own) - 1][1].shape != ids.shape:
+            fail("the CPU side's MoE calls differ from the card side's")
+        ids = card[len(cpu_own) - 1][1]
+        gate_w = torch.gather(torch.softmax(lg, dim=-1), -1, ids)
+        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                      min=1e-9)
+        return gate_w, ids, aux
+
+    try:
+        for where, d, wrap in (("card", dev, recording),
+                               ("cpu", torch.device("cpu"), replaying)):
+            moe.route = wrap
+            logits[where] = side_logits(torch, model, params, d, prompt,
+                                        forced, where)
+    finally:
+        moe.route = route
+    del params
+    if len(cpu_own) != len(card):
+        fail(f"{len(card)} MoE calls on the card, {len(cpu_own)} on the CPU")
+    for i, (gpu, cpu) in enumerate(zip(logits["card"], logits["cpu"])):
+        err = (gpu - cpu).abs().max().item()
+        tol = rel_tol * cpu.abs().max().item()
+        agree = (gpu.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+        label = "prefill" if i == 0 else f"decode {i}"
+        print(f"  {label}: max|diff| {err}, tolerance {tol}, argmax "
+              f"agreement {agree}")
+        if not (torch.isfinite(gpu).all() and err <= tol):
+            fail(f"parity {label}: {err} > {tol}")
+    k = cfg.experts_per_token
+    flips = choices = 0
+    gaps = []                            # (CPU gap, 2 * noise) per flip
+    for (lg, ig), (lc, ic) in zip(card, cpu_own):
+        lost = ~(ig[..., :, None] == ic[..., None, :]).any(-1)
+        flips += int(lost.sum())
+        choices += lost.numel()
+        tok = lost.any(-1)
+        top = torch.sort(lc, -1, descending=True)[0]
+        gap = (top[..., k - 1] - top[..., k])[tok]
+        noise = (lg - lc).abs().amax(-1)[tok]
+        gaps += list(zip(gap.tolist(), (2 * noise).tolist()))
+    print(f"  routing flips card vs CPU: {flips} of {choices} (token, "
+          f"layer, slot) choices, limit {MOE_FLIP_SHARE} of them; (CPU "
+          f"gap, 2 x router-logit difference) at each flipped token {gaps}")
+    if flips > MOE_FLIP_SHARE * choices or any(g > t for g, t in gaps):
+        fail(f"{flips} routing flips of {choices} choices, or a flip not "
+             f"at a near-tie")
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -2116,7 +2484,7 @@ def main():
         control_plane_phase(torch, dev, records)
         release(torch, dev, "control-plane cluster")
 
-        cluster = mamba2_train_phase(torch, dev, records)
+        cluster = pinned_train_phase(torch, dev, records, 14, SSM_ARCH)
         del cluster
         release(torch, dev, "mamba2 training cluster")
         ssm_parity_phase(torch, dev, records)
@@ -2126,6 +2494,27 @@ def main():
         release(torch, dev, "checkpoint cluster")
         proc_phase(torch, dev, records, tmp)
         release(torch, dev, "process-plane cluster")
+
+        router = moe_serve_phase(torch, dev, records)
+        del router
+        release(torch, dev, "MoE router")
+        moe_parity_phase(torch, dev)
+        release(torch, dev, "MoE parity parameters")
+        cluster = pinned_train_phase(torch, dev, records, 21, GRANITE_ARCH)
+        del cluster
+        # the granite rows' launches: 4 generates and 4 update_actors
+        for name, row, op in (("flash_attention", "granite_prefill",
+                               "per_generate"),
+                              ("flash_attention", "granite_training",
+                               "per_update_actor"),
+                              ("decode_attention", "granite",
+                               "per_generate")):
+            records[name][row]["launches"] = 2 * TRAIN["steps"] * \
+                records[name]["train_launches"][GRANITE_ARCH][op]
+        release(torch, dev, "granite training cluster")
+        update_parity(torch, dev, 22, GRANITE_ARCH,
+                      (("num_layers", PARITY_LAYERS),))
+        release(torch, dev, "granite parity WPGs")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

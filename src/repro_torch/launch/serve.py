@@ -12,6 +12,9 @@ future. Runs on the CUDA card unless ``--device cpu`` is given.
         --full-width --batch 16 --prompt-len 512 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --full-width --batch 16 --prompt-len 512 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch paper-qwen3-30b-a3b --full-width --batch 16 --prompt-len 256 \\
+        --max-new 64
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ def main(argv=None):
     # count, shrinks); the hybrid keeps at least two shared-attention
     # applications and a trailing block (2 attn_period + 1 blocks, as
     # reduced_config), so the cut still runs K1 and K2, and its attention
-    # keeps the config's head_dim and MHA
+    # keeps the config's head_dim and MHA; the moe family keeps its expert
+    # count, top-k and expert width
     cfg = get_config(args.arch)
     overrides = ()
     if not args.full_width:

@@ -10,8 +10,11 @@ given.
         --steps 50 --d-model 256 --layers 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --jobs 2 --layers 0 --d-model 0 --vocab 0   # the full config
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --jobs 2
 
-The size flags cut the config (0 keeps the config's own value). With
+The size flags cut the config (0 keeps the config's own value); an MoE
+config keeps its expert count, top-k and expert width. With
 ``--ckpt-dir`` every deployment's parameters are checkpointed there after
 the run.
 """

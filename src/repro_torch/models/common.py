@@ -48,6 +48,12 @@ def stack_specs(tree, num: int):
                                         s.init, s.dtype, s.scale), tree)
 
 
+# each leaf is drawn in slices along its leading axis of at most this many
+# elements (at least one row), straight into the leaf; a leaf within it is
+# drawn as one slice
+INIT_SLICE_ELEMS = 1 << 28
+
+
 def _init_one(gen: torch.Generator, s: ParamSpec, device) -> torch.Tensor:
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
@@ -67,10 +73,15 @@ def _init_one(gen: torch.Generator, s: ParamSpec, device) -> torch.Tensor:
     # fan-in scaled normal; embeddings use unit scale
     fan_in = s.shape[0] if s.init == "embed" else math.prod(s.shape[:-1]) or 1
     std = s.scale / math.sqrt(fan_in) if s.init != "embed" else s.scale
-    x = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=device)
-    # scaled in place: a second f32 copy of zamba2-7b's largest leaf (3.45 G
-    # elements) would be 13.8 GB of transient card memory
-    return x.mul_(std).to(s.dtype)
+    # drawn in slices: whole, Qwen3-30B-A3B's expert stack (9.66 G elements)
+    # would be a 38.7 GB f32 transient on the card
+    out = torch.empty(s.shape, dtype=s.dtype, device=device)
+    rows = max(1, INIT_SLICE_ELEMS // math.prod(s.shape[1:]))
+    for part in out.split(rows):
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        part.copy_(x.mul_(std))
+    return out
 
 
 def unstack(tree):

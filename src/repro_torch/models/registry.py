@@ -1,15 +1,17 @@
-"""Unified model API: the :class:`Model` facade for the ``dense``, ``ssm``
-(mamba2) and ``hybrid`` (zamba2) families.
+"""Unified model API: the :class:`Model` facade for the ``dense``, ``moe``,
+``ssm`` (mamba2) and ``hybrid`` (zamba2) families.
 
     model.forward(params, batch, return_cache=False)
     model.decode_step(params, cache, batch)
     model.param_specs() / init_params(generator, device) / param_count()
+    model.active_param_count()
     model.cache_specs(batch, max_len)
 
 ``batch`` is a dict with ``tokens``, as in ``repro.models.registry``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -17,9 +19,9 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import common, hybrid, mamba2, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
-_NOT_PORTED = {"moe": "MoE", "audio": "whisper and vision",
-               "vlm": "whisper and vision"}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+                   "hybrid": hybrid}
+_NOT_PORTED = {"audio": "whisper and vision", "vlm": "whisper and vision"}
 
 
 class Model:
@@ -40,6 +42,20 @@ class Model:
 
     def param_count(self) -> int:
         return common.param_count(self.param_specs())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k experts active)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.num_experts:
+            return total
+        expert = sum(
+            math.prod(s.shape) for key, s in
+            common.canonical_flat(self.param_specs()).items()
+            if "/moe/" in f"/{key}/" and any(
+                w in key for w in ("wi_gate", "wi_up", "wo")))
+        return total - expert + expert * cfg.experts_per_token \
+            // cfg.num_experts
 
     # ------------------------------------------------------------ compute
     def forward(self, params, batch: Dict[str, Any],

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer LM (qwen2, qwen3, deepseek-coder shapes).
+"""Dense and MoE decoder-only transformer LM (qwen2, qwen3, deepseek-coder,
+granite-moe, arctic and the paper's Qwen3 MoE shapes).
 
 Full-sequence forward (prefill, optionally building the KV cache) and
 single-token decode against it. Parameters keep the JAX package's stacked
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
     apply_norm,
@@ -25,10 +27,9 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 
-# config fields this dense port does not run yet -> the ROADMAP item that
-# will port them
+# config fields this port does not run yet -> the ROADMAP item that will
+# port them
 _NOT_PORTED = {
-    "num_experts": "MoE",
     "sliding_window": "gemma2 decode",
     "local_global_period": "gemma2 decode",
     "attn_logit_softcap": "gemma2 decode",
@@ -56,12 +57,16 @@ def check_supported(cfg: ModelConfig) -> None:
 # ------------------------------------------------------------------ params
 
 def layer_param_specs(cfg: ModelConfig):
-    return {
+    p = {
         "ln1": norm_param_specs(cfg),
         "attn": attn_param_specs(cfg),
         "ln2": norm_param_specs(cfg),
-        "mlp": mlp_param_specs(cfg, cfg.d_ff),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_lib.moe_param_specs(cfg)
+    if not cfg.num_experts or cfg.dense_residual:
+        p["mlp"] = mlp_param_specs(cfg, cfg.d_ff)
+    return p
 
 
 def param_specs(cfg: ModelConfig):
@@ -75,32 +80,49 @@ def param_specs(cfg: ModelConfig):
 
 # ----------------------------------------------------------------- forward
 
+def _ffn(p, cfg: ModelConfig, x):
+    """The MLP, or the MoE (plus arctic's parallel dense MLP). Returns
+    (out, aux)."""
+    if cfg.num_experts:
+        out, aux = moe_lib.moe_apply(p["moe"], cfg, x)
+        if cfg.dense_residual:
+            out = out + mlp_apply(p["mlp"], cfg, x)
+        return out, aux
+    return mlp_apply(p["mlp"], cfg, x), None
+
+
 def layer_apply(p, cfg: ModelConfig, x, *, positions, cache=None,
                 cache_pos=None):
-    """One decoder layer. Returns (x, kv)."""
+    """One decoder layer. Returns (x, aux, kv); aux is None without
+    experts."""
     h = apply_norm(p["ln1"], x, cfg)
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
                        cache=cache, cache_pos=cache_pos)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
-    return x + mlp_apply(p["mlp"], cfg, h), kv
+    m, aux = _ffn(p, cfg, h)
+    return x + m, aux, kv
 
 
 def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
-    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache])."""
+    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]);
+    aux is the MoE loss's mean over the layers (0 without experts)."""
     check_supported(cfg)
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for layer in unstack(params["layers"]):
-        x, kv = layer_apply(layer, cfg, x, positions=positions)
+        x, aux, kv = layer_apply(layer, cfg, x, positions=positions)
+        if aux is not None:
+            auxs.append(aux)
         if return_cache:
             ks.append(kv["k"])
             vs.append(kv["v"])
     x = apply_norm(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = torch.stack(auxs).mean() if auxs else \
+        torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": s}
         return logits, aux, cache
@@ -127,9 +149,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
     for i, layer in enumerate(unstack(params["layers"])):
-        x, _ = layer_apply(layer, cfg, x, positions=positions,
-                           cache={"k": cache["k"][i], "v": cache["v"][i]},
-                           cache_pos=pos)
+        # the MoE loss of a decode step is discarded, as the reference's
+        x, _, _ = layer_apply(layer, cfg, x, positions=positions,
+                              cache={"k": cache["k"][i], "v": cache["v"][i]},
+                              cache_pos=pos)
     x = apply_norm(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

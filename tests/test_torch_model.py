@@ -174,7 +174,7 @@ def test_seeded_init_is_deterministic_and_keyed_like_jax():
 
 
 @pytest.mark.parametrize("name,field", [
-    ("gemma2-27b", "sliding_window"), ("granite-moe-3b-a800m", "MoE"),
+    ("gemma2-27b", "sliding_window"),
     ("llama-3.2-vision-90b", "vision"), ("whisper-large-v3", "whisper")])
 def test_unported_configs_raise_naming_the_roadmap(name, field):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
