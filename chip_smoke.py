@@ -23,8 +23,13 @@ Phases (any failure raises and the process exits non-zero):
    ``zamba2``: head_dim 112, MHA; state 64) and K1 and K2 at the MoE
    paths' shapes (``qwen3_moe``: head_dim 128, GQA 32:4; granite's
    head_dim 64, GQA 24:8 under ``granite_prefill``, ``granite_training``
-   and ``granite``), K1's and K2's queries at 3x unit scale
-   (``Q_SCALE``). ``ms`` times back-to-back
+   and ``granite``) and at gemma2-27b's (GQA 32:16, head_dim 128, softcap
+   50, scale 1/12: K1 at B=16 S=128 with and without the 4096-key window
+   and at B=1 S=4352, where it cuts; K2 at the last step of both rounds;
+   then K2's window of 100 starting mid-chunk and mid-split), K1's and
+   K2's queries at 3x unit scale (``Q_SCALE``); the bounds count only the
+   keys inside a window, and the library call where SDPA takes no softcap
+   is ``flex_attention`` compiled. ``ms`` times back-to-back
    calls from Python (the wrapper's host cost included); ``device_ms`` and
    ``library_device_ms`` time a CUDA graph of the same calls, the card's
    own time;
@@ -45,7 +50,11 @@ Phases (any failure raises and the process exits non-zero):
    update_actor), through ``PlexCluster.run(interleave=True)``, with each
    op's seconds and kernel launches, every context switch's seconds and
    bytes (parameters and f32 AdamW moments), each job's bill (every
-   submitted op billed), the steps' metrics and the peak card memory;
+   submitted op billed), the steps' metrics and the peak card memory.
+   The training forward rematerialises each layer group (``cfg.remat``
+   "full", every config's default), so an op with a gradient
+   (``update_actor``, PPO's ``forward_backward``) launches K1 and K3 twice
+   a layer, here and in phases 12–14, 16, 18 and 21;
    then one ``update_actor`` on a seeded batch with non-zero advantages
    (the gradient is non-zero, the moments change, the job's tensors are
    updated in place) and one more under the profiler;
@@ -129,7 +138,19 @@ Phases (any failure raises and the process exits non-zero):
     four steps, every op billed, and the seeded update moves the router
     and expert leaves in place;
 22. training parity for granite at full width and 4 layers, as phase 9,
-    the MoE aux loss included.
+    the MoE aux loss included;
+23. the gemma2 serving path: one gemma2-27b job at full width and depth
+    (54,454,256,640 B of parameters on the card) through Router -> WPG ->
+    rollout, INIT then three generates at B=16 prompt 128 (the last
+    under the profiler) and one at B=1 prompt 4352, where the local
+    layers' 4096-key window cuts in K1's prefill and in every K2 step;
+    each with exactly 46 K1 and 2,944 K2 launches and a peak under 80 GB;
+24. whole-path parity for gemma2-27b at full width cut to 2 layers (one
+    local, one global), as phase 5 at B=4 prompt 128, then at B=1 prompt
+    4352: on the CPU where the first check's CPU side predicts it within
+    two minutes, else against the card with ``kernels/ref.py``'s attention
+    in place of K1 and K2; the logits are held before the final softcap,
+    where they are a bf16 product, as phase 5 holds every other model's.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -138,6 +159,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import glob
@@ -218,6 +240,24 @@ MOE_FLIP_SHARE = 2.5e-3
 GRANITE_ARCH = "granite-moe-3b-a800m"
 GRANITE_H, GRANITE_KH, GRANITE_D = 24, 8, 64
 GRANITE_LAYERS = 32
+
+# the gemma2 serving path (phase 23): gemma2-27b at full width and depth,
+# one job: 46 layers in pairs of a local layer (a 4096-key window) and a
+# global one, 32 query heads and 16 KV heads of width 128, the attention
+# softcap 50 and scale (4608 / 32)^-1/2 = 1/12; rounds at B=16 prompt 128,
+# then one at B=1 prompt 4352 (T = 4416), where the window cuts in K1's
+# prefill and in every K2 step. Its parity phase (24) cuts depth to one
+# pair, at B=4 prompt 128, and once more at B=1 prompt 4352
+GEMMA_ARCH = "gemma2-27b"
+GEMMA_H, GEMMA_KH, GEMMA_D = 32, 16, 128
+GEMMA_LAYERS = 46
+GEMMA_WINDOW, GEMMA_CAP, GEMMA_SCALE = 4096, 50.0, 1 / 12
+GEMMA_P, GEMMA_ROUNDS, GEMMA_LONG_P = 128, 3, 4352
+GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 4
+# phase 24's long check runs on the CPU when the B=4 check's CPU side,
+# scaled by the tokens (4352 / 512), predicts at most this many seconds;
+# else against the card's plain attention
+GEMMA_CPU_LONG_S = 120.0
 
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
 # full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
@@ -470,100 +510,271 @@ def kernel_phase(torch, dev):
     records["decode_attention"]["granite"] = decode_timing(
         torch, randn, B, g_seq, g_seq - 1, 500, GRANITE_H, GRANITE_KH,
         GRANITE_D)
+
+    # gemma2-27b: K1 at the B=16 prefill (the global and the local layers)
+    # and at the long B=1 prefill, where the window cuts; K2 at the last
+    # step of each round (the long round's global layers read every key),
+    # then its window's first key mid-chunk and mid-split
+    print("phase 3: K1 and K2 at gemma2-27b's shapes (bf16, H=32 K=16 "
+          "D=128, softcap 50, scale 1/12, window 4096)")
+    gem = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
+    local = dict(gem, window=GEMMA_WINDOW)
+    heads = (GEMMA_H, GEMMA_KH, GEMMA_D)
+    fa, de = records["flash_attention"], records["decode_attention"]
+    fa["gemma2"] = flash_timing(torch, randn, B, GEMMA_P, *heads, iters=100,
+                                **gem)
+    fa["gemma2_local"] = flash_timing(torch, randn, B, GEMMA_P, *heads,
+                                      iters=100, **local)
+    fa["gemma2_long_local"] = flash_timing(torch, randn, 1, GEMMA_LONG_P,
+                                           *heads, iters=20, **local)
+    fa["gemma2_long_global"] = flash_timing(torch, randn, 1, GEMMA_LONG_P,
+                                            *heads, iters=20, **gem)
+    t_cap, t_long = GEMMA_P + N_NEW, GEMMA_LONG_P + N_NEW
+    de["gemma2_local"] = decode_timing(torch, randn, B, t_cap, t_cap - 1,
+                                       500, *heads, **local)
+    de["gemma2_long_local"] = decode_timing(torch, randn, 1, t_long,
+                                            t_long - 1, 200, *heads, **local)
+    de["gemma2_long_global"] = decode_timing(torch, randn, 1, t_long,
+                                             t_long - 1, 200, *heads, **gem)
+    de["gemma2_window_check"] = decode_window_check(torch, randn)
     for name, rows in (("flash_attention", ("zamba2", "qwen3_moe",
                                             "granite_prefill",
-                                            "granite_training")),
+                                            "granite_training", "gemma2",
+                                            "gemma2_local",
+                                            "gemma2_long_local",
+                                            "gemma2_long_global")),
                        ("decode_attention", ("zamba2", "qwen3_moe",
-                                             "granite"))):
+                                             "granite", "gemma2_local",
+                                             "gemma2_long_local",
+                                             "gemma2_long_global"))):
         rec = records[name]
         rec["max_abs_err"] = max([rec["max_abs_err"]]
                                  + [rec[r]["max_abs_err"] for r in rows])
+    de["max_abs_err"] = max(de["max_abs_err"],
+                            de["gemma2_window_check"]["max_abs_err"])
     return records
 
 
-def flash_timing(torch, randn, b, s, h, kh, d, iters=200):
-    """K1 causal at one shape: checked against its plain version, then
-    timed (kernel, plain, SDPA; host-timed and as a CUDA graph) beside its
-    bound, the inputs rotated past the L2 cache."""
+def flash_timing(torch, randn, b, s, h, kh, d, iters=200, **opts):
+    """K1 causal at one shape (``opts``: window, softcap, scale): checked
+    against its plain version, then timed (kernel, plain, the library
+    call; host-timed and as a CUDA graph) beside its bound, the inputs
+    rotated past the L2 cache. The library call is SDPA, or without one
+    that takes a softcap, ``flex_attention`` compiled (``flex_call``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     g = h // kh
+    kw = dict(causal=True, **opts)
+    window = opts.get("window", 0)
     # q, k, v read once and the output written once, bf16
     per_call = (2 * b * s * h * d + 2 * b * s * kh * d) * 2
     sets = [(Q_SCALE * randn(b, s, h, d), randn(b, s, kh, d),
              randn(b, s, kh, d)) for _ in range(n_sets(per_call))]
     q, k, v = sets[0]
-    shape = f"B={b} S=T={s} H={h} K={kh} D={d} causal"
-    err = check_close(torch, shape, ops.flash_attention(q, k, v, causal=True),
+    shape = f"B={b} S=T={s} H={h} K={kh} D={d} causal" + "".join(
+        f" {key} {val}" for key, val in opts.items())
+    err = check_close(torch, shape, ops.flash_attention(q, k, v, **kw),
                       ref.ref_attention(q, k.repeat_interleave(g, 2),
-                                        v.repeat_interleave(g, 2),
-                                        causal=True))
+                                        v.repeat_interleave(g, 2), **kw))
 
     def kernel(q, k, v):
-        return ops.flash_attention(q, k, v, causal=True)
+        return ops.flash_attention(q, k, v, **kw)
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+    if opts.get("softcap") or window:
+        library = flex_call(torch, s, s, 0, **opts)
+    else:
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        library.label = "sdpa"
 
     t_kernel = time_ms(torch, kernel, sets, iters)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_attention(
-        q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2),
-        causal=True), sets, max(4, iters // 4))
-    t_lib = time_ms(torch, sdpa, sets, iters)
+        q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2), **kw),
+        sets, max(4, iters // 4))
     d_kernel = device_ms(torch, kernel, sets, 20)
-    d_lib = device_ms(torch, sdpa, sets, 20)
-    flops = 4 * b * h * d * s * (s + 1) // 2     # row i sees i + 1 keys
+    t_lib, d_lib = library_times(torch, library, sets, iters, 20)
+    # row i sees min(i + 1, window) keys
+    keys = sum(min(i + 1, window or s) for i in range(s))
+    flops = 4 * b * h * d * keys
     t_bound, by = bound(per_call, flops)
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
-          f"plain {t_plain} ms, sdpa {t_lib} ms (device {d_lib} ms), bound "
-          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+          f"plain {t_plain} ms, {library.label} "
+          f"{t_lib} ms (device {d_lib} ms), bound {t_bound} ms ({by}: "
+          f"{per_call} B, {flops} FLOP)")
     return dict(shape=shape, max_abs_err=err, ms=t_kernel,
                 device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
-                bound_by=by, library_ms=t_lib, library_device_ms=d_lib)
+                bound_by=by, library_ms=t_lib, library_device_ms=d_lib,
+                library=library.label)
 
 
-def decode_timing(torch, randn, b, t_cap, pos, iters, h=H, kh=KH, d=D):
-    """K2 at one shape: checked against its plain version, then timed
-    (kernel, plain, SDPA; host-timed and as a CUDA graph) beside its bound,
-    the caches rotated past the L2 cache."""
+def flex_call(torch, s, t, pos, *, window=0, softcap=None, scale=None):
+    """The library yardstick where SDPA has no softcap:
+    ``torch.nn.attention.flex_attention`` compiled, with a softcap
+    ``score_mod`` and a causal (windowed) ``mask_mod``, on the port's
+    (B, S, H, D) layout. ``s`` query rows at positions pos.. over ``t``
+    keys: (S, S, 0) for a prefill, (1, T, pos) for a decode step. It is
+    timed only, never on the port's path; everything that can fail runs
+    in the call, whose failure ``library_times`` records as the row's
+    library time."""
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        if softcap is None:
+            return score
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx + pos
+        if window:
+            ok = ok & (kv_idx > q_idx + pos - window)
+        return ok
+
+    block = []                        # made at the first call
+
+    def call(q, k, v):
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        if not block:
+            block.append(create_block_mask(mask_mod, None, None, s, t,
+                                           device="cuda"))
+        decode = q.ndim == 3
+        q = q[:, :, None] if decode else q.transpose(1, 2)
+        out = _compiled(torch, flex_attention)(
+            q, k.transpose(1, 2), v.transpose(1, 2), score_mod=score_mod,
+            block_mask=block[0], scale=scale, enable_gqa=True)
+        return out[:, :, 0] if decode else out.transpose(1, 2)
+
+    call.label = "flex_attention (compiled)"
+    return call
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled(torch, fn):
+    """``torch.compile(fn)``, once: a new shape recompiles it, the same
+    shape reuses it."""
+    return torch.compile(fn)
+
+
+def library_times(torch, library, sets, iters, reps):
+    """The library call's host-timed and CUDA-graph ms; a library call
+    that fails (its compile, a graph capture) gives its reason in place of
+    the times."""
+    try:
+        t0 = time.perf_counter()
+        library(*sets[0])
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t_lib = time_ms(torch, library, sets, iters)
+        if first > 5:
+            print(f"  {library.label}: first call "
+                  f"{first} s (its compile)")
+    except Exception as e:                # a yardstick, never on the path
+        print(f"  {library.label} failed: {e!r}")
+        return None, f"not measured: {type(e).__name__}"
+    try:
+        d_lib = device_ms(torch, library, sets, reps)
+    except Exception as e:
+        print(f"  {library.label} as a CUDA graph "
+              f"failed: {e!r}")
+        torch.cuda.synchronize()
+        d_lib = f"not measured: {type(e).__name__}"
+    return t_lib, d_lib
+
+
+def decode_timing(torch, randn, b, t_cap, pos, iters, h=H, kh=KH, d=D,
+                  **opts):
+    """K2 at one shape (``opts``: window, softcap, scale): checked against
+    its plain version, then timed (kernel, plain, the library call;
+    host-timed and as a CUDA graph) beside its bound, the caches rotated
+    past the L2 cache. The bound counts the live keys only: those in the
+    window."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
-    # q read and the output written once; K and V cache rows 0..pos read
-    per_call = (2 * b * h * d + 2 * b * (pos + 1) * kh * d) * 2
+    window = opts.get("window", 0)
+    live = min(pos + 1, window or pos + 1)
+    # q read and the output written once; K and V cache rows of the live
+    # keys read once
+    per_call = (2 * b * h * d + 2 * b * live * kh * d) * 2
     sets = [(Q_SCALE * randn(b, h, d), randn(b, t_cap, kh, d),
              randn(b, t_cap, kh, d)) for _ in range(n_sets(per_call))]
     q, kc, vc = sets[0]
-    shape = f"B={b} T={t_cap} H={h} K={kh} D={d} pos={pos}"
-    err = check_close(torch, shape, ops.decode_attention(q, kc, vc, pos),
-                      ref.ref_decode_attention(q, kc, vc, pos))
+    shape = f"B={b} T={t_cap} H={h} K={kh} D={d} pos={pos}" + "".join(
+        f" {key} {val}" for key, val in opts.items())
+    err = check_close(torch, shape, ops.decode_attention(q, kc, vc, pos,
+                                                         **opts),
+                      ref.ref_decode_attention(q, kc, vc, pos, **opts))
 
     def kernel(q, k, v):
-        return ops.decode_attention(q, k, v, pos)
+        return ops.decode_attention(q, k, v, pos, **opts)
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k[:, :pos + 1].transpose(1, 2),
-            v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+    if opts.get("softcap"):
+        library = flex_call(torch, 1, t_cap, pos, **opts)
+    else:
+        def library(q, k, v):
+            lo = pos + 1 - live
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k[:, lo:pos + 1].transpose(1, 2),
+                v[:, lo:pos + 1].transpose(1, 2), enable_gqa=True,
+                scale=opts.get("scale"))[:, :, 0]
+
+        library.label = "sdpa"
 
     reps = max(50, 1000 // len(sets))
     t_kernel = time_ms(torch, kernel, sets, iters)
     t_plain = time_ms(torch, lambda q, k, v: ref.ref_decode_attention(
-        q, k, v, pos), sets, iters // 5)
-    t_lib = time_ms(torch, sdpa, sets, iters)
+        q, k, v, pos, **opts), sets, iters // 5)
     d_kernel = device_ms(torch, kernel, sets, reps)
-    d_lib = device_ms(torch, sdpa, sets, reps)
-    flops = 4 * b * h * d * (pos + 1)
+    t_lib, d_lib = library_times(torch, library, sets, iters, reps)
+    flops = 4 * b * h * d * live
     t_bound, by = bound(per_call, flops)
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
-          f"plain {t_plain} ms, sdpa {t_lib} ms (device {d_lib} ms), bound "
-          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+          f"plain {t_plain} ms, {library.label} "
+          f"{t_lib} ms (device {d_lib} ms), bound {t_bound} ms ({by}: "
+          f"{per_call} B, {flops} FLOP)")
     return dict(shape=shape, max_abs_err=err, ms=t_kernel, device_ms=d_kernel,
                 plain_ms=t_plain, bound_ms=t_bound, bound_by=by,
-                library_ms=t_lib, library_device_ms=d_lib)
+                library_ms=t_lib, library_device_ms=d_lib,
+                library=library.label)
+
+
+def decode_window_check(torch, randn):
+    """K2's window starting mid-chunk and mid-split: an argument-level
+    check at gemma2's heads over the long round's cache (B=1, T=4416: 16
+    splits of 276 keys), window 100 and softcap 50. At pos 2912 the window
+    starts at key 2813, inside split 10 (2760..3035) and its chunk
+    2808..2823; at pos 3090 at 2991 (chunk 2984..2999 of split 10), and
+    its keys run on into split 11."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops, ref
+
+    b, t = 1, GEMMA_LONG_P + N_NEW
+    h, kh, d = GEMMA_H, GEMMA_KH, GEMMA_D
+    splits = dec.splits_for(b, kh, t, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    span = -(-t // splits)
+    q, kc, vc = Q_SCALE * randn(b, h, d), randn(b, t, kh, d), \
+        randn(b, t, kh, d)
+    errs = []
+    for pos in (2912, 3090):
+        lo = pos - 99
+        split, offset = divmod(lo, span)
+        print(f"  window 100 at pos {pos}: first key {lo}, split {split} of "
+              f"{splits} ({span} keys), {offset % dec.CHUNK} keys into its "
+              f"chunk")
+        if offset % dec.CHUNK == 0:
+            fail("the window check's first key is not mid-chunk and "
+                 "mid-split")
+        opts = dict(window=100, softcap=GEMMA_CAP, scale=GEMMA_SCALE)
+        errs.append(check_close(
+            torch, f"B={b} T={t} H={h} K={kh} D={d} pos={pos} window 100",
+            ops.decode_attention(q, kc, vc, pos, **opts),
+            ref.ref_decode_attention(q, kc, vc, pos, **opts)))
+    return dict(window=100, positions=[2912, 3090], max_abs_err=max(errs))
 
 
 def ssd_flops(b, s, h, p, n, chunk) -> int:
@@ -795,8 +1006,9 @@ def side_logits(torch, model, params, d, prompt, forced, where):
             lg, cache = model.decode_step(
                 prm, cache, {"tokens": forced[:, i:i + 1].to(d)})
             steps.append(lg.cpu())
-    print(f"  {where} side: {time.perf_counter() - t0} s")
-    return steps
+    seconds = time.perf_counter() - t0
+    print(f"  {where} side: {seconds} s")
+    return steps, seconds
 
 
 def parity_prompt(torch, cfg, b, p, n):
@@ -810,25 +1022,36 @@ def parity_prompt(torch, cfg, b, p, n):
     return prompt, forced
 
 
-def parity_phase(torch, model, params, dev, phase):
+def parity_phase(torch, model, params, dev, phase, b=2, p=64, n=8,
+                 against="cpu", cap=None):
     """Prefill and teacher-forced decode logits on the card against the
-    same parameters through the plain versions on the CPU."""
+    same parameters through the plain versions on the CPU, or (``against``
+    "card plain") on the card with ``kernels/ref.py``'s attention called in
+    place of K1 and K2. With ``cap``, the logits soft-capped at it are
+    compared too and printed, not held. Returns the worst |diff| /
+    tolerance and each side's seconds."""
     cfg = model.cfg
-    runs = {"card": dev, "cpu": torch.device("cpu")}
-    b, p, n = 2, 64, 8
     prompt, forced = parity_prompt(torch, cfg, b, p, n)
     # the CPU test's bound of four bf16 ulps of the largest logit at 4
     # layers (tests/test_torch_model.py), grown with the square root of the
     # depth: independent bf16 roundings per layer add in quadrature
     rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
-    print(f"phase {phase}: parity card vs CPU plain, {cfg.name} at "
+    print(f"phase {phase}: parity card vs {against}, {cfg.name} at "
           f"{cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced decode "
           f"steps (tolerance {rel_tol} * max|logit|)")
-    logits = {where: side_logits(torch, model, params, d, prompt, forced,
-                                 where)
-              for where, d in runs.items()}
+    logits, seconds = {}, {}
+    logits["card"], seconds["card"] = side_logits(
+        torch, model, params, dev, prompt, forced, "card")
+    if against == "cpu":
+        logits[against], seconds[against] = side_logits(
+            torch, model, params, torch.device("cpu"), prompt, forced,
+            against)
+    else:
+        with plain_attention():
+            logits[against], seconds[against] = side_logits(
+                torch, model, params, dev, prompt, forced, against)
     worst = 0.0
-    for i, (gpu, cpu) in enumerate(zip(logits["card"], logits["cpu"])):
+    for i, (gpu, cpu) in enumerate(zip(logits["card"], logits[against])):
         err = (gpu - cpu).abs().max().item()
         tol = rel_tol * cpu.abs().max().item()
         worst = max(worst, err / tol)
@@ -836,9 +1059,37 @@ def parity_phase(torch, model, params, dev, phase):
         label = "prefill" if i == 0 else f"decode {i}"
         print(f"  {label}: max|diff| {err}, tolerance {tol}, argmax "
               f"agreement {agree}")
+        if cap:
+            g_cap, c_cap = (cap * torch.tanh(x / cap) for x in (gpu, cpu))
+            print(f"    soft-capped at {cap}: max|diff| "
+                  f"{(g_cap - c_cap).abs().max().item()}, the same bound from "
+                  f"their max|logit| {rel_tol * c_cap.abs().max().item()}")
         if not (torch.isfinite(gpu).all() and err <= tol):
             fail(f"parity {label}: {err} > {tol}")
-    return worst
+    return worst, seconds
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """K1's and K2's wrappers replaced by ``kernels/ref.py``'s attention,
+    called on whatever device the tensors are: the check's own reference
+    on the card, never the port's path."""
+    from repro_torch.kernels import ops, ref
+
+    def flash(q, k, v, *, causal=True, window=0, softcap=None, scale=None,
+              q_chunk=256):
+        g = q.shape[2] // k.shape[2]
+        return ref.ref_attention(q, k.repeat_interleave(g, 2),
+                                 v.repeat_interleave(g, 2), causal=causal,
+                                 window=window, softcap=softcap, scale=scale)
+
+    kept = ops.flash_attention, ops.decode_attention
+    ops.flash_attention, ops.decode_attention = flash, \
+        ref.ref_decode_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = kept
 
 
 # -------------------------------------------- phases 8, 9: training
@@ -1084,7 +1335,10 @@ def launches_per_op(cfg, op, n_new):
     """The kernel launches one op of a GRPO or PPO step makes: K1 in each
     attention layer's prefill or training forward, K2 in each decode step
     of each attention layer, K3 in each Mamba2 block's prefill or training
-    forward."""
+    forward. An op that takes a gradient (``GRAD_OPS``) runs every layer
+    group's forward twice under ``cfg.remat`` "full" or "dots" (the
+    forward, then its recomputation in the backward), so its K1 and K3
+    launch twice a layer; once under "none"."""
     from repro_torch.models import hybrid
 
     if cfg.family == "hybrid":
@@ -1096,9 +1350,15 @@ def launches_per_op(cfg, op, n_new):
     zero = {"flash_attention": 0, "decode_attention": 0, "ssd": 0}
     if op in ("init", "optim_step", "sync_weights"):
         return zero
-    return {"flash_attention": attn,
+    runs = 2 if op in GRAD_OPS and cfg.remat != "none" else 1
+    return {"flash_attention": runs * attn,
             "decode_attention": attn * n_new if op == "generate" else 0,
-            "ssd": mamba}
+            "ssd": runs * mamba}
+
+
+# the ops that differentiate the model (the others run it without a
+# gradient: generate under inference_mode, forward under no_grad)
+GRAD_OPS = ("update_actor", "forward_backward")
 
 
 def check_bill(cluster, rec, wpgs, submitted, steps):
@@ -2336,7 +2596,7 @@ def moe_parity_phase(torch, dev):
                                ("cpu", torch.device("cpu"), replaying)):
             moe.route = wrap
             logits[where] = side_logits(torch, model, params, d, prompt,
-                                        forced, where)
+                                        forced, where)[0]
     finally:
         moe.route = route
     del params
@@ -2369,6 +2629,142 @@ def moe_parity_phase(torch, dev):
     if flips > MOE_FLIP_SHARE * choices or any(g > t for g, t in gaps):
         fail(f"{flips} routing flips of {choices} choices, or a flip not "
              f"at a near-tie")
+
+
+# ------------------------------------------ phases 23, 24: gemma2
+
+def gemma2_serve_phase(torch, dev, records):
+    """Phase 23: one gemma2-27b job at full width and depth through
+    Router -> HRRS -> WPG -> rollout: INIT, then GEMMA_ROUNDS generates at
+    B=16 prompt GEMMA_P (the last under the profiler) and one at B=1 prompt
+    GEMMA_LONG_P, where the local layers' window cuts in K1's prefill and
+    in every K2 step; each with exactly GEMMA_LAYERS K1 and GEMMA_LAYERS *
+    N_NEW K2 launches (the counts set to 0 before each) and a peak under
+    80 GB. The prompts are seeded ids over the vocabulary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.router import Router
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import data as data_lib
+
+    cfg = get_config(GEMMA_ARCH)
+    model = build_model(cfg)
+    want_bytes = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
+                     common.canonical_flat(model.param_specs()).values())
+    want = {"flash_attention": GEMMA_LAYERS,
+            "decode_attention": GEMMA_LAYERS * N_NEW, "ssd": 0}
+    print(f"phase 23: serving {GEMMA_ARCH} at full width and depth, one job "
+          f"({model.param_count()} parameters; {GEMMA_ROUNDS} rounds at "
+          f"B={B} prompt {GEMMA_P}, then B=1 prompt {GEMMA_LONG_P}; {N_NEW} "
+          f"new, temperature 0.7)")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    router = Router()                 # the CUDA devices; one card here
+    dep = router.deploy(api.DeploymentSpec(
+        deployment_id="rollout-gemma2", job_id="G", model_name=GEMMA_ARCH,
+        role="rollout", overrides=()), group_id=0)
+    rng = np.random.default_rng(0)
+    rounds = [(B, GEMMA_P, r == GEMMA_ROUNDS - 1)
+              for r in range(GEMMA_ROUNDS)] + [(1, GEMMA_LONG_P, False)]
+    with router:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dep.init(seed=1).wait(timeout=900)
+        t_init = time.perf_counter() - t0
+        nbytes = router.state_managers[0].job_bytes(dep.wpg.job_prefix)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"  INIT: {t_init} s; parameter bytes on the card {nbytes} "
+              f"(want {want_bytes}); peak card memory through the init "
+              f"{peak} B of {card_bytes} B")
+        if nbytes != want_bytes or peak >= 80e9:
+            fail(f"INIT holds {nbytes} B at a peak of {peak} B")
+        for r, (b, p, profiled) in enumerate(rounds):
+            prompts = rng.integers(data_lib.EOS + 1, cfg.vocab_size,
+                                   size=(b, p), dtype=np.int32)
+
+            def run():
+                return dep.generate(prompts, max_new_tokens=N_NEW,
+                                    temperature=0.7).wait(timeout=600)
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out, busy = profile_round(torch, run) if profiled else \
+                (run(), None)
+            wall = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev)
+            toks, logps = out["tokens"], out["logprobs"]
+            if tuple(toks.shape) != (b, N_NEW) or \
+                    not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) \
+                    or not bool(torch.isfinite(logps).all()):
+                fail(f"round {r}: tokens {tuple(toks.shape)} or logprobs "
+                     f"out of range")
+            if launches != want:
+                fail(f"round {r}: launches {launches}, want {want}")
+            if peak >= 80e9:
+                fail(f"round {r}: peak card memory {peak} B")
+            print(f"  generate {r} (B={b}, prompt {p}): wall {wall * 1e3} ms, "
+                  f"device span {start.elapsed_time(end)} ms (events), "
+                  f"device busy "
+                  + (f"{busy * 1e3} ms (profiler)" if busy is not None
+                     else "not measured (unprofiled round)")
+                  + f"; {b * N_NEW / wall} tok/s; launches {launches}; peak "
+                  f"card memory {peak} B")
+            k1, k2 = ("gemma2", "gemma2_local") if b == B else \
+                ("gemma2_long_local", "gemma2_long_local")
+            path_launches(records, launches, {"flash_attention": 1}, k1)
+            path_launches(records, launches, {"decode_attention": 1}, k2)
+    return router
+
+
+def gemma2_parity_phase(torch, dev):
+    """Phase 24: card vs CPU for gemma2-27b at full width cut to one pair
+    of layers (local, then global), as phase 5 at B=4 prompt 128 with 8
+    decode steps; then at B=1 prompt 4352, where the window cuts in the
+    prefill and in the 2 decode steps after it: on the CPU when the first
+    check's CPU side predicts at most GEMMA_CPU_LONG_S seconds for it,
+    else against the card's plain attention (``plain_attention``).
+
+    Both sides leave out the final logit softcap: phase 5's bound is four
+    bf16 steps of the largest logit, and the logits that are a bf16
+    product are those before the cap. At the seeded init the largest is a
+    token's own logit under the tied embedding (about 4,670: a squared row
+    norm of 4608 units), and the cap squeezes every logit into +-30, so
+    max|logit| after it no longer measures their bf16 steps: the capped
+    prefill logits part by 0.337 against a bound of 0.331 so computed, at
+    a logit of -4.2 (PERF.md). The capped logits' differences are printed
+    beside that bound. The cap is f32 code shared by both sides, held
+    against the JAX package on the CPU (tests/test_torch_gemma2.py);
+    everything before it, K1 and K2 included, is held here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(GEMMA_ARCH)
+    cap = cfg.final_logit_softcap
+    model = build_model(cfg.replace(num_layers=GEMMA_PARITY_LAYERS,
+                                    final_logit_softcap=None))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    _, seconds = parity_phase(torch, model, params, dev, 24,
+                              b=GEMMA_PARITY_B, p=GEMMA_P, n=8,
+                              cap=cap)
+    # the long prefill's tokens over the first check's (its matmuls
+    # scale with them; the decode steps' weight reads make the estimate
+    # high)
+    predicted = seconds["cpu"] * GEMMA_LONG_P / (GEMMA_PARITY_B * GEMMA_P)
+    against = "cpu" if predicted <= GEMMA_CPU_LONG_S else "card plain"
+    print(f"phase 24: the long check's CPU side predicted at {predicted} s "
+          f"(limit {GEMMA_CPU_LONG_S} s): against {against}")
+    parity_phase(torch, model, params, dev, 24, b=1, p=GEMMA_LONG_P, n=2,
+                 against=against, cap=cap)
 
 
 def path_launches(records, launches, want, path=None):
@@ -2515,6 +2911,12 @@ def main():
         update_parity(torch, dev, 22, GRANITE_ARCH,
                       (("num_layers", PARITY_LAYERS),))
         release(torch, dev, "granite parity WPGs")
+
+        router = gemma2_serve_phase(torch, dev, records)
+        del router
+        release(torch, dev, "gemma2 router")
+        gemma2_parity_phase(torch, dev)
+        release(torch, dev, "gemma2 parity parameters")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -26,7 +26,7 @@ the reference, :meth:`fail_node`, :meth:`checkpoint_all` and
 :meth:`restore_all` fail (checkpoints go through the deployments'
 ``save_checkpoint`` / ``load_checkpoint`` ops instead).
 ``devices_per_group`` > 1 raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1, item 7).
+Queue 1: sharding).
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ device. With ``process_plane=True`` each node group's WPGs live in their
 own spawned worker process (:mod:`repro_torch.launch.proc_plane`), which
 the Router supervises (:meth:`process_health`, :meth:`respawn_dead_groups`,
 :meth:`close_processes`). Multi-device slices are not ported (ROADMAP.md,
-Queue 1, item 7).
+Queue 1: sharding).
 
 Futures passed as operation arguments are dataflow edges (see
 :mod:`repro_torch.core.api`); an operation that raises resolves its future

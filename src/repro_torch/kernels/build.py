@@ -39,7 +39,7 @@ SIGNATURES = {
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _F, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _P],
+                               _F, _I, _F, _I, _P],
     "repro_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, _I, _I, _P],
     "repro_decode_max_active_clusters": [_I, _I, ctypes.POINTER(_I)],

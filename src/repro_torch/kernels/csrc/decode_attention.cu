@@ -12,6 +12,18 @@
 // integer, so no device scalar is read back per token. A row with no key
 // writes 0, as in _decode_kernel.
 //
+// gemma2's decode adds two arguments, the function of the reference's XLA
+// decode (repro/models/layers.py:296-302, 125-180), which the TPU kernel
+// lacks:
+// - window > 0: only keys max(0, pos - window + 1) .. pos are live (the
+//   reference's kp > qp - window); window <= 0 means every key 0 .. pos;
+// - softcap > 0: each score is softcap * tanh(scale * q.k / softcap), and
+//   the running max is taken over the capped scores (K1's treatment,
+//   flash_attention.cu; the bf16 route takes tanh from one ex2,
+//   tanh_fast); softcap <= 0 means none, and the arithmetic is then
+//   exactly that of the uncapped kernel.
+// Neither changes the launch: the grid still depends on T alone.
+//
 // What bounds it on an H100: the cache bytes. At the serving path's decode
 // shape (qwen2-0.5b, B=16, KH=2, D=64, bf16) one call reads
 // 2 * B * KH * (pos+1) * D * 2 bytes of cache = 1.57 MB at pos = 191
@@ -29,10 +41,13 @@
 //   B * KH so that the grid covers the 132 SMs: at B=16, KH=2, T=192 it is
 //   8 splits of 24 keys (256 blocks); at B=1, KH=2, T=8192 16 splits of
 //   512 keys (32 blocks, the most one cluster holds). A block has 4 warps.
-//   The grid depends on T, never on pos: a block whose slice
-//   starts past pos copies nothing and leaves an empty partial
-//   (m = -1e30, l = 0, acc = 0), so a later CUDA-graph capture can take pos
-//   from the device without changing the launch;
+//   The grid depends on T, never on pos or the window: a block whose
+//   slice starts past pos, or ends before the window's first key, copies
+//   nothing and leaves an empty partial (m = -1e30, l = 0, acc = 0), so a
+//   later CUDA-graph capture can take pos from the device without
+//   changing the launch. A slice the window's first key cuts starts at
+//   the chunk (of its own chunk grid) that holds that key, and the keys
+//   before it in that chunk are masked by their true index;
 // - the splits of one (kv head, batch) form one thread-block cluster along
 //   x (cudaLaunchKernelEx; 16 splits use the H100's non-portable cluster
 //   size). Each block of the cluster owns a share of the G * D outputs;
@@ -53,7 +68,8 @@
 //   taking chunks w, w + 4, ...: S = Q K^T on mma.sync.m16n8k16 (bf16 in,
 //   f32 accumulate), an online softmax per warp on the accumulator
 //   fragments (scores in log2 units, one ex2 per score, keys at or past
-//   min(pos + 1, T) masked by their true index), P rounded to bf16 before
+//   min(pos + 1, T) or before the window masked by their true index), P
+//   rounded to bf16 before
 //   O += P V as the reference's p.astype(v.dtype), l summed from the f32
 //   probabilities;
 // - K and V rows come by 16-byte cp.async straight into shared memory in
@@ -71,7 +87,8 @@
 //   as they are sent;
 // - -1e30 stands for minus infinity throughout, and no exponent forms
 //   m * c - m * c: a warp's running max is finite after its first chunk
-//   (each chunk it computes holds a valid key), so masked keys give
+//   (each chunk it computes holds a valid key: the first holds the
+//   slice's first live key, the others start past it), so masked keys give
 //   2^(-1e30 - m) = 0, and an empty partial's weight multiplies zeros.
 //
 // f32: decode_kernel, the first version on the f32 CUDA cores: one block
@@ -111,7 +128,8 @@ template <int D>
 __global__ void __launch_bounds__(32 * MAX_G)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
               const float* __restrict__ vc, float* __restrict__ o, int T_cap,
-              int H, int KH, int pos, float scale) {
+              int H, int KH, int pos, float scale, int window,
+              float softcap) {
   // Each lane scores KPL keys of a tile and owns output dims lane + 32 i.
   // The tile is whole 32-key rows of lanes (up to 32 KB of f32 K and V):
   // at D = 112, 4096 / D = 36 keys would leave 4 of them unscored. The
@@ -145,12 +163,13 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   float m = NEG_INF;
   float l = 0.f;
 
-  const int n = min(pos + 1, T_cap);   // keys 0..pos
+  const int n = min(pos + 1, T_cap);   // keys lo..pos
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
   const size_t t_stride = static_cast<size_t>(KH) * D;
   const float* kb = kc + (static_cast<size_t>(b) * T_cap * KH + kh) * D;
   const float* vb = vc + (static_cast<size_t>(b) * T_cap * KH + kh) * D;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
+  for (int k0 = lo; k0 < n; k0 += BK) {
     __syncthreads();               // the previous tile (and qs) are ready
     for (int idx = threadIdx.x; idx < BK * D; idx += blockDim.x) {
       const int r = idx / D;
@@ -170,7 +189,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) dot += qs[warp][d] * ks[j][d];
-      s[kk] = k0 + j < n ? dot * scale : NEG_INF;
+      float sc = dot * scale;
+      if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+      s[kk] = k0 + j < n ? sc : NEG_INF;
       cmax = fmaxf(cmax, s[kk]);
     }
     const float m_new = fmaxf(m, warp_max(cmax));
@@ -208,12 +229,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
                    int B, int T_cap, int H, int KH, int pos, float scale,
-                   cudaStream_t stream) {
+                   int window, float softcap, cudaStream_t stream) {
   const dim3 grid(KH, B);
   decode_kernel<D><<<grid, 32 * (H / KH), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<float*>(o), T_cap, H, KH,
-      pos, scale);
+      pos, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -256,6 +277,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// tanh(x) = 1 - 2 / (2^(2 x log2 e) + 1): one ex2 and one fast division,
+// within about 1e-7 of tanhf absolutely (the softcap multiplies that by
+// the cap: 5e-6 of a score at gemma2's 50). |x| is clamped at 15, where
+// tanh is 1 in f32. tanhf itself made the D = 64 kernel spill.
+__device__ __forceinline__ float tanh_fast(float x) {
+  x = fminf(fmaxf(x, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, exp2_approx(2.f * LOG2E * x) + 1.f);
+}
+
 // The two halves of a cluster barrier: this thread has started (no memory
 // ordering), and wait for every thread of the cluster to have arrived.
 __device__ __forceinline__ void cluster_arrive_relaxed() {
@@ -270,7 +300,8 @@ template <int D>
 __global__ void __launch_bounds__(32 * WARPS)
 decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                 const bf16* __restrict__ vc, bf16* __restrict__ o, int T_cap,
-                int H, int KH, int pos, float scale, int span) {
+                int H, int KH, int pos, float scale, int window,
+                float softcap, int span) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   // the combine moves four dims a thread, and the thread with dims
   // 4i..4i+3 of a row sends that row's m and l to block i of the cluster
@@ -306,11 +337,15 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int g = lane >> 2;
   const int t4 = lane & 3;
 
-  // this block's keys: [s0, end), cut at key pos, in chunks of CK; warp w
-  // takes chunks w, w + WARPS, ...
+  // this block's keys: [max(s0, lo), end), cut at key pos and at the
+  // window's first key lo, in chunks of CK from `base`, the chunk of the
+  // slice's grid s0 + CK i that holds the first live key; warp w takes
+  // chunks w, w + WARPS, ...
   const int s0 = blockIdx.x * span;
   const int end = min(s0 + span, min(pos + 1, T_cap));
-  const int nchunks = end > s0 ? (end - s0 + CK - 1) / CK : 0;
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int base = lo > s0 ? s0 + (lo - s0) / CK * CK : s0;
+  const int nchunks = end > max(s0, lo) ? (end - base + CK - 1) / CK : 0;
   const int mine = nchunks > warp ? (nchunks - warp + WARPS - 1) / WARPS : 0;
 
   const size_t kv_ts = static_cast<size_t>(KH) * D;
@@ -318,18 +353,18 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const bf16* kb = kc + (static_cast<size_t>(b) * T_cap * KH + kh) * D;
   const bf16* vb = vc + (static_cast<size_t>(b) * T_cap * KH + kh) * D;
 
-  // this warp's chunk j: keys s0 + CK (warp + WARPS j).., in its ring slot
-  // j % SLOTS; keys at or past end are zero-filled
+  // this warp's chunk j: keys base + CK (warp + WARPS j).., in its ring
+  // slot j % SLOTS; keys at or past end are zero-filled
   bf16* wring = ring + warp * SLOTS * 2 * CK * LD;
   auto load_chunk = [&](int j) {
-    const int k0 = s0 + CK * (warp + WARPS * j);
+    const int k0 = base + CK * (warp + WARPS * j);
     bf16* kd = wring + (j % SLOTS) * 2 * CK * LD;
     bf16* vd = kd + CK * LD;
 #pragma unroll
     for (int c = lane; c < CK * CPR; c += 32) {
       const int r = c / CPR, col = (c % CPR) * 8;
       const bool in = k0 + r < end;
-      const size_t off = static_cast<size_t>(in ? k0 + r : s0) * kv_ts + col;
+      const size_t off = static_cast<size_t>(in ? k0 + r : base) * kv_ts + col;
       tc::cp_async16(kd + r * LD + col, kb + off, in);
       tc::cp_async16(vd + r * LD + col, vb + off, in);
     }
@@ -337,7 +372,11 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   };
   if (mine > 0) load_chunk(0);
 
-  const float mul = scale * LOG2E;   // scores in log2 units
+  // scores in log2 units; a capped score is softcap * tanh(scale s /
+  // softcap), already scaled
+  const bool capped = softcap > 0.f;
+  const float mul = capped ? LOG2E : scale * LOG2E;
+  const float cap_in = capped ? scale / softcap : 0.f;
   uint32_t qf[KD][4];
   float acc[ND][4];
 #pragma unroll
@@ -374,7 +413,7 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     else
       tc::cp_async_wait<0>();
     __syncwarp();
-    const int kb0 = s0 + CK * (warp + WARPS * j);   // first key, < end
+    const int kb0 = base + CK * (warp + WARPS * j);   // first key, < end
     const bf16* kt = wring + (j % SLOTS) * 2 * CK * LD;
     const bf16* vt = kt + CK * LD;
     // S = Q K^T for the 16 rows and the chunk's 16 keys
@@ -391,14 +430,24 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       tc::mma(s[0], qf[kk], r[0], r[1]);
       tc::mma(s[1], qf[kk], r[2], r[3]);
     }
-    const bool edge = kb0 + CK > end;   // the slice's last, ragged chunk
+    if (capped) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[h2][c] = softcap * tanh_fast(s[h2][c] * cap_in);
+    }
+    // the slice's last, ragged chunk, or the one the window's first key
+    // cuts
+    const bool edge = kb0 + CK > end || kb0 < lo;
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = kb0 + h2 * 8 + 2 * t4 + (c & 1);
-        const float x = edge && key >= end ? NEG_INF : s[h2][c] * mul;
+        const float x =
+            edge && (key >= end || key < lo) ? NEG_INF : s[h2][c] * mul;
         s[h2][c] = x;
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
@@ -408,7 +457,8 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);   // finite: key kb0 is valid
+      // finite: the chunk holds a live key
+      const float m_new = fmaxf(m[r], mx[r]);
       alpha[r] = exp2_approx(m[r] - m_new);
       m[r] = m_new;
       l[r] *= alpha[r];
@@ -569,7 +619,8 @@ cudaError_t prepare(int splits, int KH, int B, cudaStream_t stream,
 template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
                    int B, int T_cap, int H, int KH, int pos, float scale,
-                   int splits, cudaStream_t stream) {
+                   int window, float softcap, int splits,
+                   cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   cudaError_t err = prepare<D>(splits, KH, B, stream, attr, &cfg);
@@ -578,7 +629,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
   err = cudaLaunchKernelEx(
       &cfg, decode_split_tc<D>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
-      static_cast<bf16*>(o), T_cap, H, KH, pos, scale, span);
+      static_cast<bf16*>(o), T_cap, H, KH, pos, scale, window, softcap,
+      span);
   const cudaError_t last = cudaGetLastError();   // clear it either way
   return err != cudaSuccess ? err : last;
 }
@@ -599,30 +651,29 @@ cudaError_t max_clusters(int splits, int* out) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (split-KV tensor-core
-// route: `splits` blocks a cluster; the f32 route ignores it). Returns a
-// cudaError_t (0 = launched).
+// route: `splits` blocks a cluster; the f32 route ignores it). window <= 0
+// and softcap <= 0 mean none. Returns a cudaError_t (0 = launched).
 extern "C" int repro_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, void* o, int B,
     int T_cap, int H, int KH, int D, int dtype, int pos, float scale,
-    int splits, void* stream) {
+    int window, float softcap, int splits, void* stream) {
   if (B <= 0 || T_cap <= 0 || KH <= 0 || H % KH != 0 || H / KH > MAX_G)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<64>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
-  if (dtype == 0 && D == 112)
-    return launch<112>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<128>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, st);
-  if (dtype == 1 && D == 64)
-    return split::launch<64>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
-                             scale, splits, st);
-  if (dtype == 1 && D == 112)
-    return split::launch<112>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
-                              scale, splits, st);
-  if (dtype == 1 && D == 128)
-    return split::launch<128>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos,
-                              scale, splits, st);
+#define REPRO_F32(DIM)                                                       \
+  launch<DIM>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, window,   \
+              softcap, st)
+#define REPRO_BF16(DIM)                                                      \
+  split::launch<DIM>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale,    \
+                     window, softcap, splits, st)
+  if (dtype == 0 && D == 64) return REPRO_F32(64);
+  if (dtype == 0 && D == 112) return REPRO_F32(112);
+  if (dtype == 0 && D == 128) return REPRO_F32(128);
+  if (dtype == 1 && D == 64) return REPRO_BF16(64);
+  if (dtype == 1 && D == 112) return REPRO_BF16(112);
+  if (dtype == 1 && D == 128) return REPRO_BF16(128);
+#undef REPRO_F32
+#undef REPRO_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention``). ``pos`` is a host integer passed as a kernel
 argument (the TPU kernel's scalar prefetch), and the kernel stops at
-``pos`` instead of masking a padded cache. bf16 inputs take the split-KV
+``pos`` instead of masking a padded cache. A sliding ``window`` and a logit
+``softcap`` (gemma2's decode) are kernel arguments too, the function of
+the reference's XLA decode (``repro/models/layers.py:296-302``), which the
+TPU kernel lacks. bf16 inputs take the split-KV
 route: :func:`splits_for` cuts the key axis into slices, one block each,
 whose partial softmax results are combined on the chip inside one
 thread-block cluster. f32 inputs take the first CUDA-core kernel. Only
@@ -58,9 +61,12 @@ def max_active_clusters(d: int, splits: int) -> int:
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, window: int = 0,
+                     softcap: Optional[float] = None):
     """q: (B, H, D) one new token's queries; k/v_cache: (B, T, K, D);
-    attends cache slots 0..pos. Returns (B, H, D)."""
+    attends cache slots 0..pos, only pos - window < slot with ``window`` >
+    0, the scaled scores capped as ``softcap * tanh(s / softcap)`` unless
+    ``softcap`` is None. Returns (B, H, D)."""
     b, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     if not (q.is_cuda and k_cache.device == q.device
@@ -86,6 +92,9 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
             raise ValueError("decode_attention's bf16 route needs q and "
                              "caches 16-byte aligned")
         splits = splits_for(b, kh, t, _sm_count(q.device.index))
+    if window < 0 or (softcap is not None and softcap <= 0):
+        raise ValueError(f"decode_attention: window {window}, softcap "
+                         f"{softcap}")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     lib = build.load()
@@ -93,7 +102,7 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), b, t, h, kh, d, _DTYPES[q.dtype], int(pos),
-            float(scale), splits,
+            float(scale), int(window), float(softcap or 0.0), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     return out

@@ -80,11 +80,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
-                     scale: Optional[float] = None):
-    """q: (B,H,D); caches (B,T,K,D); attends slots 0..pos (host int)."""
+                     scale: Optional[float] = None, window: int = 0,
+                     softcap: Optional[float] = None):
+    """q: (B,H,D); caches (B,T,K,D); attends slots 0..pos (host int), the
+    last ``window`` of them when ``window`` > 0, with the scores capped at
+    ``softcap`` (None: no cap)."""
+    opts = dict(scale=scale, window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return ref.ref_decode_attention(q, k_cache, v_cache, pos, scale=scale)
-    out = dec.decode_attention(q, k_cache, v_cache, pos, scale=scale)
+        return ref.ref_decode_attention(q, k_cache, v_cache, pos, **opts)
+    out = dec.decode_attention(q, k_cache, v_cache, pos, **opts)
     _count("decode_attention")
     return out
 

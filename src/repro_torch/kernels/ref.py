@@ -41,8 +41,12 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def ref_decode_attention(q, k_cache, v_cache, pos: int, *,
-                         scale: Optional[float] = None):
-    """q: (B,H,D); caches (B,T,K,D); attend to positions <= pos."""
+                         scale: Optional[float] = None, window: int = 0,
+                         softcap: Optional[float] = None):
+    """q: (B,H,D); caches (B,T,K,D); attend to positions <= pos, and with
+    ``window`` > 0 only to those with pos - window < key (the reference's
+    ``kp > qp - window``, ``repro/models/layers.py:172-173``). ``softcap``
+    caps the scaled scores as ``softcap * tanh(s / softcap)``."""
     h, d = q.shape[1], q.shape[2]
     t, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
@@ -50,8 +54,13 @@ def ref_decode_attention(q, k_cache, v_cache, pos: int, *,
     v = torch.repeat_interleave(v_cache, g, dim=2)
     scale = d ** -0.5 if scale is None else scale
     scores = torch.einsum("bhd,bthd->bht", q.float(), k.float()) * scale
-    mask = torch.arange(t, device=q.device)[None, None, :] <= pos
-    scores = torch.where(mask, scores, NEG_INF)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    key = torch.arange(t, device=q.device)
+    mask = key <= pos
+    if window:
+        mask &= key > pos - window
+    scores = torch.where(mask[None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bht,bthd->bhd", probs.to(v.dtype), v)
 

@@ -15,6 +15,8 @@ future. Runs on the CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch paper-qwen3-30b-a3b --full-width --batch 16 --prompt-len 256 \\
         --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
+        --full-width --batch 16 --prompt-len 128 --max-new 64
 """
 from __future__ import annotations
 

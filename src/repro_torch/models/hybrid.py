@@ -22,6 +22,9 @@ The prefill fills it layer by layer (no per-layer lists to stack), and
 each application's KV slot in place, as ``mamba2.py`` and ``attn_apply``
 do. On the card the Mamba2 prefill runs K3, the shared block's prefill K1
 and its decode K2 (through ``models/layers.py`` and ``models/mamba2.py``).
+The training forward rematerialises each group (its Mamba2 blocks and
+that application of the shared block) and each trailing block under
+``cfg.remat`` (``layers.remat``), as the reference checkpoints its scans.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_param_specs,
     norm_param_specs,
+    remat,
     unembed_apply,
 )
 
@@ -86,8 +90,18 @@ def _shared_attn_apply(p, cfg: ModelConfig, x, positions, cache=None,
     return x + mlp_apply(p["mlp"], cfg, h), kv
 
 
+def group_apply(group, shared, cfg: ModelConfig, x, positions):
+    """One group without a cache: its Mamba2 blocks (``group``, stacked),
+    then the shared block."""
+    for layer in unstack(group):
+        x, _ = mb.block_apply(layer, cfg, x)
+    return _shared_attn_apply(shared, cfg, x, positions)[0]
+
+
 def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
-    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache])."""
+    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]).
+    Without a cache each group and trailing block runs under ``remat``;
+    the prefill that builds a cache runs directly."""
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -98,25 +112,26 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
                  for k, sp in cache_specs(cfg, b, s).items()}
         cache["pos"] = s
 
-    def mamba(layer, x, part, idx):
-        """One Mamba2 block; its final states go to cache[conv|ssm + part]
-        at ``idx``."""
-        x, st = mb.block_apply(layer, cfg, x, return_state=return_cache)
-        if return_cache:
-            cache["conv" + part][idx] = st["conv"]
-            cache["ssm" + part][idx] = st["ssm"]
-        return x
-
-    for g, group in enumerate(unstack(params["mamba_grouped"])):
-        for i, layer in enumerate(unstack(group)):
-            x = mamba(layer, x, "_g", (g, i))
-        x, kv = _shared_attn_apply(shared, cfg, x, positions)
-        if return_cache:
+    groups = unstack(params["mamba_grouped"])
+    tail = unstack(params["mamba_tail"]) if "mamba_tail" in params else []
+    if not return_cache:
+        for group in groups:
+            x = remat(cfg, group_apply, group, shared, cfg, x, positions)
+        for layer in tail:
+            x, _ = remat(cfg, mb.block_apply, layer, cfg, x)
+    else:
+        for g, group in enumerate(groups):
+            for i, layer in enumerate(unstack(group)):
+                x, st = mb.block_apply(layer, cfg, x, return_state=True)
+                cache["conv_g"][g, i] = st["conv"]
+                cache["ssm_g"][g, i] = st["ssm"]
+            x, kv = _shared_attn_apply(shared, cfg, x, positions)
             cache["attn_k"][g] = kv["k"]
             cache["attn_v"][g] = kv["v"]
-    if "mamba_tail" in params:
-        for i, layer in enumerate(unstack(params["mamba_tail"])):
-            x = mamba(layer, x, "_t", i)
+        for i, layer in enumerate(tail):
+            x, st = mb.block_apply(layer, cfg, x, return_state=True)
+            cache["conv_t"][i] = st["conv"]
+            cache["ssm_t"][i] = st["ssm"]
     x = apply_norm(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)

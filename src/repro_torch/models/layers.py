@@ -1,5 +1,7 @@
 """Dense building blocks in PyTorch: RMS norm, RoPE, GQA attention with
-QKV bias / qk-norm, SwiGLU MLP, tied embeddings.
+QKV bias / qk-norm, sliding window and logit softcap, gated MLPs (SiLU or
+tanh-approximate GELU), tied embeddings with gemma's scale and final
+softcap, and the layer-group rematerialisation of ``cfg.remat``.
 
 Plain functions on tensors; parameters are nested dicts built from the
 ``*_param_specs`` declarations, with the JAX package's layouts and
@@ -11,10 +13,12 @@ kernels on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -126,14 +130,15 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
         kv_out = cache
-        if s == 1 and not window and softcap is None:
+        if s == 1:
             out = kops.decode_attention(q[:, 0], ck, cv, cache_pos,
-                                        scale=scale)[:, None]
+                                        scale=scale, window=window,
+                                        softcap=softcap)[:, None]
         elif x.is_cuda:
             raise NotImplementedError(
-                "K2 decodes one token without window or softcap; multi-token "
-                "cache writes and gemma2 decode on the card are not ported "
-                "(ROADMAP.md, Queue 1: gemma2 decode)")
+                "K2 decodes one token; a multi-token cache write on the "
+                "card is not ported (ROADMAP.md, Queue 1: multi-token "
+                "cache writes)")
         else:
             kv_mask = torch.arange(ck.shape[1], device=x.device) \
                 <= cache_pos + s - 1
@@ -161,9 +166,16 @@ def mlp_param_specs(cfg: ModelConfig, d_ff: int):
     }
 
 
+def _act(cfg: ModelConfig, x):
+    """The gate's activation: gemma2's tanh-approximate GELU, else SiLU."""
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
 def mlp_apply(p, cfg: ModelConfig, x):
-    """SwiGLU MLP."""
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    """Gated MLP: act(x W_gate) * (x W_up), then W_o."""
+    return (_act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
 
 
 # -------------------------------------------------------------- embeddings
@@ -177,11 +189,70 @@ def embed_param_specs(cfg: ModelConfig):
 
 
 def embed_apply(p, cfg: ModelConfig, tokens):
-    return p["embedding"].to(torch.bfloat16)[tokens]
+    x = p["embedding"].to(torch.bfloat16)[tokens]
+    if cfg.family == "dense" and cfg.post_norms:
+        # gemma scales by sqrt(d_model), the constant first rounded to x's
+        # dtype as the reference's jnp.asarray(d ** 0.5, x.dtype): 68.0,
+        # not 67.88, at gemma2-27b's 4608
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def unembed_apply(p, cfg: ModelConfig, x):
-    """bf16 product, then f32 (as the JAX einsum then astype)."""
+    """bf16 product, then f32 (as the JAX einsum then astype), then the
+    final logit softcap where the config has one."""
     if cfg.tie_embeddings:
-        return (x @ p["embedding"].t()).float()
-    return (x @ p["unembed"]).float()
+        logits = (x @ p["embedding"].t()).float()
+    else:
+        logits = (x @ p["unembed"]).float()
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+# ------------------------------------------------------------------ remat
+
+# the ops a matmul, an einsum and ``@`` lower to: the outputs ``"dots"``
+# keeps, as jax.checkpoint_policies.checkpoint_dots keeps dot_general's
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _wants_grad(tree) -> bool:
+    if torch.is_tensor(tree):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_wants_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_wants_grad(v) for v in tree)
+    return False
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, one layer group of a forward, under ``cfg.remat`` as
+    the reference's ``jax.checkpoint(fn, policy=remat_policy(cfg))``
+    (``repro/models/layers.py:382-387``).
+
+    It runs directly when ``cfg.remat == "none"`` or no gradient is wanted
+    (grad mode off, or no tensor in ``args`` requires one). Otherwise it
+    runs under a non-reentrant ``torch.utils.checkpoint``: ``"dots"`` keeps
+    the matmuls' outputs and recomputes the rest in the backward, any other
+    value (``"full"``) keeps nothing inside the group but its inputs. The
+    group then runs twice in a forward and backward, kernels included.
+    The groups draw no random numbers, so no RNG state is kept."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() \
+            or not _wants_grad(args):
+        return fn(*args)
+    context_fn = ckpt.noop_context_fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context_fn)

@@ -15,7 +15,9 @@ intra-chunk scores are rounded to x's dtype; K3 keeps them in f32, as the
 TPU kernel does. :func:`ssd_chunked` is ported here as it stands: it is
 what ``ops.ssd``'s backward differentiates, as ``jax.grad`` differentiates
 it in the JAX package. The convolutions and the decode step are plain
-PyTorch, as they are plain jnp in the JAX package.
+PyTorch, as they are plain jnp in the JAX package. The training forward
+rematerialises each block under ``cfg.remat`` (``layers.remat``), as the
+reference checkpoints its scanned block.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.models.layers import (
     embed_apply,
     embed_param_specs,
     norm_param_specs,
+    remat,
     rms_norm,
     unembed_apply,
 )
@@ -276,10 +279,12 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
                                     dtype=torch.float32, device=x.device),
                  "pos": s}
     for i, layer in enumerate(unstack(params["layers"])):
-        x, st = block_apply(layer, cfg, x, return_state=return_cache)
         if return_cache:
+            x, st = block_apply(layer, cfg, x, return_state=True)
             cache["conv"][i] = st["conv"]
             cache["ssm"][i] = st["ssm"]
+        else:
+            x, _ = remat(cfg, block_apply, layer, cfg, x)
     x = apply_norm(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)

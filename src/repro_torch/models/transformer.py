@@ -1,5 +1,5 @@
-"""Dense and MoE decoder-only transformer LM (qwen2, qwen3, deepseek-coder,
-granite-moe, arctic and the paper's Qwen3 MoE shapes).
+"""Dense and MoE decoder-only transformer LM (qwen2, qwen3, gemma2,
+deepseek-coder, granite-moe, arctic and the paper's Qwen3 MoE shapes).
 
 Full-sequence forward (prefill, optionally building the KV cache) and
 single-token decode against it. Parameters keep the JAX package's stacked
@@ -7,6 +7,11 @@ layout: every ``layers/...`` tensor has a leading ``num_layers`` axis, and
 layer ``i`` reads the ``i``-th view of its ``unbind``. The cache is
 ``{"k", "v": (L, B, T, K, D), "pos": int}``; ``pos`` stays a host int so
 the decode loop never reads a device scalar back.
+
+Layers run in groups of ``local_global_period`` (one layer but for
+gemma2, whose groups are a local layer with a sliding window, then a
+global one), as the reference scans them; the training forward
+rematerialises each group under ``cfg.remat`` (``layers.remat``).
 """
 from __future__ import annotations
 
@@ -24,30 +29,12 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_param_specs,
     norm_param_specs,
+    remat,
     unembed_apply,
 )
 
-# config fields this port does not run yet -> the ROADMAP item that will
-# port them
-_NOT_PORTED = {
-    "sliding_window": "gemma2 decode",
-    "local_global_period": "gemma2 decode",
-    "attn_logit_softcap": "gemma2 decode",
-    "post_norms": "gemma2 decode",
-    "final_logit_softcap": "gemma2 decode",
-}
-
 
 def check_supported(cfg: ModelConfig) -> None:
-    for field, item in _NOT_PORTED.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {field} is not ported yet "
-                f"(ROADMAP.md, Queue 1: {item})")
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.act} MLP is not ported yet "
-            "(ROADMAP.md, Queue 1: gemma2 decode)")
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.norm} is not ported yet "
@@ -66,6 +53,9 @@ def layer_param_specs(cfg: ModelConfig):
         p["moe"] = moe_lib.moe_param_specs(cfg)
     if not cfg.num_experts or cfg.dense_residual:
         p["mlp"] = mlp_param_specs(cfg, cfg.d_ff)
+    if cfg.post_norms:
+        p["ln1_post"] = norm_param_specs(cfg)
+        p["ln2_post"] = norm_param_specs(cfg)
     return p
 
 
@@ -76,6 +66,24 @@ def param_specs(cfg: ModelConfig):
         "layers": stack_specs(layer_param_specs(cfg), cfg.num_layers),
         "ln_f": norm_param_specs(cfg),
     }
+
+
+def _group_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, period): groups of ``period`` layers, each sub-layer with
+    its static window."""
+    period = cfg.local_global_period or 1
+    assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
+    return cfg.num_layers // period, period
+
+
+def _sub_window(cfg: ModelConfig, j: int, period: int) -> int:
+    """Static sliding window for sub-layer j of a group (gemma2: local
+    first, global last)."""
+    if cfg.sliding_window and period > 1 and j < period - 1:
+        return cfg.sliding_window
+    if cfg.sliding_window and period == 1:
+        return cfg.sliding_window
+    return 0
 
 
 # ----------------------------------------------------------------- forward
@@ -91,37 +99,64 @@ def _ffn(p, cfg: ModelConfig, x):
     return mlp_apply(p["mlp"], cfg, x), None
 
 
-def layer_apply(p, cfg: ModelConfig, x, *, positions, cache=None,
-                cache_pos=None):
+def layer_apply(p, cfg: ModelConfig, x, *, positions, window: int = 0,
+                cache=None, cache_pos=None):
     """One decoder layer. Returns (x, aux, kv); aux is None without
     experts."""
     h = apply_norm(p["ln1"], x, cfg)
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
-                       cache=cache, cache_pos=cache_pos)
+                       window=window, cache=cache, cache_pos=cache_pos)
+    if cfg.post_norms:
+        a = apply_norm(p["ln1_post"], a, cfg)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
     m, aux = _ffn(p, cfg, h)
+    if cfg.post_norms:
+        m = apply_norm(p["ln2_post"], m, cfg)
     return x + m, aux, kv
+
+
+def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool):
+    """One group of layers (``group``: their parameter trees). Returns
+    (x, the layers' MoE losses stacked or None[, their fresh k/v])."""
+    period = len(group)
+    auxs, kvs = [], []
+    for j, layer in enumerate(group):
+        x, aux, kv = layer_apply(layer, cfg, x, positions=positions,
+                                 window=_sub_window(cfg, j, period))
+        if aux is not None:
+            auxs.append(aux)
+        if with_kv:
+            kvs.append(kv)
+    aux = torch.stack(auxs) if auxs else None
+    return (x, aux, kvs) if with_kv else (x, aux)
 
 
 def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
     """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]);
-    aux is the MoE loss's mean over the layers (0 without experts)."""
+    aux is the MoE loss's mean over the layers (0 without experts). Without
+    a cache each group of layers runs under ``remat``; the prefill that
+    builds a cache never needs a gradient and runs directly."""
     check_supported(cfg)
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    _, period = _group_layout(cfg)
+    layers = unstack(params["layers"])
     ks, vs, auxs = [], [], []
-    for layer in unstack(params["layers"]):
-        x, aux, kv = layer_apply(layer, cfg, x, positions=positions)
+    for g in range(0, cfg.num_layers, period):
+        group = layers[g:g + period]
+        if return_cache:
+            x, aux, kvs = group_apply(group, cfg, x, positions, True)
+            ks += [kv["k"] for kv in kvs]
+            vs += [kv["v"] for kv in kvs]
+        else:
+            x, aux = remat(cfg, group_apply, group, cfg, x, positions, False)
         if aux is not None:
             auxs.append(aux)
-        if return_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
     x = apply_norm(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], cfg, x)
-    aux = torch.stack(auxs).mean() if auxs else \
+    aux = torch.cat(auxs).mean() if auxs else \
         torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": s}
@@ -148,9 +183,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
+    _, period = _group_layout(cfg)
     for i, layer in enumerate(unstack(params["layers"])):
         # the MoE loss of a decode step is discarded, as the reference's
         x, _, _ = layer_apply(layer, cfg, x, positions=positions,
+                              window=_sub_window(cfg, i % period, period),
                               cache={"k": cache["k"][i], "v": cache["v"][i]},
                               cache_pos=pos)
     x = apply_norm(params["ln_f"], x, cfg)

@@ -55,6 +55,11 @@ def _randn(gen, shape, dtype, dev):
     (16, 256, 256, 32, 4, 128, True, 0, None, None),   # Qwen3-30B-A3B, g = 8
     (16, 64, 64, 24, 8, 64, True, 0, None, None),      # granite generate
     (16, 128, 128, 24, 8, 64, True, 0, None, None),    # granite training
+    # gemma2-27b's prefill: GQA 32:16, D = 128, softcap 50, scale 1/12; the
+    # local layers' window of 4096, and one that cuts
+    (16, 128, 128, 32, 16, 128, True, 0, 50.0, 1 / 12),
+    (16, 128, 128, 32, 16, 128, True, 4096, 50.0, 1 / 12),
+    (1, 600, 600, 32, 16, 128, True, 256, 50.0, 1 / 12),
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, s, t, h, kh, d, causal,
                                               window, softcap, scale, dtype):
@@ -145,6 +150,56 @@ def test_decode_attention_long_cache_single_sequence(dev, t, d, dtype):
         torch.testing.assert_close(
             out.float(), ref.ref_decode_attention(q, kc, vc, pos).float(),
             **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window,softcap,scale", [
+    (100, None, None), (0, 5.0, None), (100, 50.0, 1 / 12),
+    (1, 50.0, 1 / 12), (4096, 50.0, 1 / 12)])
+def test_decode_attention_window_and_softcap(dev, d, window, softcap, scale,
+                                             dtype):
+    """K2 with gemma2's window and softcap (and a small cap, which bites
+    on q at 3x unit scale) against the plain version. T = 700 over two
+    KV heads at B = 2 takes 16 splits of 44 keys on the bf16 route; at pos
+    340 a window of 100 starts at key 241, inside split 5 (220..263) and
+    inside its chunk 220 + 16..31; at pos 291 it starts at 192, the first
+    key of the second chunk of split 4 (176..219); at pos 60 the window
+    has not yet cut; at 699 it starts at 600, inside split 13 (572..615)
+    and inside a chunk."""
+    b, t, h, kh = 2, 700, 14, 2
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = (3 * torch.randn((b, h, d), generator=gen, device=dev)).to(dtype)
+    kc = _randn(gen, (b, t, kh, d), dtype, dev)
+    vc = _randn(gen, (b, t, kh, d), dtype, dev)
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    for pos in (0, 60, 291, 340, 699):
+        before = ops.LAUNCHES["decode_attention"]
+        out = ops.decode_attention(q, kc, vc, pos, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == before + 1
+        torch.testing.assert_close(
+            out.float(),
+            ref.ref_decode_attention(q, kc, vc, pos, **kw).float(),
+            **TOL[dtype], msg=lambda m, pos=pos: f"pos {pos}: {m}")
+
+
+@pytest.mark.parametrize("b,t,pos", [(16, 192, 191), (1, 4416, 4415)])
+def test_decode_attention_at_gemma2_shapes(dev, b, t, pos):
+    """gemma2-27b's decode (bf16, GQA 32:16, D = 128, softcap 50, scale
+    1/12, window 4096) at the last step of a B = 16 round and of the long
+    B = 1 round, where the window cuts."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = (3 * torch.randn((b, 32, 128), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    kc = _randn(gen, (b, t, 16, 128), torch.bfloat16, dev)
+    vc = _randn(gen, (b, t, 16, 128), torch.bfloat16, dev)
+    kw = dict(window=4096, softcap=50.0, scale=1 / 12)
+    out = ops.decode_attention(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), ref.ref_decode_attention(q, kc, vc, pos, **kw).float(),
+        **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as j_reduced_config
 from repro.models import layers as jl
 from repro.models.common import canonical_flat as j_canonical_flat
@@ -174,9 +175,20 @@ def test_seeded_init_is_deterministic_and_keyed_like_jax():
 
 
 @pytest.mark.parametrize("name,field", [
-    ("gemma2-27b", "sliding_window"),
     ("llama-3.2-vision-90b", "vision"), ("whisper-large-v3", "whisper")])
 def test_unported_configs_raise_naming_the_roadmap(name, field):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         build_model(get_config(name)).param_specs()
     assert field in str(e.value)
+
+
+def test_full_gemma2_builds_with_the_reference_param_count():
+    """gemma2-27b, which raised until its decode was ported: the full
+    config's specs build, with the post-norm leaves, and count the
+    reference's 27,227,128,320 parameters."""
+    m = build_model(get_config("gemma2-27b"))
+    specs = common.canonical_flat(m.param_specs())
+    assert specs["layers/ln1_post/scale"].shape == (46, 4608)
+    assert specs["layers/ln2_post/scale"].shape == (46, 4608)
+    assert m.param_count() == j_build_model(
+        jax_get_config("gemma2-27b")).param_count() == 27_227_128_320

@@ -254,6 +254,9 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
         "serve.main(['--device', 'cpu', '--arch', 'granite-moe-3b-a800m',",
         "            '--batch', '2', '--prompt-len', '8', '--max-new', '4',",
         "            '--layers', '2', '--d-model', '128', '--rounds', '2'])",
+        "serve.main(['--device', 'cpu', '--arch', 'gemma2-27b', '--batch',",
+        "            '2', '--prompt-len', '8', '--max-new', '4', '--layers',",
+        "            '2', '--d-model', '128', '--rounds', '2'])",
         "assert 'repro_torch.models.hybrid' in names, names",
         "assert 'repro_torch.models.moe' in names, names",
     ])
@@ -262,7 +265,7 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
-    assert proc.stdout.count("round ") == 8, proc.stdout
+    assert proc.stdout.count("round ") == 10, proc.stdout
 
 
 def test_port_trains_two_grpo_jobs_without_jax_or_reference_package():
