@@ -26,18 +26,26 @@ Phases (any failure raises and the process exits non-zero):
    and ``granite``) and at gemma2-27b's (GQA 32:16, head_dim 128, softcap
    50, scale 1/12: K1 at B=16 S=128 with and without the 4096-key window
    and at B=1 S=4352, where it cuts; K2 at the last step of both rounds;
-   then K2's window of 100 starting mid-chunk and mid-split), K1's and
-   K2's queries at 3x unit scale (``Q_SCALE``); the bounds count only the
-   keys inside a window, and the library call where SDPA takes no softcap
-   is ``flex_attention`` compiled. ``ms`` times back-to-back
+   then K2's window of 100 starting mid-chunk and mid-split) and at
+   whisper-large-v3's (MHA 20:20, head_dim 64: K1 non-causal at the
+   encoder's S = T = 1500 and the cross-attention prefill's S = 128 over T =
+   1500, K1 causal at the decoder's self-attention prefill, S = T = 128,
+   K2 over the 1500 cross keys and at the self-attention's last step),
+   K1's and K2's queries at 3x unit scale (``Q_SCALE``); the bounds
+   count only the keys inside a window (a non-causal row all T), and the
+   library call where SDPA takes no softcap is ``flex_attention``
+   compiled. ``ms`` times back-to-back
    calls from Python (the wrapper's host cost included); ``device_ms`` and
    ``library_device_ms`` time a CUDA graph of the same calls, the card's
    own time;
 4. the serving path at full qwen2-0.5b width: a Router with two jobs'
    deployments on node group 0, four alternating batched ``generate``
-   calls, with the kernels' launch counts set to 0 before and read after,
-   then one more ``generate`` under the profiler (the ten largest device
-   entries and every kernel of the port);
+   calls, each with the kernels' launch counts set to 0 before and read
+   after, then one more ``generate`` under the profiler (the ten largest
+   device entries and every kernel of the port); each job holds its
+   specs' bytes, every leaf is bit-exact (digests on the card) after each
+   round the job runs, and a context switch moves the whole job or
+   nothing each way;
 5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
    logits on the card against the same parameters through the plain
    versions on the CPU;
@@ -150,7 +158,16 @@ Phases (any failure raises and the process exits non-zero):
     4352: on the CPU where the first check's CPU side predicts it within
     two minutes, else against the card with ``kernels/ref.py``'s attention
     in place of K1 and K2; the logits are held before the final softcap,
-    where they are a bf16 product, as phase 5 holds every other model's.
+    where they are a bf16 product, as phase 5 holds every other model's;
+25. the audio serving path, as phase 4: two whisper-large-v3 jobs at
+    full width and depth (3,070,438,400 B of parameters each), each
+    ``generate`` given bf16 frames (B=16, 1500, 1280) through
+    ``extra_inputs`` (B=16, prompt 128, 64 new): each with exactly 96 K1
+    (encoder, decoder self- and cross-attention prefill) and 4,096 K2
+    (self- and cross-attention decode) launches and a peak under 80 GB;
+26. whole-path parity for whisper-large-v3 at full width cut to 2
+    encoder and 2 decoder layers, as phase 5 over frames at the real
+    encoder_seq of 1500, the bound counting both stacks' layers.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -258,6 +275,20 @@ GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 4
 # scaled by the tokens (4352 / 512), predicts at most this many seconds;
 # else against the card's plain attention
 GEMMA_CPU_LONG_S = 120.0
+
+# the whisper serving path (phase 25): whisper-large-v3 at full width and
+# depth, two jobs on one group: 32 encoder layers over 1,500 frames and 32
+# decoder layers, 20 heads of width 64 (MHA), prompt 128, 64 new; 96 K1 (32
+# each of the encoder, the decoder's self-attention and its cross-attention
+# prefill) and 2 x 32 x 64 K2 (self and cross) a generate. A switch moves
+# the 3,070,438,400 B of bf16 parameters. Its parity phase (26) cuts depth
+# to 2 encoder and 2 decoder layers
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_H, WHISPER_D, WHISPER_T = 20, 64, 1500
+WHISPER_LAYERS, WHISPER_P = 32, 128
+WHISPER_BYTES = 3_070_438_400
+WHISPER_FRAME_SCALE = 0.02      # the reference's dummy_batch
+WHISPER_PARITY_LAYERS = 2
 
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
 # full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
@@ -537,16 +568,41 @@ def kernel_phase(torch, dev):
     de["gemma2_long_global"] = decode_timing(torch, randn, 1, t_long,
                                              t_long - 1, 200, *heads, **gem)
     de["gemma2_window_check"] = decode_window_check(torch, randn)
+
+    # whisper-large-v3 (MHA 20:20, D=64): K1 non-causal at the encoder (S =
+    # T = 1500) and the cross-attention prefill (S = 128 over T = 1500), K1
+    # causal at the decoder's self-attention prefill (S = T = 128), K2 at
+    # the cross-attention decode (every one of the 1500 keys) and at the
+    # last step of the self-attention decode
+    print("phase 3: K1 and K2 at whisper-large-v3's shapes (bf16, MHA "
+          "H=K=20 D=64, non-causal over T=1500)")
+    heads = (WHISPER_H, WHISPER_H, WHISPER_D)
+    t_enc, t_cap = WHISPER_T, WHISPER_P + N_NEW
+    fa["whisper_encoder"] = flash_timing(torch, randn, B, t_enc, *heads,
+                                         iters=20, causal=False)
+    fa["whisper_cross"] = flash_timing(torch, randn, B, WHISPER_P, *heads,
+                                       iters=50, t=t_enc, causal=False)
+    fa["whisper_self_prefill"] = flash_timing(torch, randn, B, WHISPER_P,
+                                              *heads, iters=50)
+    de["whisper_cross"] = decode_timing(torch, randn, B, t_enc, t_enc - 1,
+                                        200, *heads)
+    de["whisper_self"] = decode_timing(torch, randn, B, t_cap, t_cap - 1,
+                                       500, *heads)
     for name, rows in (("flash_attention", ("zamba2", "qwen3_moe",
                                             "granite_prefill",
                                             "granite_training", "gemma2",
                                             "gemma2_local",
                                             "gemma2_long_local",
-                                            "gemma2_long_global")),
+                                            "gemma2_long_global",
+                                            "whisper_encoder",
+                                            "whisper_cross",
+                                            "whisper_self_prefill")),
                        ("decode_attention", ("zamba2", "qwen3_moe",
                                              "granite", "gemma2_local",
                                              "gemma2_long_local",
-                                             "gemma2_long_global"))):
+                                             "gemma2_long_global",
+                                             "whisper_cross",
+                                             "whisper_self"))):
         rec = records[name]
         rec["max_abs_err"] = max([rec["max_abs_err"]]
                                  + [rec[r]["max_abs_err"] for r in rows])
@@ -555,25 +611,29 @@ def kernel_phase(torch, dev):
     return records
 
 
-def flash_timing(torch, randn, b, s, h, kh, d, iters=200, **opts):
-    """K1 causal at one shape (``opts``: window, softcap, scale): checked
-    against its plain version, then timed (kernel, plain, the library
-    call; host-timed and as a CUDA graph) beside its bound, the inputs
-    rotated past the L2 cache. The library call is SDPA, or without one
-    that takes a softcap, ``flex_attention`` compiled (``flex_call``)."""
+def flash_timing(torch, randn, b, s, h, kh, d, iters=200, *, t=None,
+                 causal=True, **opts):
+    """K1 at one shape, S query rows over T = ``t`` (default S) keys,
+    causal or not (``opts``: window, softcap, scale): checked against its
+    plain version, then timed (kernel, plain, the library call; host-timed
+    and as a CUDA graph) beside its bound, the inputs rotated past the L2
+    cache. The library call is SDPA, or without one that takes a softcap,
+    ``flex_attention`` compiled (``flex_call``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     g = h // kh
-    kw = dict(causal=True, **opts)
+    t = t or s
+    kw = dict(causal=causal, **opts)
     window = opts.get("window", 0)
     # q, k, v read once and the output written once, bf16
-    per_call = (2 * b * s * h * d + 2 * b * s * kh * d) * 2
-    sets = [(Q_SCALE * randn(b, s, h, d), randn(b, s, kh, d),
-             randn(b, s, kh, d)) for _ in range(n_sets(per_call))]
+    per_call = (2 * b * s * h * d + 2 * b * t * kh * d) * 2
+    sets = [(Q_SCALE * randn(b, s, h, d), randn(b, t, kh, d),
+             randn(b, t, kh, d)) for _ in range(n_sets(per_call))]
     q, k, v = sets[0]
-    shape = f"B={b} S=T={s} H={h} K={kh} D={d} causal" + "".join(
-        f" {key} {val}" for key, val in opts.items())
+    shape = (f"B={b} S=T={s}" if t == s else f"B={b} S={s} T={t}") + \
+        f" H={h} K={kh} D={d} " + ("causal" if causal else "non-causal") + \
+        "".join(f" {key} {val}" for key, val in opts.items())
     err = check_close(torch, shape, ops.flash_attention(q, k, v, **kw),
                       ref.ref_attention(q, k.repeat_interleave(g, 2),
                                         v.repeat_interleave(g, 2), **kw))
@@ -587,7 +647,7 @@ def flash_timing(torch, randn, b, s, h, kh, d, iters=200, **opts):
         def library(q, k, v):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
+                is_causal=causal, enable_gqa=True)
 
         library.label = "sdpa"
 
@@ -597,8 +657,9 @@ def flash_timing(torch, randn, b, s, h, kh, d, iters=200, **opts):
         sets, max(4, iters // 4))
     d_kernel = device_ms(torch, kernel, sets, 20)
     t_lib, d_lib = library_times(torch, library, sets, iters, 20)
-    # row i sees min(i + 1, window) keys
-    keys = sum(min(i + 1, window or s) for i in range(s))
+    # a causal row i sees min(i + 1, window) keys, a non-causal one all T
+    keys = sum(min(i + 1, window or s) for i in range(s)) if causal \
+        else s * t
     flops = 4 * b * h * d * keys
     t_bound, by = bound(per_call, flops)
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
@@ -901,96 +962,142 @@ def profile_round(torch, run):
     return out, busy
 
 
-def f32_leaves(torch, dep):
-    """Copies of a deployment's f32 parameters, wherever they live now."""
+def spec_bytes(cfg) -> int:
+    """The bytes of a model's parameters, from its specs."""
     from repro_torch.models import common
-    return {k: v.detach().cpu().clone() for k, v in
-            common.canonical_flat(dep.wpg.params()).items()
-            if v.dtype == torch.float32}
+    from repro_torch.models.registry import build_model
+
+    specs = common.canonical_flat(build_model(cfg).param_specs())
+    return sum(math.prod(sp.shape) * sp.dtype.itemsize
+               for sp in specs.values())
 
 
-def serve_phase(torch, dev, phase, arch, prompt_len, want):
-    """Two jobs' deployments of ``arch`` on group 0, four alternating
-    generates. ``want``: the launches each generate must make, per kernel;
-    the counts are set to 0 just before the four rounds and read just
-    after."""
+def leaf_digests(torch, dep):
+    """A digest of each of a deployment's parameter leaves, where they
+    live (on the card when the job is resident)."""
+    from repro_torch.models import common
+    return {k: digest(torch, v)
+            for k, v in common.canonical_flat(dep.wpg.params()).items()}
+
+
+def serve_phase(torch, dev, phase, arch, prompt_len, want, prompts=None,
+                extras=None):
+    """Two jobs' deployments of ``arch`` on group 0 through Router -> HRRS
+    -> WPG -> rollout: INIT both, jobs A, B, A, B, then one more generate
+    of B (round 0's inputs) under the profiler. ``want``: the launches each
+    generate must make, per kernel (the counts set to 0 before each);
+    ``prompts``: the four rounds' prompts (MathDataset's by default);
+    ``extras``: each round's ``extra_inputs``. Each generate peaks under
+    80 GB; each job holds its specs' bytes on the card, its leaves are
+    bit-exact (digests on the card) after every round it runs, a switch
+    moves the whole job or nothing each way, and at least three move one
+    each way. Returns the router and the launches of the four rounds."""
     from repro_torch.configs import get_config
     from repro_torch.core import api
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
     from repro_torch.rl import data as data_lib
 
-    vocab = get_config(arch).vocab_size
+    order = "ABAB"
+    cfg = get_config(arch)
+    want_bytes = spec_bytes(cfg)
+    if prompts is None:
+        batches = data_lib.MathDataset(seed=0).batches(B, prompt_len)
+        prompts = [next(batches)[0] for _ in order]
+    extras = extras or [{} for _ in order]
+    shapes = {k: tuple(v.shape) for k, v in extras[0].items()}
     print(f"phase {phase}: serving {arch} at full width, jobs A and B on "
-          f"group 0 (B={B}, prompt {prompt_len}, {N_NEW} new, temperature "
-          f"0.7)")
-    torch.cuda.reset_peak_memory_stats(dev)
+          f"group 0 ({want_bytes} B of parameters each; B={B}, prompt "
+          f"{prompt_len}, {N_NEW} new, temperature 0.7"
+          + (f", extra_inputs {shapes}" if shapes else "") + ")")
     router = Router()                 # the CUDA devices; one card here
     deps = {job: router.deploy(api.DeploymentSpec(
         deployment_id=f"rollout-{job}", job_id=job, model_name=arch,
         role="rollout", overrides=()), group_id=0) for job in "AB"}
-    batches = data_lib.MathDataset(seed=0).batches(B, prompt_len)
-    prompts = [next(batches)[0] for _ in range(4)]
+    kept = {}
     with router:
-        for seed, dep in enumerate(deps.values(), start=1):
-            info = dep.init(seed=seed).wait(timeout=600)
-        print(f"  params per deployment: {info['params']}; card memory "
-              f"allocated {torch.cuda.memory_allocated(dev)} B, peak through "
-              f"the inits {torch.cuda.max_memory_allocated(dev)} B")
         torch.cuda.reset_peak_memory_stats(dev)
-        kept = {job: f32_leaves(torch, dep) for job, dep in deps.items()}
-        ops.reset_launches()
-        for r, job in enumerate("ABAB"):
-            before = dict(ops.LAUNCHES)
+        for seed, (job, dep) in enumerate(deps.items(), start=1):
             t0 = time.perf_counter()
-            out = deps[job].generate(prompts[r], max_new_tokens=N_NEW,
-                                     temperature=0.7).wait(timeout=600)
-            dt = time.perf_counter() - t0
-            grew = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            info = dep.init(seed=seed).wait(timeout=900)
+            nbytes = router.state_managers[0].job_bytes(dep.wpg.job_prefix)
+            kept[job] = leaf_digests(torch, dep)
+            print(f"  INIT {job}: {time.perf_counter() - t0} s, "
+                  f"{info['params']} parameters, {nbytes} B on the card; "
+                  f"peak card memory {torch.cuda.max_memory_allocated(dev)} "
+                  f"B")
+            if nbytes != want_bytes:
+                fail(f"INIT {job} holds {nbytes} B, not {want_bytes}")
+
+        def run(job, r):
+            return deps[job].generate(
+                prompts[r], max_new_tokens=N_NEW, temperature=0.7,
+                extra_inputs=extras[r] or None).wait(timeout=600)
+
+        launches = {k: 0 for k in want}
+        for r, job in enumerate(order + "B"):
+            profiled = r == len(order)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out, busy = profile_round(torch, lambda: run(job, 0)) \
+                if profiled else (run(job, r), None)
+            wall = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            grew = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev)
             toks, logps = out["tokens"], out["logprobs"]
-            if tuple(toks.shape) != (B, N_NEW) or toks.device.type != dev.type:
-                fail(f"round {r}: tokens {tuple(toks.shape)} {toks.device}")
-            if not bool(((toks >= 0) & (toks < vocab)).all()):
-                fail(f"round {r}: token outside the vocab")
-            if not bool(torch.isfinite(logps).all()):
-                fail(f"round {r}: non-finite logprobs")
+            if tuple(toks.shape) != (B, N_NEW) or toks.device.type != dev.type or \
+                    not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) \
+                    or not bool(torch.isfinite(logps).all()):
+                fail(f"round {r}: tokens {tuple(toks.shape)} on "
+                     f"{toks.device} or logprobs out of range")
             if grew != want:
                 fail(f"round {r}: launches {grew}, want {want}")
-            live = int(out["alive"].sum())
-            print(f"  round {r} job {job}: {dt * 1e3} ms, {B * N_NEW} tokens "
-                  f"({live} live), {B * N_NEW / dt} tok/s, launches {grew}")
-        launches = dict(ops.LAUNCHES)
-        print(f"  peak card memory over the rounds "
-              f"{torch.cuda.max_memory_allocated(dev)} B; pinned host bytes "
-              f"held {pinned_bytes(torch)}")
-        profile_round(torch, lambda: deps["B"].generate(
-            prompts[0], max_new_tokens=N_NEW,
-            temperature=0.7).wait(timeout=600))
-    switches = router.switch_log
-    for s in switches:
+            if peak >= 80e9:
+                fail(f"round {r}: peak card memory {peak} B")
+            if leaf_digests(torch, deps[job]) != kept[job]:
+                fail(f"round {r}: job {job}'s parameters changed")
+            if not profiled:
+                launches = {k: launches[k] + grew[k] for k in want}
+            print(f"  generate {r} job {job}: wall {wall * 1e3} ms, device "
+                  f"span {start.elapsed_time(end)} ms (events), device busy "
+                  + (f"{busy * 1e3} ms (profiler)" if busy is not None
+                     else "not measured (unprofiled round)")
+                  + f"; {B * N_NEW / wall} tok/s ({int(out['alive'].sum())} "
+                  f"live); launches {grew}; peak card memory {peak} B; "
+                  f"{len(kept[job])} leaves bit-exact")
+        print(f"  pinned host bytes held {pinned_bytes(torch)}")
+    # a switch moves a whole job each way, or nothing on a side whose job
+    # is already where it belongs (the first round's job is still resident
+    # after the other's INIT); the log also records a target load with
+    # nothing to offload, as the reference router does
+    for s in router.switch_log:
         print(f"  switch to {s['to_job']}: offload {s['t_offload']} s "
               f"{s['offload_bytes']} B, load {s['t_load']} s "
               f"{s['load_bytes']} B")
-    # the log also records a target load with nothing to offload, as the
-    # reference router does: count the switches that moved the other job
-    moved = [s for s in switches if s["t_offload"] > 0]
-    if len(moved) < 3:
-        fail(f"only {len(moved)} context switches offloaded a job")
-    for job, dep in deps.items():
-        back = f32_leaves(torch, dep)
-        if back.keys() != kept[job].keys() or not all(
-                torch.equal(back[k], v) for k, v in kept[job].items()):
-            fail(f"job {job}: f32 parameters changed across the host tier")
-        print(f"  exec_log {dep.deployment_id}: {list(dep.wpg.exec_log)}; "
-              f"{len(back)} f32 leaves bit-exact after the switches")
+        if {s["offload_bytes"], s["load_bytes"]} - {0, want_bytes}:
+            fail(f"a switch moved {s['offload_bytes']} / {s['load_bytes']} "
+                 f"B, not a whole job")
+    for side in ("offload_bytes", "load_bytes"):
+        n = sum(s[side] == want_bytes for s in router.switch_log)
+        if n < 3:
+            fail(f"only {n} context switches moved a whole job ({side})")
+    for dep in deps.values():
+        print(f"  exec_log {dep.deployment_id}: {list(dep.wpg.exec_log)}")
     return router, launches
 
 
 # ------------------------------------------------ phases 5, 7: parity
 
-def side_logits(torch, model, params, d, prompt, forced, where):
+def side_logits(torch, model, params, d, prompt, forced, where, extra=None):
     """The prefill's logits, then each teacher-forced decode step's, with
-    ``params`` copied to device ``d``."""
+    ``params`` and the prefill's ``extra`` inputs (whisper's frames) copied
+    to device ``d``."""
     from repro_torch.models import common
     from repro_torch.rl.rollout import _pad_cache
 
@@ -998,8 +1105,9 @@ def side_logits(torch, model, params, d, prompt, forced, where):
     with torch.inference_mode():
         prm = common.tree_map(lambda t: t.to(d), params,
                               is_leaf=torch.is_tensor)
-        lg, _, cache = model.forward(prm, {"tokens": prompt.to(d)},
-                                     return_cache=True)
+        batch = {"tokens": prompt.to(d),
+                 **{k: v.to(d) for k, v in (extra or {}).items()}}
+        lg, _, cache = model.forward(prm, batch, return_cache=True)
         steps = [lg.cpu()]
         cache = _pad_cache(cache, forced.shape[1])
         for i in range(forced.shape[1]):
@@ -1023,33 +1131,36 @@ def parity_prompt(torch, cfg, b, p, n):
 
 
 def parity_phase(torch, model, params, dev, phase, b=2, p=64, n=8,
-                 against="cpu", cap=None):
+                 against="cpu", cap=None, extra=None):
     """Prefill and teacher-forced decode logits on the card against the
     same parameters through the plain versions on the CPU, or (``against``
     "card plain") on the card with ``kernels/ref.py``'s attention called in
-    place of K1 and K2. With ``cap``, the logits soft-capped at it are
-    compared too and printed, not held. Returns the worst |diff| /
+    place of K1 and K2. ``extra``: the prefill's inputs beside the tokens
+    (whisper's frames), on the CPU. With ``cap``, the logits soft-capped at
+    it are compared too and printed, not held. Returns the worst |diff| /
     tolerance and each side's seconds."""
     cfg = model.cfg
     prompt, forced = parity_prompt(torch, cfg, b, p, n)
     # the CPU test's bound of four bf16 ulps of the largest logit at 4
     # layers (tests/test_torch_model.py), grown with the square root of the
-    # depth: independent bf16 roundings per layer add in quadrature
-    rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
+    # depth (whisper's: its encoder and decoder layers): independent bf16
+    # roundings per layer add in quadrature
+    layers = cfg.num_layers + cfg.encoder_layers
+    rel_tol = 2.0 ** -6 * math.sqrt(layers / 4)
     print(f"phase {phase}: parity card vs {against}, {cfg.name} at "
-          f"{cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced decode "
+          f"{layers} layers, B={b} P={p}, {n} teacher-forced decode "
           f"steps (tolerance {rel_tol} * max|logit|)")
     logits, seconds = {}, {}
+    sides = (torch, model, params)
     logits["card"], seconds["card"] = side_logits(
-        torch, model, params, dev, prompt, forced, "card")
+        *sides, dev, prompt, forced, "card", extra)
     if against == "cpu":
         logits[against], seconds[against] = side_logits(
-            torch, model, params, torch.device("cpu"), prompt, forced,
-            against)
+            *sides, torch.device("cpu"), prompt, forced, against, extra)
     else:
         with plain_attention():
             logits[against], seconds[against] = side_logits(
-                torch, model, params, dev, prompt, forced, against)
+                *sides, dev, prompt, forced, against, extra)
     worst = 0.0
     for i, (gpu, cpu) in enumerate(zip(logits["card"], logits[against])):
         err = (gpu - cpu).abs().max().item()
@@ -1198,7 +1309,6 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
     from repro_torch.core.cluster import PlexCluster
     from repro_torch.core.controller import JobConfig
     from repro_torch.kernels import ops
-    from repro_torch.models import common
 
     overrides = TRAIN_OVERRIDES if overrides is None else overrides
     n_new = TRAIN["max_new_tokens"]
@@ -2177,17 +2287,13 @@ def pinned_train_phase(torch, dev, records, phase, arch):
     and the kernels' launches over the four steps are exactly those of
     ``launches_per_op``."""
     from repro_torch.configs import get_config
-    from repro_torch.models import common
     from repro_torch.models.registry import build_model
 
     cfg = get_config(arch)
-    model = build_model(cfg)
-    n = model.param_count()
+    n = build_model(cfg).param_count()
     # the parameters (bf16, but the f32 leaves: mamba2's A_log, D and
     # dt_bias, the MoE router), f32 mu and nu, the int32 step
-    state = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
-                common.canonical_flat(model.param_specs()).values()) \
-        + 2 * 4 * n + 4
+    state = spec_bytes(cfg) + 2 * 4 * n + 4
     mem = {}
     with open("/proc/meminfo") as f:
         for line in f:
@@ -2440,14 +2546,13 @@ def moe_serve_phase(torch, dev, records):
     from repro_torch.core import api
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
-    from repro_torch.models import common, moe
+    from repro_torch.models import moe
     from repro_torch.models.registry import build_model
     from repro_torch.rl import data as data_lib
 
     cfg = get_config(MOE_ARCH)
     model = build_model(cfg)
-    want_bytes = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
-                     common.canonical_flat(model.param_specs()).values())
+    want_bytes = spec_bytes(cfg)
     want = {"flash_attention": MOE_LAYERS,
             "decode_attention": MOE_LAYERS * N_NEW, "ssd": 0}
     cap = moe.expert_capacity(cfg, MOE_P)
@@ -2646,14 +2751,12 @@ def gemma2_serve_phase(torch, dev, records):
     from repro_torch.core import api
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
-    from repro_torch.models import common
     from repro_torch.models.registry import build_model
     from repro_torch.rl import data as data_lib
 
     cfg = get_config(GEMMA_ARCH)
     model = build_model(cfg)
-    want_bytes = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in
-                     common.canonical_flat(model.param_specs()).values())
+    want_bytes = spec_bytes(cfg)
     want = {"flash_attention": GEMMA_LAYERS,
             "decode_attention": GEMMA_LAYERS * N_NEW, "ssd": 0}
     print(f"phase 23: serving {GEMMA_ARCH} at full width and depth, one job "
@@ -2765,6 +2868,73 @@ def gemma2_parity_phase(torch, dev):
           f"(limit {GEMMA_CPU_LONG_S} s): against {against}")
     parity_phase(torch, model, params, dev, 24, b=1, p=GEMMA_LONG_P, n=2,
                  against=against, cap=cap)
+
+
+def whisper_frames(torch, dev, b, seed):
+    """Stub frame embeddings (B, 1500, d_model) bf16 at the reference's
+    ``dummy_batch`` scale, drawn from a seeded generator on ``dev``."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, WHISPER_T, get_config(WHISPER_ARCH).d_model)
+    return (WHISPER_FRAME_SCALE * torch.randn(
+        shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+
+def whisper_serve_phase(torch, dev, records):
+    """Phase 25: ``serve_phase`` for two whisper-large-v3 jobs at full
+    width and depth, each generate given its own bf16 frames through
+    ``extra_inputs`` and seeded-id prompts over the vocabulary; exactly 96
+    K1 and 4,096 K2 launches a generate, and each job's 3,070,438,400 B
+    moved whole by a switch. The launches are written into the K1 and K2
+    records' whisper rows, one per shape."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.rl import data as data_lib
+
+    cfg = get_config(WHISPER_ARCH)
+    if spec_bytes(cfg) != WHISPER_BYTES:
+        fail(f"whisper's specs hold {spec_bytes(cfg)} B, not {WHISPER_BYTES}")
+    want = {"flash_attention": 3 * WHISPER_LAYERS,
+            "decode_attention": 2 * WHISPER_LAYERS * N_NEW, "ssd": 0}
+    rng = np.random.default_rng(0)
+    router, launches = serve_phase(
+        torch, dev, 25, WHISPER_ARCH, WHISPER_P, want,
+        prompts=[rng.integers(data_lib.EOS + 1, cfg.vocab_size,
+                              size=(B, WHISPER_P), dtype=np.int32)
+                 for _ in range(4)],
+        extras=[{"frames": whisper_frames(torch, dev, B, r)}
+                for r in range(4)])
+    # each generate ran WHISPER_LAYERS K1 launches at each of K1's three
+    # shapes and WHISPER_LAYERS * N_NEW K2 at each of K2's two (the exact
+    # counts were checked every round)
+    for name, rows in (("flash_attention", ("whisper_encoder",
+                                            "whisper_cross",
+                                            "whisper_self_prefill")),
+                       ("decode_attention", ("whisper_cross",
+                                             "whisper_self"))):
+        for row in rows:
+            path_launches(records, {name: launches[name] // len(rows)},
+                          {name: 1}, row)
+    return router
+
+
+def whisper_parity_phase(torch, dev):
+    """Phase 26: card vs CPU for whisper-large-v3 at full width cut to
+    WHISPER_PARITY_LAYERS encoder and decoder layers, as phase 5 (B=2,
+    prompt 64, 8 teacher-forced decode steps) over frames at the real
+    encoder_seq of 1,500; the bound counts the encoder and decoder layers
+    together."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config(WHISPER_ARCH).replace(
+        num_layers=WHISPER_PARITY_LAYERS,
+        encoder_layers=WHISPER_PARITY_LAYERS))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    frames = whisper_frames(torch, torch.device("cpu"), 2, 7)
+    parity_phase(torch, model, params, dev, 26, extra={"frames": frames})
 
 
 def path_launches(records, launches, want, path=None):
@@ -2917,6 +3087,12 @@ def main():
         release(torch, dev, "gemma2 router")
         gemma2_parity_phase(torch, dev)
         release(torch, dev, "gemma2 parity parameters")
+
+        router = whisper_serve_phase(torch, dev, records)
+        del router
+        release(torch, dev, "whisper router")
+        whisper_parity_phase(torch, dev)
+        release(torch, dev, "whisper parity parameters")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -219,14 +220,21 @@ class WorkerProcessGroup:
         return {"params": self.model.param_count()}
 
     def _op_generate(self, prompt_tokens, max_new_tokens: int = 32,
-                     temperature: float = 1.0):
+                     temperature: float = 1.0, extra_inputs=None):
+        """A rollout of ``prompt_tokens``; every tensor or numpy array of
+        ``extra_inputs`` (whisper's ``frames``) goes to the group's device
+        and joins the prefill's batch."""
         tokens = torch.as_tensor(prompt_tokens, dtype=torch.long,
                                  device=self.device)
+        extra = {k: torch.as_tensor(v, device=self.device)
+                 if isinstance(v, (torch.Tensor, np.ndarray)) else v
+                 for k, v in (extra_inputs or {}).items()}
         with torch.inference_mode():
             toks, logps, alive = rollout_lib.rollout(
                 self.model, self.params(), tokens, self._gen,
                 rollout_lib.RolloutConfig(max_new_tokens=max_new_tokens,
-                                          temperature=temperature))
+                                          temperature=temperature),
+                extra_inputs=extra)
         return {"tokens": toks, "logprobs": logps, "alive": alive}
 
     def _op_forward(self, batch, output: str = "logprobs"):

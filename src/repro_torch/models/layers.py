@@ -1,7 +1,9 @@
-"""Dense building blocks in PyTorch: RMS norm, RoPE, GQA attention with
-QKV bias / qk-norm, sliding window and logit softcap, gated MLPs (SiLU or
-tanh-approximate GELU), tied embeddings with gemma's scale and final
-softcap, and the layer-group rematerialisation of ``cfg.remat``.
+"""Dense building blocks in PyTorch: RMS and layer norms, RoPE and
+whisper's sinusoidal positions, GQA attention with QKV bias / qk-norm,
+sliding window and logit softcap, and cross-attention over a separate
+key/value input; gated MLPs (SiLU or tanh-approximate GELU) and whisper's
+plain biased MLP, tied embeddings with gemma's scale and final softcap,
+and the layer-group rematerialisation of ``cfg.remat``.
 
 Plain functions on tensors; parameters are nested dicts built from the
 ``*_param_specs`` declarations, with the JAX package's layouts and
@@ -36,11 +38,27 @@ def rms_norm(x, scale, eps: float):
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float):
+    """Layer norm computed in f32, scale and bias in f32, cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def norm_param_specs(cfg: ModelConfig, dim: Optional[int] = None):
-    return {"scale": spec((dim or cfg.d_model,), ("embed",), "zeros")}
+    d = dim or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": spec((d,), ("embed",), "ones"),
+                "bias": spec((d,), ("embed",), "zeros")}
+    return {"scale": spec((d,), ("embed",), "zeros")}  # (1 + scale)
 
 
 def apply_norm(p, x, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -63,6 +81,18 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions, d_model: int):
+    """Whisper's sinusoidal embedding in f32, ``[sin, cos]`` over
+    frequencies ``exp(-i log(1e4) / (half - 1))``. positions: (B, S) ->
+    (B, S, d_model)."""
+    half, dev = d_model // 2, positions.device
+    step = torch.log(torch.tensor(10_000.0, device=dev)) / (half - 1)
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev)
+                     * step)
+    angle = positions[..., None].float() * freq
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # --------------------------------------------------------------- attention
 
 def attn_param_specs(cfg: ModelConfig):
@@ -83,10 +113,10 @@ def attn_param_specs(cfg: ModelConfig):
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
+def _project_qkv(p, cfg: ModelConfig, x, kv_x):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    k = torch.einsum("btd,dhk->bthk", kv_x, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", kv_x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -108,22 +138,27 @@ def attention_core(q, k, v, *, causal: bool, window: int,
 
 
 def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
-               cache=None, cache_pos: Optional[int] = None):
+               kv_x=None, cache=None, cache_pos: Optional[int] = None,
+               use_rope=True):
     """Project, rope, (cache update), attend, out-project.
 
-    cache: optional {"k": (B, T, K, D), "v": ...}; the new keys and values
-    are written at ``cache_pos`` (a host int) IN PLACE, which saves a copy
-    of the cache per token (the JAX version returns an updated copy).
-    Returns ``(out, kv)``: the cache dict when one was given, else the
-    freshly projected (post-rope) {"k", "v"} the prefill uses to build one.
+    q comes from ``x``; k and v from ``kv_x`` when it is given
+    (cross-attention, keys at positions 0..T-1 and never rotated), else
+    from ``x``. cache: optional {"k": (B, T, K, D), "v": ...}; the new keys
+    and values are written at ``cache_pos`` (a host int) IN PLACE, which
+    saves a copy of the cache per token (the JAX version returns an updated
+    copy). Returns ``(out, kv)``: the cache dict when one was given, else
+    the freshly projected (post-rope) {"k", "v"} the prefill uses to build
+    one.
     """
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, x if kv_x is None else kv_x)
     scale = cfg.attn_scale if cfg.attn_scale is not None \
         else cfg.resolved_head_dim ** -0.5
     softcap = cfg.attn_logit_softcap
-    if cfg.rope_theta > 0:
+    if use_rope and cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if kv_x is None:        # self-attention: keys at their own positions
+            k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
         s = x.shape[1]
         ck, cv = cache["k"], cache["v"]
@@ -159,6 +194,13 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
 
 def mlp_param_specs(cfg: ModelConfig, d_ff: int):
     d = cfg.d_model
+    if cfg.norm == "layernorm":  # whisper's plain MLP with biases
+        return {
+            "wi": spec((d, d_ff), ("embed", "mlp")),
+            "bi": spec((d_ff,), ("mlp",), "zeros"),
+            "wo": spec((d_ff, d), ("mlp", "embed")),
+            "bo": spec((d,), ("embed",), "zeros"),
+        }
     return {
         "wi_gate": spec((d, d_ff), ("embed", "mlp")),
         "wi_up": spec((d, d_ff), ("embed", "mlp")),
@@ -167,14 +209,19 @@ def mlp_param_specs(cfg: ModelConfig, d_ff: int):
 
 
 def _act(cfg: ModelConfig, x):
-    """The gate's activation: gemma2's tanh-approximate GELU, else SiLU."""
+    """The activation: tanh-approximate GELU (gemma2's gate, whisper's
+    MLP), else SiLU."""
     if cfg.act == "gelu":
         return F.gelu(x, approximate="tanh")
     return F.silu(x)
 
 
 def mlp_apply(p, cfg: ModelConfig, x):
-    """Gated MLP: act(x W_gate) * (x W_up), then W_o."""
+    """Gated MLP: act(x W_gate) * (x W_up), then W_o; or, with ``wi``,
+    whisper's plain one: act(x W_i + b_i) W_o + b_o, each bias added to
+    the bf16 product as the reference adds it."""
+    if "wi" in p:
+        return _act(cfg, x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
     return (_act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
 
 

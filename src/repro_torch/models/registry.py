@@ -1,5 +1,5 @@
 """Unified model API: the :class:`Model` facade for the ``dense``, ``moe``,
-``ssm`` (mamba2) and ``hybrid`` (zamba2) families.
+``ssm`` (mamba2), ``hybrid`` (zamba2) and ``audio`` (whisper) families.
 
     model.forward(params, batch, return_cache=False)
     model.decode_step(params, cache, batch)
@@ -7,7 +7,8 @@
     model.active_param_count()
     model.cache_specs(batch, max_len)
 
-``batch`` is a dict with ``tokens``, as in ``repro.models.registry``.
+``batch`` is a dict with ``tokens``, and ``frames`` for audio, as in
+``repro.models.registry``.
 """
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import common, hybrid, mamba2, transformer
+from repro_torch.models import common, hybrid, mamba2, transformer, whisper
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-                   "hybrid": hybrid}
-_NOT_PORTED = {"audio": "whisper and vision", "vlm": "whisper and vision"}
+                   "hybrid": hybrid, "audio": whisper}
+_NOT_PORTED = {"vlm": "vision"}
 
 
 class Model:
@@ -58,9 +59,16 @@ class Model:
             // cfg.num_experts
 
     # ------------------------------------------------------------ compute
+    def _extras(self, batch: Dict[str, Any]):
+        """The family's inputs beside the tokens: audio's frames."""
+        if self.cfg.family == "audio":
+            return (batch["frames"],)
+        return ()
+
     def forward(self, params, batch: Dict[str, Any],
                 return_cache: bool = False):
         return self.mod.forward(params, self.cfg, batch["tokens"],
+                                *self._extras(batch),
                                 return_cache=return_cache)
 
     def decode_step(self, params, cache, batch: Dict[str, Any]):

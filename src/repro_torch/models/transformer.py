@@ -35,10 +35,12 @@ from repro_torch.models.layers import (
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    """A decoder-only config with a layer norm is the vision family's
+    (whisper, the audio family, has its own module)."""
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.norm} is not ported yet "
-            "(ROADMAP.md, Queue 1: whisper and vision)")
+            f"{cfg.name}: a decoder-only {cfg.norm} model is not ported yet "
+            "(ROADMAP.md, Queue 1: vision)")
 
 
 # ------------------------------------------------------------------ params

@@ -1,0 +1,210 @@
+"""Whisper-large-v3 backbone in PyTorch: an encoder-decoder transformer.
+
+The conv/mel frontend is a stub, as in the JAX package: the encoder takes
+precomputed frame embeddings (B, encoder_seq, d_model), passed as the
+batch's ``frames``. Positions are sinusoidal on both sides, layer norms
+have a bias, the MLP is the plain biased one, and there is no RoPE.
+
+Parameters keep the JAX package's tree and canonical keys (``enc_layers``,
+``enc_ln_f``, ``layers`` with ``ln1/self_attn/ln2/cross_attn/ln3/mlp``,
+``ln_f``), stacked on a leading layer axis. The encoder's self-attention
+and the decoder's cross-attention prefill are non-causal K1 launches (the
+encoder at S = T = encoder_seq, the cross-attention at S = prompt, T =
+encoder_seq); the decoder's self-attention is K1 causal in the prefill and
+K2 in each decode step, and the cross-attention of a decode step is K2
+over all encoder_seq precomputed keys (``pos = encoder_seq - 1``).
+
+The cache is ``{"k", "v": (L, B, T, K, D), "cross_k", "cross_v": (L, B,
+encoder_seq, K, D), "pos": int}``: ``pos`` stays a host int, the
+self-attention cache is written in place, and the cross K/V are computed
+once by the prefill and only read afterwards.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import spec, stack_specs, unstack
+from repro_torch.models.layers import (
+    apply_norm,
+    attn_apply,
+    attn_param_specs,
+    embed_apply,
+    embed_param_specs,
+    mlp_apply,
+    mlp_param_specs,
+    norm_param_specs,
+    remat,
+    sinusoidal_positions,
+    unembed_apply,
+)
+
+# ------------------------------------------------------------------ params
+
+
+def enc_layer_param_specs(cfg: ModelConfig):
+    return {
+        "ln1": norm_param_specs(cfg),
+        "attn": attn_param_specs(cfg),
+        "ln2": norm_param_specs(cfg),
+        "mlp": mlp_param_specs(cfg, cfg.d_ff),
+    }
+
+
+def dec_layer_param_specs(cfg: ModelConfig):
+    return {
+        "ln1": norm_param_specs(cfg),
+        "self_attn": attn_param_specs(cfg),
+        "ln2": norm_param_specs(cfg),
+        "cross_attn": attn_param_specs(cfg),
+        "ln3": norm_param_specs(cfg),
+        "mlp": mlp_param_specs(cfg, cfg.d_ff),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    return {
+        "embed": embed_param_specs(cfg),
+        "enc_layers": stack_specs(enc_layer_param_specs(cfg),
+                                  cfg.encoder_layers),
+        "enc_ln_f": norm_param_specs(cfg),
+        "layers": stack_specs(dec_layer_param_specs(cfg), cfg.num_layers),
+        "ln_f": norm_param_specs(cfg),
+    }
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def _add_positions(x, positions, cfg: ModelConfig):
+    """x plus the f32 sinusoid cast to x's dtype, as the reference adds
+    it."""
+    return x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+
+
+# ----------------------------------------------------------------- encoder
+
+def enc_layer_apply(p, cfg: ModelConfig, x, positions):
+    """One encoder layer: non-causal self-attention, then the MLP."""
+    h = apply_norm(p["ln1"], x, cfg)
+    a, _ = attn_apply(p["attn"], cfg, h, positions=positions, causal=False,
+                      use_rope=False)
+    x = x + a
+    return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], x, cfg))
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """frames: (B, T_enc, d_model) stubbed frame embeddings -> (B, T_enc,
+    d_model). Each layer runs under ``remat``."""
+    b, t, _ = frames.shape
+    positions = _positions(b, t, frames.device)
+    x = _add_positions(frames, positions, cfg)
+    for layer in unstack(params["enc_layers"]):
+        x = remat(cfg, enc_layer_apply, layer, cfg, x, positions)
+    return apply_norm(params["enc_ln_f"], x, cfg)
+
+
+# ----------------------------------------------------------------- decoder
+
+def _cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
+    """The decode step's cross-attention over the precomputed encoder K/V
+    (``repro/models/whisper.py:104-115``): q alone is projected, scaled by
+    head_dim^-1/2 (not ``cfg.attn_scale``), over every key, non-causal and
+    with no cap: K2 at ``pos = T_enc - 1``."""
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    out = kops.decode_attention(q[:, 0], cross_k, cross_v,
+                                cross_k.shape[1] - 1,
+                                scale=cfg.resolved_head_dim ** -0.5)
+    return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
+
+
+def dec_layer_apply(p, cfg: ModelConfig, x, enc_out, positions, cache=None,
+                    cache_pos=None, cross_kv=None):
+    """One decoder layer: causal self-attention (written into ``cache`` at
+    ``cache_pos`` when one is given), cross-attention over ``enc_out`` (the
+    prefill) or the precomputed ``cross_kv`` (a decode step), then the
+    MLP. Returns (x, self k/v or the cache, cross k/v)."""
+    h = apply_norm(p["ln1"], x, cfg)
+    a, kv = attn_apply(p["self_attn"], cfg, h, positions=positions,
+                       causal=True, cache=cache, cache_pos=cache_pos,
+                       use_rope=False)
+    x = x + a
+    h = apply_norm(p["ln2"], x, cfg)
+    if cross_kv is not None:
+        c = _cross_decode(p["cross_attn"], cfg, h, cross_kv["k"],
+                          cross_kv["v"])
+        ckv = cross_kv
+    else:
+        c, ckv = attn_apply(p["cross_attn"], cfg, h, positions=positions,
+                            kv_x=enc_out, causal=False, use_rope=False)
+    x = x + c
+    return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln3"], x, cfg)), kv, \
+        ckv
+
+
+def forward(params, cfg: ModelConfig, tokens, frames,
+            return_cache: bool = False):
+    """Teacher-forcing forward. tokens: (B, S); frames: (B, T_enc,
+    d_model) -> (logits, aux 0[, cache]). Each encoder and decoder layer
+    runs under ``remat``, which runs it directly where no gradient is
+    wanted (the prefill that builds a cache)."""
+    b, s = tokens.shape
+    enc_out = encode(params, cfg, frames)
+    positions = _positions(b, s, tokens.device)
+    x = _add_positions(embed_apply(params["embed"], cfg, tokens), positions,
+                       cfg)
+    ks, vs, cks, cvs = [], [], [], []
+    for layer in unstack(params["layers"]):
+        x, kv, ckv = remat(cfg, dec_layer_apply, layer, cfg, x, enc_out,
+                           positions)
+        if return_cache:
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+            cks.append(ckv["k"])
+            cvs.append(ckv["v"])
+    x = apply_norm(params["ln_f"], x, cfg)
+    logits = unembed_apply(params["embed"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if return_cache:
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "cross_k": torch.stack(cks), "cross_v": torch.stack(cvs),
+                 "pos": s}
+        return logits, aux, cache
+    return logits, aux
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    k, hd, l = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    kv = spec((l, batch, max_len, k, hd),
+              ("layers", "cache_batch", "cache_seq", "kv_heads", "cache_hd"),
+              "zeros")
+    ckv = spec((l, batch, cfg.encoder_seq, k, hd),
+               ("layers", "cache_batch", None, "kv_heads", "cache_hd"),
+               "zeros")
+    return {"k": kv, "v": kv, "cross_k": ckv, "cross_v": ckv}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """One decode step. tokens: (B, 1); the self-attention cache is
+    written in place at ``cache["pos"]``, the cross K/V only read. Returns
+    (logits, cache with pos + 1)."""
+    b = tokens.shape[0]
+    pos = int(cache["pos"])
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=tokens.device)
+    x = _add_positions(embed_apply(params["embed"], cfg, tokens), positions,
+                       cfg)
+    for i, layer in enumerate(unstack(params["layers"])):
+        x, _, _ = dec_layer_apply(
+            layer, cfg, x, None, positions,
+            cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos,
+            cross_kv={"k": cache["cross_k"][i], "v": cache["cross_v"][i]})
+    x = apply_norm(params["ln_f"], x, cfg)
+    logits = unembed_apply(params["embed"], cfg, x)
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "cross_k": cache["cross_k"],
+                    "cross_v": cache["cross_v"], "pos": pos + 1}

@@ -9,7 +9,7 @@ in it reads a device value back, so the card runs ahead of Python.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,8 +26,9 @@ class RolloutConfig:
 
 def _pad_cache(cache, extra: int):
     """Grow the self-attention caches' T axis (axis ndim-3 of
-    (..., B, T, K, D): the dense family's ``k``/``v``, the hybrid's
-    ``attn_k``/``attn_v``) by ``extra`` zero slots."""
+    (..., B, T, K, D): the dense family's and whisper's ``k``/``v``, the
+    hybrid's ``attn_k``/``attn_v``) by ``extra`` zero slots; whisper's
+    ``cross_k``/``cross_v`` keep the encoder's length."""
     out = {}
     for k, v in cache.items():
         if k in ("k", "v", "attn_k", "attn_v") and torch.is_tensor(v) and v.ndim >= 4:
@@ -40,14 +41,16 @@ def _pad_cache(cache, extra: int):
 
 
 def rollout(model: Model, params, prompt_tokens, gen: torch.Generator,
-            cfg: RolloutConfig = RolloutConfig()
+            cfg: RolloutConfig = RolloutConfig(),
+            extra_inputs: Optional[Dict[str, Any]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Generate completions. prompt_tokens: (B, P) integer tensor.
+    """Generate completions. prompt_tokens: (B, P) integer tensor;
+    ``extra_inputs`` join the prefill's batch only (whisper's ``frames``).
 
     Returns (completions (B, N), logprobs (B, N), alive mask (B, N)).
     """
-    logits, _, cache = model.forward(params, {"tokens": prompt_tokens},
-                                     return_cache=True)
+    batch = {"tokens": prompt_tokens, **(extra_inputs or {})}
+    logits, _, cache = model.forward(params, batch, return_cache=True)
     logits = logits[:, -1]
     cache = _pad_cache(cache, cfg.max_new_tokens)
 

@@ -55,6 +55,7 @@ def _randn(gen, shape, dtype, dev):
     (16, 256, 256, 32, 4, 128, True, 0, None, None),   # Qwen3-30B-A3B, g = 8
     (16, 64, 64, 24, 8, 64, True, 0, None, None),      # granite generate
     (16, 128, 128, 24, 8, 64, True, 0, None, None),    # granite training
+    (16, 128, 128, 20, 20, 64, True, 0, None, None),   # whisper decoder
     # gemma2-27b's prefill: GQA 32:16, D = 128, softcap 50, scale 1/12; the
     # local layers' window of 4096, and one that cuts
     (16, 128, 128, 32, 16, 128, True, 0, 50.0, 1 / 12),
@@ -200,6 +201,83 @@ def test_decode_attention_at_gemma2_shapes(dev, b, t, pos):
     torch.testing.assert_close(
         out.float(), ref.ref_decode_attention(q, kc, vc, pos, **kw).float(),
         **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t", [(16, 1500, 1500), (16, 128, 1500)])
+def test_flash_attention_at_whisper_shapes(dev, b, s, t, dtype):
+    """whisper-large-v3's non-causal K1 launches (MHA 20:20, D = 64): the
+    encoder at S = T = 1,500 and the cross-attention prefill at S = 128
+    over T = 1,500, a T that no key tile divides. q at 3x unit scale, so
+    the outputs over 1,500 keys stay O(1) and a lost key tile shows."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = (3 * torch.randn((b, s, 20, 64), generator=gen, device=dev)).to(dtype)
+    k = _randn(gen, (b, t, 20, 64), dtype, dev)
+    v = _randn(gen, (b, t, 20, 64), dtype, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        out.float(), ref.ref_attention(q, k, v, causal=False).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [1499, 700])
+def test_decode_attention_over_a_stacked_cross_cache_slice(dev, pos, dtype):
+    """whisper-large-v3's cross-attention decode: K2 at B = 16 over one
+    layer's slice ``cross_k[i]`` of a stacked (L, B, 1500, 20, 64) cache
+    (MHA, g = 1; 1,500 keys, not a multiple of K2's 16-key chunk), at pos
+    1499 (every key, the decode's) and 700; q at 3x unit scale."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = (3 * torch.randn((16, 20, 64), generator=gen, device=dev)).to(dtype)
+    kc = _randn(gen, (3, 16, 1500, 20, 64), dtype, dev)
+    vc = _randn(gen, (3, 16, 1500, 20, 64), dtype, dev)
+    for i in range(3):
+        before = ops.LAUNCHES["decode_attention"]
+        out = ops.decode_attention(q, kc[i], vc[i], pos, scale=64 ** -0.5)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == before + 1
+        torch.testing.assert_close(
+            out.float(),
+            ref.ref_decode_attention(q, kc[i], vc[i], pos).float(),
+            **TOL[dtype])
+
+
+def test_whisper_generate_launches_only_the_kernels(dev, monkeypatch):
+    """A whisper-large-v3 rollout at full width cut to 2 encoder and 2
+    decoder layers over 1,500 frames, with SDPA patched to raise: exactly
+    2 + 2 * 2 K1 launches (encoder, self and cross prefill) and 2 * 2 K2
+    a decode step (self and cross), finite logprobs."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import rollout
+
+    def refuse(*a, **k):
+        raise AssertionError("a library attention on the whisper path")
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", refuse)
+    cfg = get_config("whisper-large-v3").replace(num_layers=2,
+                                                 encoder_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params = model.init_params(gen, dev)
+    frames = (0.02 * torch.randn((2, 1500, 1280), generator=gen,
+                                 device=dev)).to(torch.bfloat16)
+    prompt = torch.randint(3, cfg.vocab_size, (2, 16), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        toks, logps, _ = rollout.rollout(
+            model, params, prompt, gen,
+            rollout.RolloutConfig(max_new_tokens=4, temperature=0.7),
+            extra_inputs={"frames": frames})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"flash_attention": 6, "decode_attention": 16,
+                            "ssd": 0}
+    assert toks.shape == (2, 4) and bool(torch.isfinite(logps).all())
 
 
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])

@@ -176,7 +176,8 @@ def test_prefill_caches_and_teacher_forced_decode_match_jax(jax_scan,
                                **BF16_TOL)
 
 
-def _held_tokens(jm, jp, tm, tp, prompts, jtok, ttok):
+def _held_tokens(jm, jp, tm, tp, prompts, jtok, ttok, jextra=None,
+                 textra=None):
     """Hold greedy tokens against JAX's. Both models are teacher-forced on
     JAX's tokens: at every step where JAX's top-2 logit margin is above the
     logit tolerance the port's logits pick JAX's token, and at every step
@@ -184,12 +185,15 @@ def _held_tokens(jm, jp, tm, tp, prompts, jtok, ttok):
     own rollout follows JAX's tokens until it parts at a step where JAX's
     margin is within the tolerance, to a token within the tolerance of
     JAX's top; the row's later tokens then continue another sequence and
-    are not compared. Prints each parting; returns the number of steps
-    whose choice the tolerance decides."""
+    are not compared. ``jextra`` / ``textra``: each side's inputs beside
+    the tokens (whisper's frames). Prints each parting; returns the number
+    of steps whose choice the tolerance decides."""
     seq = np.concatenate([prompts, jtok[:, :-1]], 1)
     with jax.disable_jit():
-        jl = _np(jm.forward(jp, {"tokens": jnp.asarray(seq)})[0])
-    tl = _np(tm.forward(tp, {"tokens": torch.from_numpy(seq).long()})[0])
+        jl = _np(jm.forward(jp, {"tokens": jnp.asarray(seq),
+                                 **(jextra or {})})[0])
+    tl = _np(tm.forward(tp, {"tokens": torch.from_numpy(seq).long(),
+                             **(textra or {})})[0])
     jl, tl = (x[:, prompts.shape[1] - 1:] for x in (jl, tl))
     tol = 2.0 ** -6 * np.abs(jl).max()
     top2 = np.sort(jl, axis=-1)[..., -2:]

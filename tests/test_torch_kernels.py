@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
@@ -59,6 +60,38 @@ def test_flash_attention_plain_matches_jax(b, s, h, kh, d, dtype):
     expect = jops.flash_attention(jq, jk, jv, causal=True, block_q=64,
                                   block_k=64)
     _close(expect, tops.flash_attention(tq, tk, tv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,t,h,kh,d", [
+    (2, 12, 12, 4, 4, 16),       # reduced whisper's encoder
+    (2, 8, 1500, 4, 4, 16),      # its cross-attention over 1,500 frames
+    (1, 77, 131, 14, 2, 64),     # ragged S and T, g = 7
+    (1, 150, 1500, 20, 20, 64),  # whisper-large-v3's heads, ragged T
+])
+def test_flash_attention_plain_non_causal_ragged_t_matches_jax_ref(
+        b, s, t, h, kh, d, dtype):
+    """Non-causal at a T that no block divides (whisper's encoder and
+    cross-attention): the TPU kernel rejects the padding this needs
+    (``repro/kernels/ops.py:47``), so the port's plain version is held
+    against the reference's dense oracle, ``repro.kernels.ref``."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, s, h, kh, d, dtype, seed=4, t=t)
+    g = h // kh
+    expect = jref.ref_attention(jq, jnp.repeat(jk, g, 2), jnp.repeat(jv, g, 2),
+                                causal=False)
+    _close(expect, tops.flash_attention(tq, tk, tv, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,h,kh", [(64, 64, 4, 4), (64, 192, 4, 2)])
+def test_flash_attention_plain_non_causal_matches_pallas(s, t, h, kh,
+                                                         dtype):
+    """Non-causal against the Pallas kernel in interpret mode, at shapes
+    its 64-row blocks divide (no padding), S = T and S < T."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, s, h, kh, 64, dtype, seed=5, t=t)
+    expect = jops.flash_attention(jq, jk, jv, causal=False, block_q=64,
+                                  block_k=64)
+    _close(expect, tops.flash_attention(tq, tk, tv, causal=False), dtype)
 
 
 @pytest.mark.parametrize("h,kh,window,softcap,scale", [

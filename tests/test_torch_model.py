@@ -175,11 +175,33 @@ def test_seeded_init_is_deterministic_and_keyed_like_jax():
 
 
 @pytest.mark.parametrize("name,field", [
-    ("llama-3.2-vision-90b", "vision"), ("whisper-large-v3", "whisper")])
+    ("llama-3.2-vision-90b", "vision")])
 def test_unported_configs_raise_naming_the_roadmap(name, field):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         build_model(get_config(name)).param_specs()
     assert field in str(e.value)
+
+
+def test_layer_norm_decoder_only_config_raises_naming_vision():
+    """A decoder-only config with a layer norm is the vision family's, not
+    ported: the transformer module says so."""
+    cfg = reduced_config("qwen2-0.5b").replace(norm="layernorm")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+        build_model(cfg).param_specs()
+    assert "vision" in str(e.value) and "whisper" not in str(e.value)
+
+
+def test_full_whisper_builds_with_the_reference_param_count():
+    """whisper-large-v3, which raised until the audio family was ported:
+    the full config's specs build and count the reference's 1,535,219,200
+    parameters."""
+    m = build_model(get_config("whisper-large-v3"))
+    specs = common.canonical_flat(m.param_specs())
+    assert specs["enc_layers/attn/wq"].shape == (32, 1280, 20, 64)
+    assert specs["layers/cross_attn/wv"].shape == (32, 1280, 20, 64)
+    assert specs["layers/mlp/bi"].shape == (32, 5120)
+    assert m.param_count() == j_build_model(
+        jax_get_config("whisper-large-v3")).param_count() == 1_535_219_200
 
 
 def test_full_gemma2_builds_with_the_reference_param_count():

@@ -4,8 +4,9 @@ package on the CPU.
 The reference checkpoints each layer group of every family under
 ``remat_policy(cfg)`` (``repro/models/layers.py:382-387``): a transformer
 group of ``local_global_period`` layers (one layer but for gemma2's two),
-a Mamba2 block, and a zamba2 group (its Mamba2 blocks and that application
-of the shared block) with the trailing Mamba2 blocks one at a time. The
+a Mamba2 block, a zamba2 group (its Mamba2 blocks and that application
+of the shared block) with the trailing Mamba2 blocks one at a time, and
+each whisper encoder and decoder layer. The
 port runs the same groups under ``layers.remat``: ``torch.utils.checkpoint``
 for ``"full"``, a selective policy keeping the matmuls' outputs for
 ``"dots"``, directly for ``"none"`` or when no gradient is wanted.
@@ -28,6 +29,7 @@ import torch
 import repro.models.hybrid as jhybrid
 import repro.models.mamba2 as jmamba2
 import repro.models.transformer as jtransformer
+import repro.models.whisper as jwhisper
 from repro.configs import reduced_config as j_reduced_config
 from repro.models.common import canonical_flat as j_canonical_flat
 from repro.models.registry import build_model as j_build_model
@@ -36,12 +38,13 @@ from repro_torch.models import common, convert
 from repro_torch.models import hybrid as thybrid
 from repro_torch.models import mamba2 as tmamba2
 from repro_torch.models import transformer as ttransformer
+from repro_torch.models import whisper as twhisper
 from repro_torch.models.registry import build_model
 
 torch.set_num_threads(1)
 
 ARCHS = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b",
-         "gemma2-27b")
+         "gemma2-27b", "whisper-large-v3")
 REMATS = ("none", "full", "dots")
 F32_TOL = 2e-3
 B, S = 2, 12
@@ -58,9 +61,20 @@ def _f32_embed(p, cfg, tokens, ctx=None):
 
 @pytest.fixture
 def f32_models(monkeypatch):
-    for mod in (jtransformer, jmamba2, jhybrid, ttransformer, tmamba2,
-                thybrid):
+    for mod in (jtransformer, jmamba2, jhybrid, jwhisper, ttransformer,
+                tmamba2, thybrid, twhisper):
         monkeypatch.setattr(mod, "embed_apply", _f32_embed)
+
+
+def _extra(arch, seed=0):
+    """Each side's inputs beside the tokens: whisper's frames (f32 at
+    scale 0.02), else none."""
+    cfg = reduced_config(arch)
+    if cfg.family != "audio":
+        return {}, {}
+    frames = (np.random.default_rng(seed + 1).standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return {"frames": jnp.asarray(frames)}, {"frames": torch.from_numpy(frames)}
 
 
 def _inputs(arch, seed=0):
@@ -84,7 +98,7 @@ def _port_grads(arch, flat, tokens, ct, remat):
               common.canonical_flat(params).items()}
     logits, aux = build_model(cfg).forward(
         common.canonical_unflatten(params, leaves),
-        {"tokens": torch.from_numpy(tokens).long()})[:2]
+        {"tokens": torch.from_numpy(tokens).long(), **_extra(arch)[1]})[:2]
     ((logits * torch.from_numpy(ct)).sum() + aux).backward()
     return {k: p.grad for k, p in leaves.items()}
 
@@ -94,7 +108,8 @@ def test_grads_equal_under_every_remat_and_match_jax_vjp(arch, f32_models):
     jm, jp, flat, tokens, ct = _inputs(arch)
 
     def fwd(p):
-        return jm.forward(p, {"tokens": jnp.asarray(tokens)})[:2]
+        return jm.forward(p, {"tokens": jnp.asarray(tokens),
+                              **_extra(arch)[0]})[:2]
 
     (jlogits, jaux), vjp = jax.vjp(fwd, jp)
     (jgrads,) = vjp((jnp.asarray(ct), jnp.ones((), jnp.float32)))
@@ -115,11 +130,14 @@ def test_grads_equal_under_every_remat_and_match_jax_vjp(arch, f32_models):
 
 def _count_groups(monkeypatch):
     """Count calls of each family's per-layer functions: the transformer
-    layer, the Mamba2 block, zamba2's shared block."""
-    calls = {"layer": 0, "block": 0, "shared": 0}
+    layer, the Mamba2 block, zamba2's shared block, whisper's encoder and
+    decoder layers."""
+    calls = {"layer": 0, "block": 0, "shared": 0, "enc": 0, "dec": 0}
     for mod, name, key in ((ttransformer, "layer_apply", "layer"),
                            (tmamba2, "block_apply", "block"),
-                           (thybrid, "_shared_attn_apply", "shared")):
+                           (thybrid, "_shared_attn_apply", "shared"),
+                           (twhisper, "enc_layer_apply", "enc"),
+                           (twhisper, "dec_layer_apply", "dec")):
         fn = getattr(mod, name)
 
         def counted(*a, _fn=fn, _key=key, **kw):
@@ -133,13 +151,15 @@ def _count_groups(monkeypatch):
 def _per_forward(arch):
     """The per-layer calls one forward makes at the reduced config."""
     cfg = reduced_config(arch)
+    calls = {"layer": 0, "block": 0, "shared": 0, "enc": 0, "dec": 0}
     if cfg.family == "hybrid":
         n_attn = thybrid._layout(cfg)[0]
-        return {"layer": 0, "block": cfg.num_layers - n_attn,
-                "shared": n_attn}
+        return dict(calls, block=cfg.num_layers - n_attn, shared=n_attn)
     if cfg.family == "ssm":
-        return {"layer": 0, "block": cfg.num_layers, "shared": 0}
-    return {"layer": cfg.num_layers, "block": 0, "shared": 0}
+        return dict(calls, block=cfg.num_layers)
+    if cfg.family == "audio":
+        return dict(calls, enc=cfg.encoder_layers, dec=cfg.num_layers)
+    return dict(calls, layer=cfg.num_layers)
 
 
 @pytest.mark.parametrize("remat", REMATS + ("no_grad",))
@@ -157,7 +177,8 @@ def test_each_group_runs_twice_under_remat_once_without(arch, remat,
         params = convert.params_from_reference(flat, cfg)
         with torch.no_grad():
             build_model(cfg).forward(
-                params, {"tokens": torch.from_numpy(tokens).long()})
+                params, {"tokens": torch.from_numpy(tokens).long(),
+                         **_extra(arch)[1]})
     else:
         _port_grads(arch, flat, tokens, ct, remat)
     times = 2 if remat in ("full", "dots") else 1
