@@ -30,7 +30,11 @@ Phases (any failure raises and the process exits non-zero):
    whisper-large-v3's (MHA 20:20, head_dim 64: K1 non-causal at the
    encoder's S = T = 1500 and the cross-attention prefill's S = 128 over T =
    1500, K1 causal at the decoder's self-attention prefill, S = T = 128,
-   K2 over the 1500 cross keys and at the self-attention's last step),
+   K2 over the 1500 cross keys and at the self-attention's last step)
+   and at llama-3.2-vision-90b's (GQA 64:8, head_dim 128: K1 causal at
+   the self-attention prefill, S = T = 128, and non-causal at the
+   cross-attention prefill, S = 128 over the T = 1601 patch keys; K2 over
+   the 1601 cross keys and at the self-attention's last step),
    K1's and K2's queries at 3x unit scale (``Q_SCALE``); the bounds
    count only the keys inside a window (a non-causal row all T), and the
    library call where SDPA takes no softcap is ``flex_attention``
@@ -98,8 +102,8 @@ Phases (any failure raises and the process exits non-zero):
     moves);
 15. training parity for the ssm and hybrid families: one update_actor on
     the card against the CPU's plain path, mamba2-2.7b at 4 layers and
-    zamba2-7b at 8 blocks (one application of the shared block between
-    Mamba2 blocks), full width; then K3's Function against plain autograd
+    zamba2-7b at 8 blocks and B=2 (one application of the shared block
+    between Mamba2 blocks), full width, the CPU side without remat; then K3's Function against plain autograd
     through ``ssd_chunked`` at the training shape (B=16 S=128 H=80 P=64
     N=128) and K3's timing there (the record's ``training`` row);
 16. PPO: a PPO job (actor and critic) and a GRPO job of qwen2-0.5b at full
@@ -116,7 +120,8 @@ Phases (any failure raises and the process exits non-zero):
     ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
     on the card; the temporary files are removed at the end;
 18. the process plane: phase 8's two jobs on two groups through
-    ``PlexCluster.run(concurrent=True)``, first in thread mode, then with
+    ``PlexCluster.run(concurrent=True)``, first in thread mode (one step
+    each, exact launches and bills), then with
     each group's WPGs in a spawned child process on the same card
     (``process_plane=True``): every op runs in its group's child, with
     exact K1 and K2 launches read there, every op billed, both wall times
@@ -131,7 +136,7 @@ Phases (any failure raises and the process exits non-zero):
     more step; ``close_processes`` leaves no child and no segment;
 19. the MoE serving path: one Qwen3-30B-A3B job at full width and depth
     (61,089,411,072 B of parameters on the card) through Router -> WPG
-    -> rollout, INIT then three generates (B=16, prompt 256, 64 new, the
+    -> rollout, INIT then two generates (B=16, prompt 256, 64 new, the
     last under the profiler), each with exactly 48 K1 and 3,072 K2
     launches and a peak under 80 GB, the prefill's capacity drops
     counted;
@@ -149,12 +154,12 @@ Phases (any failure raises and the process exits non-zero):
     the MoE aux loss included;
 23. the gemma2 serving path: one gemma2-27b job at full width and depth
     (54,454,256,640 B of parameters on the card) through Router -> WPG ->
-    rollout, INIT then three generates at B=16 prompt 128 (the last
+    rollout, INIT then two generates at B=16 prompt 128 (the last
     under the profiler) and one at B=1 prompt 4352, where the local
     layers' 4096-key window cuts in K1's prefill and in every K2 step;
     each with exactly 46 K1 and 2,944 K2 launches and a peak under 80 GB;
 24. whole-path parity for gemma2-27b at full width cut to 2 layers (one
-    local, one global), as phase 5 at B=4 prompt 128, then at B=1 prompt
+    local, one global), as phase 5 at B=2 prompt 128, then at B=1 prompt
     4352: on the CPU where the first check's CPU side predicts it within
     two minutes, else against the card with ``kernels/ref.py``'s attention
     in place of K1 and K2; the logits are held before the final softcap,
@@ -167,7 +172,25 @@ Phases (any failure raises and the process exits non-zero):
     (self- and cross-attention decode) launches and a peak under 80 GB;
 26. whole-path parity for whisper-large-v3 at full width cut to 2
     encoder and 2 decoder layers, as phase 5 over frames at the real
-    encoder_seq of 1500, the bound counting both stacks' layers.
+    encoder_seq of 1500, the bound counting both stacks' layers;
+27. the vlm serving path, as phase 4 with one job: llama-3.2-vision-90b
+    at full width, its depth cut to 35 of 100 layers (7 groups of 4
+    self-attention layers and a gated cross-attention layer; 64,098,517,048
+    B of parameters on the card), both gates of every cross layer written
+    to 1.0 after INIT through ``StateManager.write`` (zero at init, they
+    hide the cross path), then three generates (B=16, prompt 128 of seeded
+    ids, 64 new, the last under the profiler), each given its own bf16
+    patch embeddings (16, 1601, 8192) at the reference's ``dummy_batch``
+    scale through ``extra_inputs``: each with exactly 35 K1 (28 self, 7
+    cross prefill) and 2,240 K2 (1,792 self, 448 cross decode) launches
+    and a peak under 80 GB;
+28. whole-path parity for llama-3.2-vision-90b at full width cut to one
+    group (4 self layers and the cross layer, gates 1.0), as phase 5 over
+    unit-scale patch embeddings at the real vision_seq of 1601 (each
+    row's sharing a component), after a check on the card that the cross
+    path moves the logits.
+
+Each phase prints its seconds.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -177,6 +200,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import glob
@@ -242,7 +266,7 @@ MOE_ARCH = "paper-qwen3-30b-a3b"
 MOE_P = 256
 MOE_H, MOE_KH, MOE_D = 32, 4, 128
 MOE_LAYERS = 48
-MOE_ROUNDS = 3
+MOE_ROUNDS = 2
 MOE_PARITY_LAYERS = 2
 MOE_PARITY_B = 16
 # routing flips card vs CPU, of all choices; every flip must also be a
@@ -264,14 +288,14 @@ GRANITE_LAYERS = 32
 # softcap 50 and scale (4608 / 32)^-1/2 = 1/12; rounds at B=16 prompt 128,
 # then one at B=1 prompt 4352 (T = 4416), where the window cuts in K1's
 # prefill and in every K2 step. Its parity phase (24) cuts depth to one
-# pair, at B=4 prompt 128, and once more at B=1 prompt 4352
+# pair, at B=2 prompt 128, and once more at B=1 prompt 4352
 GEMMA_ARCH = "gemma2-27b"
 GEMMA_H, GEMMA_KH, GEMMA_D = 32, 16, 128
 GEMMA_LAYERS = 46
 GEMMA_WINDOW, GEMMA_CAP, GEMMA_SCALE = 4096, 50.0, 1 / 12
-GEMMA_P, GEMMA_ROUNDS, GEMMA_LONG_P = 128, 3, 4352
-GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 4
-# phase 24's long check runs on the CPU when the B=4 check's CPU side,
+GEMMA_P, GEMMA_ROUNDS, GEMMA_LONG_P = 128, 2, 4352
+GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 2
+# phase 24's long check runs on the CPU when the B=2 check's CPU side,
 # scaled by the tokens (4352 / 512), predicts at most this many seconds;
 # else against the card's plain attention
 GEMMA_CPU_LONG_S = 120.0
@@ -290,6 +314,19 @@ WHISPER_BYTES = 3_070_438_400
 WHISPER_FRAME_SCALE = 0.02      # the reference's dummy_batch
 WHISPER_PARITY_LAYERS = 2
 
+# the vlm serving path (phase 27): llama-3.2-vision-90b at full width, its
+# depth cut to 35 of 100 layers (a multiple of the cross_attn_period of 5;
+# at 40 the parameters' 72.66 GB would leave too little of the 80 GB for a
+# round's transients), one job: 7 groups of 4 self layers and a gated cross
+# layer, 64 query heads and 8 KV heads of width 128, the cross layers over
+# 1,601 patch embeddings; prompt 128, 64 new; 35 K1 and 35 x 64 K2 a
+# generate. Its parity phase (28) cuts depth to one group
+VISION_ARCH = "llama-3.2-vision-90b"
+VISION_H, VISION_KH, VISION_D, VISION_T = 64, 8, 128, 1601
+VISION_LAYERS, VISION_PERIOD, VISION_P = 35, 5, 128
+VISION_SCALE = 0.02             # the reference's dummy_batch
+VISION_GATE = 1.0
+
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
 # full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
 TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
@@ -299,6 +336,8 @@ PARITY_LAYERS, PARITY_B, PARITY_S = 4, 4, 128
 # phase 15's zamba2 parity: the fewest blocks (period 7) that hold one
 # application of the shared block with Mamba2 blocks on both sides
 HYB_TRAIN_PARITY_LAYERS = 8
+# and its batch: its CPU side is the script's slowest (38–42 s at B=4)
+HYB_TRAIN_PARITY_B = 2
 TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
 
 # phase 12: the training entry point at the full config (0 keeps the
@@ -588,6 +627,25 @@ def kernel_phase(torch, dev):
                                         200, *heads)
     de["whisper_self"] = decode_timing(torch, randn, B, t_cap, t_cap - 1,
                                        500, *heads)
+
+    # llama-3.2-vision-90b (GQA 64:8, D=128): K1 causal at the self-
+    # attention prefill (S = T = 128) and non-causal at the cross-attention
+    # prefill (S = 128 over the T = 1601 patch keys), K2 at the cross
+    # decode (every one of the 1601 keys) and at the last step of the self
+    # decode
+    print("phase 3: K1 and K2 at llama-3.2-vision-90b's shapes (bf16, GQA "
+          "H=64 K=8 D=128, non-causal over T=1601)")
+    heads = (VISION_H, VISION_KH, VISION_D)
+    t_vis, t_cap = VISION_T, VISION_P + N_NEW
+    fa["vision_self_prefill"] = flash_timing(torch, randn, B, VISION_P,
+                                             *heads, iters=50)
+    fa["vision_cross_prefill"] = flash_timing(torch, randn, B, VISION_P,
+                                              *heads, iters=50, t=t_vis,
+                                              causal=False)
+    de["vision_cross_decode"] = decode_timing(torch, randn, B, t_vis,
+                                              t_vis - 1, 200, *heads)
+    de["vision_self_decode"] = decode_timing(torch, randn, B, t_cap,
+                                             t_cap - 1, 500, *heads)
     for name, rows in (("flash_attention", ("zamba2", "qwen3_moe",
                                             "granite_prefill",
                                             "granite_training", "gemma2",
@@ -596,13 +654,17 @@ def kernel_phase(torch, dev):
                                             "gemma2_long_global",
                                             "whisper_encoder",
                                             "whisper_cross",
-                                            "whisper_self_prefill")),
+                                            "whisper_self_prefill",
+                                            "vision_self_prefill",
+                                            "vision_cross_prefill")),
                        ("decode_attention", ("zamba2", "qwen3_moe",
                                              "granite", "gemma2_local",
                                              "gemma2_long_local",
                                              "gemma2_long_global",
                                              "whisper_cross",
-                                             "whisper_self"))):
+                                             "whisper_self",
+                                             "vision_cross_decode",
+                                             "vision_self_decode"))):
         rec = records[name]
         rec["max_abs_err"] = max([rec["max_abs_err"]]
                                  + [rec[r]["max_abs_err"] for r in rows])
@@ -945,6 +1007,7 @@ def profile_round(torch, run):
         t0 = time.perf_counter()
         out = run()
         wall = time.perf_counter() - t0
+    t_exit = time.perf_counter() - t0 - wall
     by_name = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -953,7 +1016,9 @@ def profile_round(torch, run):
     busy = sum(ns for ns, _ in by_name.values()) / 1e9
     print(f"  profiled round: {wall * 1e3} ms wall, device busy {busy * 1e3} "
           f"ms ({busy / wall} of wall), "
-          f"{sum(n for _, n in by_name.values())} device events")
+          f"{sum(n for _, n in by_name.values())} device events; after the "
+          f"round the profiler's exit took {t_exit} s, the sums "
+          f"{time.perf_counter() - t0 - wall - t_exit} s")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the ten largest, then the port's own kernels wherever they rank
     for i, (name, (ns, n)) in enumerate(ranked):
@@ -981,45 +1046,54 @@ def leaf_digests(torch, dep):
 
 
 def serve_phase(torch, dev, phase, arch, prompt_len, want, prompts=None,
-                extras=None):
-    """Two jobs' deployments of ``arch`` on group 0 through Router -> HRRS
-    -> WPG -> rollout: INIT both, jobs A, B, A, B, then one more generate
-    of B (round 0's inputs) under the profiler. ``want``: the launches each
-    generate must make, per kernel (the counts set to 0 before each);
-    ``prompts``: the four rounds' prompts (MathDataset's by default);
-    ``extras``: each round's ``extra_inputs``. Each generate peaks under
-    80 GB; each job holds its specs' bytes on the card, its leaves are
-    bit-exact (digests on the card) after every round it runs, a switch
-    moves the whole job or nothing each way, and at least three move one
-    each way. Returns the router and the launches of the four rounds."""
+                extras=None, order="ABAB", overrides=(), after_init=None):
+    """The deployments of ``arch`` (a job each of ``order``'s letters) on
+    group 0 through Router -> HRRS -> WPG -> rollout: INIT each, then a
+    generate of each job in ``order``, then one more of the last job (no
+    switch) under the profiler. ``want``: the launches each generate must
+    make, per kernel (the counts set to 0 before each); ``prompts``: the
+    rounds' prompts (MathDataset's by default), and ``extras`` their
+    ``extra_inputs``, one each for ``order`` and, where given, one more
+    for the profiled round (else it takes round 0's); ``overrides``: the
+    deployments' config overrides; ``after_init(router, dep)``: run after
+    each INIT, before the job's leaves are digested. Each generate peaks
+    under 80 GB; each job holds its specs' bytes on the card, its leaves
+    are bit-exact (digests on the card) after every round it runs; with
+    two jobs, a switch moves the whole job or nothing each way, and at
+    least three move one each way. Returns the router and the launches of
+    the rounds of ``order``."""
     from repro_torch.configs import get_config
     from repro_torch.core import api
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
     from repro_torch.rl import data as data_lib
 
-    order = "ABAB"
-    cfg = get_config(arch)
+    jobs = sorted(set(order))
+    cfg = get_config(arch).replace(**dict(overrides))
     want_bytes = spec_bytes(cfg)
     if prompts is None:
         batches = data_lib.MathDataset(seed=0).batches(B, prompt_len)
         prompts = [next(batches)[0] for _ in order]
-    extras = extras or [{} for _ in order]
+    extras = extras or [{} for _ in prompts]
     shapes = {k: tuple(v.shape) for k, v in extras[0].items()}
-    print(f"phase {phase}: serving {arch} at full width, jobs A and B on "
-          f"group 0 ({want_bytes} B of parameters each; B={B}, prompt "
+    print(f"phase {phase}: serving {arch} at full width"
+          + (f", overrides {dict(overrides)}" if overrides else "")
+          + f", job{'s' * (len(jobs) > 1)} {' and '.join(jobs)} on group 0 "
+          f"({want_bytes} B of parameters each; B={B}, prompt "
           f"{prompt_len}, {N_NEW} new, temperature 0.7"
           + (f", extra_inputs {shapes}" if shapes else "") + ")")
     router = Router()                 # the CUDA devices; one card here
     deps = {job: router.deploy(api.DeploymentSpec(
         deployment_id=f"rollout-{job}", job_id=job, model_name=arch,
-        role="rollout", overrides=()), group_id=0) for job in "AB"}
+        role="rollout", overrides=overrides), group_id=0) for job in jobs}
     kept = {}
     with router:
         torch.cuda.reset_peak_memory_stats(dev)
         for seed, (job, dep) in enumerate(deps.items(), start=1):
             t0 = time.perf_counter()
             info = dep.init(seed=seed).wait(timeout=900)
+            if after_init:
+                after_init(router, dep)
             nbytes = router.state_managers[0].job_bytes(dep.wpg.job_prefix)
             kept[job] = leaf_digests(torch, dep)
             print(f"  INIT {job}: {time.perf_counter() - t0} s, "
@@ -1035,7 +1109,8 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want, prompts=None,
                 extra_inputs=extras[r] or None).wait(timeout=600)
 
         launches = {k: 0 for k in want}
-        for r, job in enumerate(order + "B"):
+        last = len(order) if len(prompts) > len(order) else 0
+        for r, job in enumerate(order + order[-1]):
             profiled = r == len(order)
             torch.cuda.reset_peak_memory_stats(dev)
             ops.reset_launches()
@@ -1043,7 +1118,7 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want, prompts=None,
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             t0 = time.perf_counter()
-            out, busy = profile_round(torch, lambda: run(job, 0)) \
+            out, busy = profile_round(torch, lambda: run(job, last)) \
                 if profiled else (run(job, r), None)
             wall = time.perf_counter() - t0
             end.record()
@@ -1085,7 +1160,7 @@ def serve_phase(torch, dev, phase, arch, prompt_len, want, prompts=None,
                  f"B, not a whole job")
     for side in ("offload_bytes", "load_bytes"):
         n = sum(s[side] == want_bytes for s in router.switch_log)
-        if n < 3:
+        if len(jobs) > 1 and n < 3:
             fail(f"only {n} context switches moved a whole job ({side})")
     for dep in deps.values():
         print(f"  exec_log {dep.deployment_id}: {list(dep.wpg.exec_log)}")
@@ -1487,9 +1562,10 @@ def check_bill(cluster, rec, wpgs, submitted, steps):
              f"logs' {logged} s")
 
 
-def update_parity(torch, dev, phase, arch, overrides):
+def update_parity(torch, dev, phase, arch, overrides, b=None):
     """One update_actor of ``arch`` (cut by ``overrides``) on the card and
-    on the CPU's plain path from the same parameters and batch: loss,
+    on the CPU's plain path (without remat) from the same parameters and
+    a batch of ``b`` (default PARITY_B) rows: loss,
     pg_loss, kl and the MoE aux loss (0 without experts) within 5e-2,
     grad_norm within 5 %, each leaf's f32 mu within 5e-2 * max|mu|.
     Returns the worst |diff| / tolerance."""
@@ -1506,11 +1582,16 @@ def update_parity(torch, dev, phase, arch, overrides):
     adamw = AdamWConfig(**TRAIN_LR)
     card = WorkerProcessGroup(spec, StateManager(
         mesh_slice=MeshSlice(0, dev)), adamw_cfg=adamw)
-    cpu = WorkerProcessGroup(spec, StateManager(), adamw_cfg=adamw)
+    # the CPU side, the reference, computes the same function without the
+    # card path's recomputation (cfg.remat), a quarter of its time
+    cpu = WorkerProcessGroup(dataclasses.replace(
+        spec, overrides=tuple(overrides) + (("remat", "none"),)),
+        StateManager(), adamw_cfg=adamw)
     cfg = card.cfg
+    b = b or PARITY_B
     print(f"phase {phase}: training parity card vs CPU plain, {arch} at "
           f"full width cut to {cfg.num_layers} layers (depth only), "
-          f"B={PARITY_B} S={PARITY_S}, AdamW {TRAIN_LR}"
+          f"B={b} S={PARITY_S}, AdamW {TRAIN_LR}"
           + (", tied embedding scaled by 1/64" if cfg.tie_embeddings
              else ""))
     # the seeded init's unit-scale tied embedding gives logits near 1e3
@@ -1527,7 +1608,7 @@ def update_parity(torch, dev, phase, arch, overrides):
     del params
     batch = seeded_train_batch(
         lambda b: card.execute(api.make_op(spec, api.Op.FORWARD, b)),
-        PARITY_B, PARITY_S, PARITY_S // 2, 4)
+        b, PARITY_S, PARITY_S // 2, 4)
     out = {}
     for where, w in (("card", card), ("cpu", cpu)):
         out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR, batch))
@@ -1608,7 +1689,8 @@ def ssm_parity_phase(torch, dev, records):
                   (("num_layers", PARITY_LAYERS),))
     release(torch, dev, "mamba2 parity WPGs")
     update_parity(torch, dev, 15, HYB_ARCH,
-                  (("num_layers", HYB_TRAIN_PARITY_LAYERS),))
+                  (("num_layers", HYB_TRAIN_PARITY_LAYERS),),
+                  b=HYB_TRAIN_PARITY_B)
     release(torch, dev, "zamba2 parity WPGs")
 
     b, s = TRAIN["batch_size"], TRAIN["seq_len"]
@@ -1970,15 +2052,16 @@ def counted_in_child(wpg, job, log):
     wpg.execute = run
 
 
-def proc_workload(process_plane: bool):
-    """Phase 8's two GRPO jobs, A on group 0 and B on group 1."""
+def proc_workload(process_plane: bool, steps: int = TRAIN["steps"]):
+    """Phase 8's two GRPO jobs, A on group 0 and B on group 1, ``steps``
+    steps each."""
     from repro_torch.core.cluster import PlexCluster
     from repro_torch.core.controller import JobConfig
 
     cluster = PlexCluster(n_groups=2, process_plane=process_plane)
     ctls = {job: cluster.add_job(JobConfig(
         job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
-        **TRAIN), group_id=g)
+        **dict(TRAIN, steps=steps)), group_id=g)
         for g, (seed, job) in enumerate(((1, "A"), (2, "B")))}
     return cluster, ctls
 
@@ -1994,7 +2077,6 @@ def proc_phase(torch, dev, records, tmp):
     from repro_torch.launch.mesh import host_shm_bytes
     from repro_torch.launch.proc_plane import StateManagerProxy
 
-    t_phase = time.perf_counter()
     steps, n_new = TRAIN["steps"], TRAIN["max_new_tokens"]
     cfg = get_config_arch()
     print(f"phase 18: the process plane, {ARCH} at full width and depth, "
@@ -2003,21 +2085,21 @@ def proc_phase(torch, dev, records, tmp):
           f"{card_line()}; /dev/shm free {host_shm_bytes()} B; "
           f"shm_available() {shmt.shm_available()}")
 
-    # the same workload in thread mode first: two dispatch threads, one
-    # interpreter
-    cluster, ctls = proc_workload(False)
+    # the workload in thread mode first, one step a job: two dispatch
+    # threads, one interpreter
+    cluster, ctls = proc_workload(False, steps=1)
     ops.reset_launches()
     t0 = time.perf_counter()
     billing = cluster.run(interleave=True, concurrent=True)
     thread_wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    want = step_launches(cfg, GRPO_STEP, n_new, 2 * steps)
-    print(f"  thread mode: {thread_wall} s for 2 jobs x {steps} steps; "
+    want = step_launches(cfg, GRPO_STEP, n_new, 2)
+    print(f"  thread mode: {thread_wall} s for 2 jobs x 1 step; "
           f"launches {launches}")
     if launches != want:
         fail(f"thread mode launched {launches}, want {want}")
     for job, c in ctls.items():
-        check_bill(cluster, billing[job], [c.dep.wpg], 1 + 2 * steps, steps)
+        check_bill(cluster, billing[job], [c.dep.wpg], 1 + 2, 1)
     del cluster, ctls, c
     release(torch, dev, "thread-mode cluster")
 
@@ -2040,6 +2122,7 @@ def proc_phase(torch, dev, records, tmp):
     t0 = time.perf_counter()
     billing = cluster.run(interleave=True, concurrent=True)
     proc_wall = time.perf_counter() - t0
+    want = step_launches(cfg, GRPO_STEP, n_new, 2 * steps)
     per_op = {op: launches_per_op(cfg, op, n_new)
               for op in ("init", "generate", "update_actor")}
     home = {"A": 0, "B": 1}
@@ -2070,7 +2153,7 @@ def proc_phase(torch, dev, records, tmp):
     ctx = (used1 - used0 - (torch.cuda.memory_reserved(dev) - parent0)
            - child_reserved) / 2
     print(f"  process mode: {proc_wall} s for 2 jobs x {steps} steps "
-          f"(thread mode {thread_wall} s); children's launches "
+          f"(thread mode {thread_wall} s for 1 step); children's launches "
           f"{child_launches}; card memory in use {used0} -> {used1} B, the "
           f"children's caching allocators {child_reserved} B, so a child's "
           f"CUDA context ~{ctx} B; nvidia-smi: {compute_apps()}")
@@ -2153,8 +2236,7 @@ def proc_phase(torch, dev, records, tmp):
     left = [n for n in os.listdir("/dev/shm")
             if n.startswith(f"pxl{os.getpid()}g")]
     alive = [p.pid for p in procs if p.is_alive()]
-    print(f"  close_processes: children alive {alive}, segments left {left};"
-          f" phase 18 took {time.perf_counter() - t_phase} s")
+    print(f"  close_processes: children alive {alive}, segments left {left}")
     if alive or left:
         fail("close_processes left a child or a segment")
 
@@ -2537,10 +2619,10 @@ def moe_serve_phase(torch, dev, records):
     Router -> HRRS -> WPG -> rollout: INIT, then MOE_ROUNDS batched
     generates, the last under the profiler, each with exactly MOE_LAYERS K1
     and MOE_LAYERS * N_NEW K2 launches (the counts set to 0 before each);
-    the prefill's capacity drops are counted on the card. The prompts fill
-    all MOE_P tokens with seeded ids over the vocabulary; round 1 reads
-    MathDataset's prompts as well, ~92 % PAD at this length, whose PADs
-    route alike and overflow the capacity."""
+    the prefill's capacity drops are counted on the card. Round 0 reads
+    MathDataset's prompts, ~92 % PAD at this length, whose PADs route
+    alike and overflow the capacity; the profiled round's prompts fill all
+    MOE_P tokens with seeded ids over the vocabulary."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import api
@@ -2567,7 +2649,7 @@ def moe_serve_phase(torch, dev, records):
         role="rollout", overrides=()), group_id=0)
     rng = np.random.default_rng(0)
     padded = next(data_lib.MathDataset(seed=0).batches(B, MOE_P))[0]
-    prompt_sets = [("MathDataset", padded) if r == 1 else
+    prompt_sets = [("MathDataset", padded) if r == 0 else
                    ("seeded ids", rng.integers(data_lib.EOS + 1,
                                                cfg.vocab_size,
                                                size=(B, MOE_P),
@@ -2830,7 +2912,7 @@ def gemma2_serve_phase(torch, dev, records):
 
 def gemma2_parity_phase(torch, dev):
     """Phase 24: card vs CPU for gemma2-27b at full width cut to one pair
-    of layers (local, then global), as phase 5 at B=4 prompt 128 with 8
+    of layers (local, then global), as phase 5 at B=2 prompt 128 with 8
     decode steps; then at B=1 prompt 4352, where the window cuts in the
     prefill and in the 2 decode steps after it: on the CPU when the first
     check's CPU side predicts at most GEMMA_CPU_LONG_S seconds for it,
@@ -2937,6 +3019,127 @@ def whisper_parity_phase(torch, dev):
     parity_phase(torch, model, params, dev, 26, extra={"frames": frames})
 
 
+def vision_embeddings(torch, dev, b, seed, scale=VISION_SCALE,
+                      shared=False):
+    """Stub patch embeddings (B, 1601, d_model) bf16 at ``scale`` (the
+    reference's ``dummy_batch`` scale by default), drawn from a seeded
+    generator on ``dev``; with ``shared``, each row's patches also share
+    one unit-scale component, as an image's patches do."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, VISION_T, get_config(VISION_ARCH).d_model)
+    x = torch.randn(shape, generator=gen, device=dev)
+    if shared:
+        x += torch.randn((b, 1, shape[2]), generator=gen, device=dev)
+    return (scale * x).to(torch.bfloat16)
+
+
+def vision_gates(torch, groups, device):
+    """Both gates of every cross layer at VISION_GATE, as a partial
+    parameter tree."""
+    return {"cross_layers": {g: torch.full((groups,), VISION_GATE,
+                                           dtype=torch.float32,
+                                           device=device)
+                             for g in ("gate_attn", "gate_mlp")}}
+
+
+def vision_serve_phase(torch, dev, records):
+    """Phase 27: ``serve_phase`` for one llama-3.2-vision-90b job at full
+    width, cut to VISION_LAYERS layers: INIT, then both gates of each cross
+    layer written to VISION_GATE through ``StateManager.write`` (zero at
+    init, they would hide the cross path) and read back, then three
+    generates of seeded-id prompts, each given its own bf16 patch
+    embeddings through ``extra_inputs``; exactly VISION_LAYERS K1 and
+    VISION_LAYERS * N_NEW K2 launches a generate, and the job's bytes
+    those of the cut config's specs. The launches are written into the K1
+    and K2 records' vision rows, one per shape."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.rl import data as data_lib
+
+    overrides = (("num_layers", VISION_LAYERS),)
+    cfg = get_config(VISION_ARCH).replace(**dict(overrides))
+    groups = VISION_LAYERS // VISION_PERIOD
+    n_self = groups * (VISION_PERIOD - 1)
+    want = {"flash_attention": VISION_LAYERS,
+            "decode_attention": VISION_LAYERS * N_NEW, "ssd": 0}
+
+    def write_gates(router, dep):
+        router.state_managers[0].write(dep.wpg.job_prefix,
+                                       vision_gates(torch, groups, dev))
+        got = {g: dep.wpg.params()["cross_layers"][g].tolist()
+               for g in ("gate_attn", "gate_mlp")}
+        print(f"  gates written after INIT {dep.wpg.job_prefix}: {got}")
+        if any(v != VISION_GATE for vals in got.values() for v in vals):
+            fail(f"the gates read back {got}, not {VISION_GATE}")
+
+    rng = np.random.default_rng(0)
+    router, launches = serve_phase(
+        torch, dev, 27, VISION_ARCH, VISION_P, want,
+        prompts=[rng.integers(data_lib.EOS + 1, cfg.vocab_size,
+                              size=(B, VISION_P), dtype=np.int32)
+                 for _ in range(3)],
+        extras=[{"vision": vision_embeddings(torch, dev, B, r)}
+                for r in range(3)],
+        order="AA", overrides=overrides, after_init=write_gates)
+    # each generate ran n_self K1 causal and groups non-causal, n_self *
+    # N_NEW K2 over the self cache and groups * N_NEW over the cross K/V
+    # (the exact counts were checked every round)
+    for name, row, part in (("flash_attention", "vision_self_prefill",
+                             n_self),
+                            ("flash_attention", "vision_cross_prefill",
+                             groups),
+                            ("decode_attention", "vision_self_decode",
+                             n_self),
+                            ("decode_attention", "vision_cross_decode",
+                             groups)):
+        path_launches(records, {name: launches[name] * part //
+                                VISION_LAYERS}, {name: 1}, row)
+    return router
+
+
+def vision_parity_phase(torch, dev):
+    """Phase 28: card vs CPU for llama-3.2-vision-90b at full width cut to
+    one group (VISION_PERIOD layers: 4 self layers and the gated cross
+    layer), both gates at VISION_GATE, as phase 5 (B=2, prompt 64, 8
+    teacher-forced decode steps) over patch embeddings at the real
+    vision_seq of 1,601. First, on the card, the prefill's logits must
+    move by more than the parity tolerance when the patch embeddings are
+    negated: the cross path reaches the logits. At the seeded init the
+    queries are near zero, every key weighs alike and the cross attention
+    returns the mean of the values; for independent patch embeddings
+    that mean is 1/40 of a value, and even at unit scale negating them
+    moved the logits by 0.078 against a tolerance of 0.089 (PERF.md).
+    So each row's patches share a unit-scale component beside their own
+    unit noise (``vision_embeddings(shared=True)``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config(VISION_ARCH).replace(
+        num_layers=VISION_PERIOD))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    for g, t in vision_gates(torch, 1, dev)["cross_layers"].items():
+        params["cross_layers"][g].copy_(t)
+    vision = vision_embeddings(torch, torch.device("cpu"), 2, 7, scale=1.0,
+                               shared=True)
+    prompt, _ = parity_prompt(torch, model.cfg, 2, 64, 8)
+    with torch.inference_mode():
+        logits = [model.forward(params, {"tokens": prompt.to(dev),
+                                         "vision": sign * vision.to(dev)})[0]
+                  for sign in (1, -1)]
+    moved = (logits[0] - logits[1]).abs().max().item()
+    tol = 2.0 ** -6 * math.sqrt(VISION_PERIOD / 4) * \
+        logits[0].abs().max().item()
+    print(f"phase 28: the card's prefill logits move by {moved} when the "
+          f"patch embeddings are negated (the parity tolerance {tol})")
+    if not moved > tol:
+        fail(f"the cross path moves the logits by {moved}, within {tol}")
+    del logits
+    parity_phase(torch, model, params, dev, 28, extra={"vision": vision})
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -2986,6 +3189,14 @@ def hybrid_parity_phase(torch, dev, phase):
     return parity_phase(torch, model, params, dev, phase)
 
 
+@contextlib.contextmanager
+def phase_seconds(name):
+    """Print the seconds the phase (or phases) ``name`` took."""
+    t0 = time.monotonic()
+    yield
+    print(f"{name} took {time.monotonic() - t0} s")
+
+
 def main():
     import torch
 
@@ -3002,97 +3213,130 @@ def main():
 
     card = card_line()
     print(f"phase 1: card {card}")
-    t0 = time.monotonic()
-    build.load()
-    print(f"phase 2: kernels built in {time.monotonic() - t0} s "
-          f"(nvcc {build.build_seconds} s; None = cached)")
-    build_report(build)
-    cluster_report()
-    records = kernel_phase(torch, dev)
-    records.update(ssd_kernel_phase(torch, dev))
+    with phase_seconds("phase 2"):
+        build.load()
+        print(f"phase 2: kernels built (nvcc {build.build_seconds} s; None "
+              f"= cached)")
+        build_report(build)
+        cluster_report()
+    with phase_seconds("phase 3"):
+        records = kernel_phase(torch, dev)
+        records.update(ssd_kernel_phase(torch, dev))
 
     want = {"flash_attention": LAYERS, "decode_attention": LAYERS * N_NEW,
             "ssd": 0}
-    router, launches = serve_phase(torch, dev, 4, ARCH, P, want)
-    path_launches(records, launches, want)
-    wpg = router.wpgs["rollout-A"]
-    parity_phase(torch, wpg.model, wpg.params(), dev, 5)
-    # release the qwen2 deployments (device and pinned host memory)
-    del router, wpg
-    release(torch, dev, "qwen2 router")
+    with phase_seconds("phase 4"):
+        router, launches = serve_phase(torch, dev, 4, ARCH, P, want)
+        path_launches(records, launches, want)
+    with phase_seconds("phase 5"):
+        wpg = router.wpgs["rollout-A"]
+        parity_phase(torch, wpg.model, wpg.params(), dev, 5)
+        # release the qwen2 deployments (device and pinned host memory)
+        del router, wpg
+        release(torch, dev, "qwen2 router")
 
     want = {"flash_attention": 0, "decode_attention": 0, "ssd": SSM_LAYERS}
-    router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want)
-    path_launches(records, launches, want)
-    wpg = router.wpgs["rollout-A"]
-    parity_phase(torch, wpg.model, wpg.params(), dev, 7)
-    del router, wpg
-    release(torch, dev, "mamba2 router")
+    with phase_seconds("phase 6"):
+        router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want)
+        path_launches(records, launches, want)
+    with phase_seconds("phase 7"):
+        wpg = router.wpgs["rollout-A"]
+        parity_phase(torch, wpg.model, wpg.params(), dev, 7)
+        del router, wpg
+        release(torch, dev, "mamba2 router")
 
-    cluster = train_phase(torch, dev, records)
-    del cluster
-    release(torch, dev, "training cluster")
-    train_parity_phase(torch, dev)
-    release(torch, dev, "training parity WPGs")
+    with phase_seconds("phase 8"):
+        cluster = train_phase(torch, dev, records)
+        del cluster
+        release(torch, dev, "training cluster")
+    with phase_seconds("phase 9"):
+        train_parity_phase(torch, dev)
+        release(torch, dev, "training parity WPGs")
 
     # zamba2: all three kernels on one path, at full width and depth
     want = {"flash_attention": HYB_APPS, "decode_attention": HYB_APPS * N_NEW,
             "ssd": HYB_MAMBA}
-    router, launches = serve_phase(torch, dev, 10, HYB_ARCH, HYB_P, want)
-    path_launches(records, launches, want, "zamba2")
-    del router
-    release(torch, dev, "zamba2 router")
-    hybrid_parity_phase(torch, dev, 11)
+    with phase_seconds("phase 10"):
+        router, launches = serve_phase(torch, dev, 10, HYB_ARCH, HYB_P, want)
+        path_launches(records, launches, want, "zamba2")
+        del router
+        release(torch, dev, "zamba2 router")
+    with phase_seconds("phase 11"):
+        hybrid_parity_phase(torch, dev, 11)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        train_cli_phase(records, tmp)
-        control_plane_phase(torch, dev, records)
-        release(torch, dev, "control-plane cluster")
+        with phase_seconds("phase 12"):
+            train_cli_phase(records, tmp)
+        with phase_seconds("phase 13"):
+            control_plane_phase(torch, dev, records)
+            release(torch, dev, "control-plane cluster")
 
-        cluster = pinned_train_phase(torch, dev, records, 14, SSM_ARCH)
-        del cluster
-        release(torch, dev, "mamba2 training cluster")
-        ssm_parity_phase(torch, dev, records)
-        ppo_phase(torch, dev, records)
-        release(torch, dev, "host-step WPG")
-        checkpoint_phase(torch, dev, tmp)
-        release(torch, dev, "checkpoint cluster")
-        proc_phase(torch, dev, records, tmp)
-        release(torch, dev, "process-plane cluster")
+        with phase_seconds("phase 14"):
+            cluster = pinned_train_phase(torch, dev, records, 14, SSM_ARCH)
+            del cluster
+            release(torch, dev, "mamba2 training cluster")
+        with phase_seconds("phase 15"):
+            ssm_parity_phase(torch, dev, records)
+        with phase_seconds("phase 16"):
+            ppo_phase(torch, dev, records)
+            release(torch, dev, "host-step WPG")
+        with phase_seconds("phase 17"):
+            checkpoint_phase(torch, dev, tmp)
+            release(torch, dev, "checkpoint cluster")
+        with phase_seconds("phase 18"):
+            proc_phase(torch, dev, records, tmp)
+            release(torch, dev, "process-plane cluster")
 
-        router = moe_serve_phase(torch, dev, records)
-        del router
-        release(torch, dev, "MoE router")
-        moe_parity_phase(torch, dev)
-        release(torch, dev, "MoE parity parameters")
-        cluster = pinned_train_phase(torch, dev, records, 21, GRANITE_ARCH)
-        del cluster
-        # the granite rows' launches: 4 generates and 4 update_actors
-        for name, row, op in (("flash_attention", "granite_prefill",
-                               "per_generate"),
-                              ("flash_attention", "granite_training",
-                               "per_update_actor"),
-                              ("decode_attention", "granite",
-                               "per_generate")):
-            records[name][row]["launches"] = 2 * TRAIN["steps"] * \
-                records[name]["train_launches"][GRANITE_ARCH][op]
-        release(torch, dev, "granite training cluster")
-        update_parity(torch, dev, 22, GRANITE_ARCH,
-                      (("num_layers", PARITY_LAYERS),))
-        release(torch, dev, "granite parity WPGs")
+        with phase_seconds("phase 19"):
+            router = moe_serve_phase(torch, dev, records)
+            del router
+            release(torch, dev, "MoE router")
+        with phase_seconds("phase 20"):
+            moe_parity_phase(torch, dev)
+            release(torch, dev, "MoE parity parameters")
+        with phase_seconds("phase 21"):
+            cluster = pinned_train_phase(torch, dev, records, 21,
+                                         GRANITE_ARCH)
+            del cluster
+            # the granite rows' launches: 4 generates and 4 update_actors
+            for name, row, op in (("flash_attention", "granite_prefill",
+                                   "per_generate"),
+                                  ("flash_attention", "granite_training",
+                                   "per_update_actor"),
+                                  ("decode_attention", "granite",
+                                   "per_generate")):
+                records[name][row]["launches"] = 2 * TRAIN["steps"] * \
+                    records[name]["train_launches"][GRANITE_ARCH][op]
+            release(torch, dev, "granite training cluster")
+        with phase_seconds("phase 22"):
+            update_parity(torch, dev, 22, GRANITE_ARCH,
+                          (("num_layers", PARITY_LAYERS),))
+            release(torch, dev, "granite parity WPGs")
 
-        router = gemma2_serve_phase(torch, dev, records)
-        del router
-        release(torch, dev, "gemma2 router")
-        gemma2_parity_phase(torch, dev)
-        release(torch, dev, "gemma2 parity parameters")
+        with phase_seconds("phase 23"):
+            router = gemma2_serve_phase(torch, dev, records)
+            del router
+            release(torch, dev, "gemma2 router")
+        with phase_seconds("phase 24"):
+            gemma2_parity_phase(torch, dev)
+            release(torch, dev, "gemma2 parity parameters")
 
-        router = whisper_serve_phase(torch, dev, records)
-        del router
-        release(torch, dev, "whisper router")
-        whisper_parity_phase(torch, dev)
-        release(torch, dev, "whisper parity parameters")
+        with phase_seconds("phase 25"):
+            router = whisper_serve_phase(torch, dev, records)
+            del router
+            release(torch, dev, "whisper router")
+        with phase_seconds("phase 26"):
+            whisper_parity_phase(torch, dev)
+            release(torch, dev, "whisper parity parameters")
+
+        with phase_seconds("phase 27"):
+            router = vision_serve_phase(torch, dev, records)
+            del router
+            release(torch, dev, "vision router")
+        with phase_seconds("phase 28"):
+            vision_parity_phase(torch, dev)
+            release(torch, dev, "vision parity parameters")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -1,7 +1,7 @@
 """Dense building blocks in PyTorch: RMS and layer norms, RoPE and
 whisper's sinusoidal positions, GQA attention with QKV bias / qk-norm,
 sliding window and logit softcap, and cross-attention over a separate
-key/value input; gated MLPs (SiLU or tanh-approximate GELU) and whisper's
+key/value input or, in a decode step, over precomputed cross K/V; gated MLPs (SiLU or tanh-approximate GELU) and whisper's
 plain biased MLP, tied embeddings with gemma's scale and final softcap,
 and the layer-group rematerialisation of ``cfg.remat``.
 
@@ -188,6 +188,22 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
                              q_chunk=cfg.attn_q_chunk)
     proj = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return proj, kv_out
+
+
+def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
+    """A decode step's cross-attention over precomputed K/V (B, T, K, D),
+    as whisper's and llama-3.2-vision's references compute it
+    (``repro/models/whisper.py:104-115``, ``vision.py:70-77``): q alone is
+    projected, unrotated, scaled by head_dim^-1/2 (not ``cfg.attn_scale``),
+    over every key, non-causal and with no cap: K2 at ``pos = T - 1``.
+    h: (B, 1, d_model)."""
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    out = kops.decode_attention(q[:, 0], cross_k, cross_v,
+                                cross_k.shape[1] - 1,
+                                scale=cfg.resolved_head_dim ** -0.5)
+    return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
 
 
 # --------------------------------------------------------------------- mlp

@@ -1,5 +1,6 @@
 """Unified model API: the :class:`Model` facade for the ``dense``, ``moe``,
-``ssm`` (mamba2), ``hybrid`` (zamba2) and ``audio`` (whisper) families.
+``ssm`` (mamba2), ``hybrid`` (zamba2), ``audio`` (whisper) and ``vlm``
+(llama-3.2-vision) families: every family of the JAX package.
 
     model.forward(params, batch, return_cache=False)
     model.decode_step(params, cache, batch)
@@ -7,8 +8,8 @@
     model.active_param_count()
     model.cache_specs(batch, max_len)
 
-``batch`` is a dict with ``tokens``, and ``frames`` for audio, as in
-``repro.models.registry``.
+``batch`` is a dict with ``tokens``, ``frames`` for audio and ``vision``
+for vlm, as in ``repro.models.registry``.
 """
 from __future__ import annotations
 
@@ -18,19 +19,15 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import common, hybrid, mamba2, transformer, whisper
+from repro_torch.models import (common, hybrid, mamba2, transformer, vision,
+                                whisper)
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-                   "hybrid": hybrid, "audio": whisper}
-_NOT_PORTED = {"vlm": "vision"}
+                   "hybrid": hybrid, "audio": whisper, "vlm": vision}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in _FAMILY_MODULES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet "
-                f"(ROADMAP.md, Queue 1: {_NOT_PORTED[cfg.family]})")
         self.cfg = cfg
         self.mod = _FAMILY_MODULES[cfg.family]
 
@@ -60,9 +57,12 @@ class Model:
 
     # ------------------------------------------------------------ compute
     def _extras(self, batch: Dict[str, Any]):
-        """The family's inputs beside the tokens: audio's frames."""
+        """The family's inputs beside the tokens: audio's frames, vlm's
+        patch embeddings."""
         if self.cfg.family == "audio":
             return (batch["frames"],)
+        if self.cfg.family == "vlm":
+            return (batch["vision"],)
         return ()
 
     def forward(self, params, batch: Dict[str, Any],

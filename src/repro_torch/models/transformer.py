@@ -34,15 +34,6 @@ from repro_torch.models.layers import (
 )
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """A decoder-only config with a layer norm is the vision family's
-    (whisper, the audio family, has its own module)."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: a decoder-only {cfg.norm} model is not ported yet "
-            "(ROADMAP.md, Queue 1: vision)")
-
-
 # ------------------------------------------------------------------ params
 
 def layer_param_specs(cfg: ModelConfig):
@@ -62,7 +53,6 @@ def layer_param_specs(cfg: ModelConfig):
 
 
 def param_specs(cfg: ModelConfig):
-    check_supported(cfg)
     return {
         "embed": embed_param_specs(cfg),
         "layers": stack_specs(layer_param_specs(cfg), cfg.num_layers),
@@ -139,7 +129,6 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
     aux is the MoE loss's mean over the layers (0 without experts). Without
     a cache each group of layers runs under ``remat``; the prefill that
     builds a cache never needs a gradient and runs directly."""
-    check_supported(cfg)
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -179,7 +168,6 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
 def decode_step(params, cfg: ModelConfig, cache, tokens):
     """One decode step. tokens: (B, 1); cache k/v: (L, B, T, K, D) written
     in place at ``cache["pos"]``. Returns (logits, cache with pos + 1)."""
-    check_supported(cfg)
     b = tokens.shape[0]
     pos = int(cache["pos"])
     x = embed_apply(params["embed"], cfg, tokens)

@@ -1,0 +1,191 @@
+"""llama-3.2-vision backbone in PyTorch: a dense decoder with a tanh-gated
+cross-attention image layer every ``cross_attn_period`` layers.
+
+The vision tower is a stub, as in the JAX package: the model takes patch
+embeddings already projected to d_model (B, vision_seq, d_model), passed
+as the batch's ``vision``. The layers run in groups of ``period - 1``
+self-attention layers (``transformer.layer_apply``, no window), then one
+cross layer whose attention and MLP outputs are scaled by ``tanh`` of an
+f32 gate (zero at init, so an image-free init leaves the text path as it
+is), the tanh cast to x's dtype before the product, as the reference.
+
+Parameters keep the JAX package's tree and canonical keys: ``self_layers``
+stacked twice, ``(n_groups, per_group, ...)``, ``cross_layers`` once. The
+self-attention is K1 causal in the prefill and K2 in each decode step;
+the cross-attention prefill is K1 non-causal over all vision_seq keys,
+neither q nor k rotated, and a decode step's cross-attention is K2 over
+the precomputed cross K/V (``pos = vision_seq - 1``), q projected alone,
+unrotated, at head_dim^-1/2 with no cap.
+
+The cache is ``{"k", "v": (G, per_group, B, T, K, D), "cross_k",
+"cross_v": (G, B, vision_seq, K, D), "pos": int}``: ``pos`` stays a host
+int, the self-attention cache is written in place, and the cross K/V are
+computed once by the prefill and only read afterwards.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import spec, stack_specs, unstack
+from repro_torch.models.layers import (
+    apply_norm,
+    attn_apply,
+    attn_param_specs,
+    cross_decode,
+    embed_apply,
+    embed_param_specs,
+    mlp_apply,
+    mlp_param_specs,
+    norm_param_specs,
+    remat,
+    unembed_apply,
+)
+
+
+def _layout(cfg: ModelConfig):
+    """(n_groups, per_group): each group is ``per_group`` self layers,
+    then one cross layer."""
+    q = cfg.cross_attn_period
+    return cfg.num_layers // q, q - 1
+
+
+# ------------------------------------------------------------------ params
+
+def cross_layer_param_specs(cfg: ModelConfig):
+    return {
+        "ln1": norm_param_specs(cfg),
+        "attn": attn_param_specs(cfg),
+        "gate_attn": spec((), (), "zeros", dtype=torch.float32),
+        "ln2": norm_param_specs(cfg),
+        "mlp": mlp_param_specs(cfg, cfg.d_ff),
+        "gate_mlp": spec((), (), "zeros", dtype=torch.float32),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    n_groups, per_group = _layout(cfg)
+    return {
+        "embed": embed_param_specs(cfg),
+        "self_layers": stack_specs(
+            stack_specs(tf.layer_param_specs(cfg), per_group), n_groups),
+        "cross_layers": stack_specs(cross_layer_param_specs(cfg), n_groups),
+        "ln_f": norm_param_specs(cfg),
+    }
+
+
+# ----------------------------------------------------------------- forward
+
+def _gated(gate, x, out):
+    """x + tanh(gate) * out, the f32 tanh cast to x's dtype first."""
+    return x + torch.tanh(gate).to(x.dtype) * out
+
+
+def cross_layer_apply(p, cfg: ModelConfig, x, vision, positions,
+                      cross_kv=None):
+    """The gated cross layer: attention over ``vision`` (the prefill, K1
+    non-causal, no RoPE on either side) or over the precomputed
+    ``cross_kv`` (a decode step), then the MLP, each output scaled by its
+    gate. Returns (x, cross k/v)."""
+    h = apply_norm(p["ln1"], x, cfg)
+    if cross_kv is not None:
+        a = cross_decode(p["attn"], cfg, h, cross_kv["k"], cross_kv["v"])
+        kv = cross_kv
+    else:
+        a, kv = attn_apply(p["attn"], cfg, h, positions=positions,
+                           kv_x=vision, causal=False, use_rope=False)
+    x = _gated(p["gate_attn"], x, a)
+    m = mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], x, cfg))
+    return _gated(p["gate_mlp"], x, m), kv
+
+
+def group_apply(p_group, p_cross, cfg: ModelConfig, x, vision, positions,
+                with_kv: bool):
+    """One group: its self layers (``p_group``, stacked), then the cross
+    layer. Returns (x[, self k and v stacked (per_group, B, S, K, D),
+    the cross k/v])."""
+    ks, vs = [], []
+    for layer in unstack(p_group):
+        x, _, kv = tf.layer_apply(layer, cfg, x, positions=positions,
+                                  window=0)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    x, ckv = cross_layer_apply(p_cross, cfg, x, vision, positions)
+    if with_kv:
+        return x, torch.stack(ks), torch.stack(vs), ckv
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, vision,
+            return_cache: bool = False):
+    """Teacher-forcing forward. tokens: (B, S); vision: (B, T_vis,
+    d_model) stubbed patch embeddings -> (logits, aux 0[, cache]). Without
+    a cache each group runs under ``remat``, as the reference's
+    ``jax.checkpoint(group_body)``; the prefill that builds a cache never
+    needs a gradient and runs directly."""
+    b, s = tokens.shape
+    x = embed_apply(params["embed"], cfg, tokens)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    ks, vs, cks, cvs = [], [], [], []
+    for p_group, p_cross in zip(unstack(params["self_layers"]),
+                                unstack(params["cross_layers"])):
+        if return_cache:
+            x, k, v, ckv = group_apply(p_group, p_cross, cfg, x, vision,
+                                       positions, True)
+            ks.append(k)
+            vs.append(v)
+            cks.append(ckv["k"])
+            cvs.append(ckv["v"])
+        else:
+            x = remat(cfg, group_apply, p_group, p_cross, cfg, x, vision,
+                      positions, False)
+    x = apply_norm(params["ln_f"], x, cfg)
+    logits = unembed_apply(params["embed"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if return_cache:
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "cross_k": torch.stack(cks), "cross_v": torch.stack(cvs),
+                 "pos": s}
+        return logits, aux, cache
+    return logits, aux
+
+
+# ------------------------------------------------------------------ decode
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    n_groups, per_group = _layout(cfg)
+    k, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv = spec((n_groups, per_group, batch, max_len, k, hd),
+              ("layers", None, "cache_batch", "cache_seq", "kv_heads",
+               "cache_hd"), "zeros")
+    ckv = spec((n_groups, batch, cfg.vision_seq, k, hd),
+               ("layers", "cache_batch", None, "kv_heads", "cache_hd"),
+               "zeros")
+    return {"k": kv, "v": kv, "cross_k": ckv, "cross_v": ckv}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """One decode step. tokens: (B, 1); the self-attention cache is
+    written in place at ``cache["pos"]``, the cross K/V only read. Returns
+    (logits, cache with pos + 1)."""
+    b = tokens.shape[0]
+    pos = int(cache["pos"])
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=tokens.device)
+    x = embed_apply(params["embed"], cfg, tokens)
+    for g, (p_group, p_cross) in enumerate(zip(
+            unstack(params["self_layers"]), unstack(params["cross_layers"]))):
+        for j, layer in enumerate(unstack(p_group)):
+            x, _, _ = tf.layer_apply(
+                layer, cfg, x, positions=positions, window=0,
+                cache={"k": cache["k"][g][j], "v": cache["v"][g][j]},
+                cache_pos=pos)
+        x, _ = cross_layer_apply(
+            p_cross, cfg, x, None, positions,
+            cross_kv={"k": cache["cross_k"][g], "v": cache["cross_v"][g]})
+    x = apply_norm(params["ln_f"], x, cfg)
+    logits = unembed_apply(params["embed"], cfg, x)
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "cross_k": cache["cross_k"],
+                    "cross_v": cache["cross_v"], "pos": pos + 1}

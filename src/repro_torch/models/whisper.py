@@ -24,12 +24,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels import ops as kops
 from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
     apply_norm,
     attn_apply,
     attn_param_specs,
+    cross_decode,
     embed_apply,
     embed_param_specs,
     mlp_apply,
@@ -108,20 +108,6 @@ def encode(params, cfg: ModelConfig, frames):
 
 # ----------------------------------------------------------------- decoder
 
-def _cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
-    """The decode step's cross-attention over the precomputed encoder K/V
-    (``repro/models/whisper.py:104-115``): q alone is projected, scaled by
-    head_dim^-1/2 (not ``cfg.attn_scale``), over every key, non-causal and
-    with no cap: K2 at ``pos = T_enc - 1``."""
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    out = kops.decode_attention(q[:, 0], cross_k, cross_v,
-                                cross_k.shape[1] - 1,
-                                scale=cfg.resolved_head_dim ** -0.5)
-    return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
-
-
 def dec_layer_apply(p, cfg: ModelConfig, x, enc_out, positions, cache=None,
                     cache_pos=None, cross_kv=None):
     """One decoder layer: causal self-attention (written into ``cache`` at
@@ -135,8 +121,8 @@ def dec_layer_apply(p, cfg: ModelConfig, x, enc_out, positions, cache=None,
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
     if cross_kv is not None:
-        c = _cross_decode(p["cross_attn"], cfg, h, cross_kv["k"],
-                          cross_kv["v"])
+        c = cross_decode(p["cross_attn"], cfg, h, cross_kv["k"],
+                         cross_kv["v"])
         ckv = cross_kv
     else:
         c, ckv = attn_apply(p["cross_attn"], cfg, h, positions=positions,

@@ -280,6 +280,102 @@ def test_whisper_generate_launches_only_the_kernels(dev, monkeypatch):
     assert toks.shape == (2, 4) and bool(torch.isfinite(logps).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,causal", [(16, 128, 128, True),
+                                          (16, 128, 1601, False)])
+def test_flash_attention_at_vision_shapes(dev, b, s, t, causal, dtype):
+    """llama-3.2-vision-90b's K1 launches (GQA 64:8, g = 8, D = 128): the
+    self-attention prefill, causal at S = T = 128, and the cross-attention
+    prefill, non-causal at S = 128 over the T = 1,601 patch keys, a T no
+    key tile divides; q at 3x unit scale."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = (3 * torch.randn((b, s, 64, 128), generator=gen,
+                         device=dev)).to(dtype)
+    k = _randn(gen, (b, t, 8, 128), dtype, dev)
+    v = _randn(gen, (b, t, 8, 128), dtype, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        out.float(),
+        ref.ref_attention(q, k.repeat_interleave(8, 2),
+                          v.repeat_interleave(8, 2), causal=causal).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,pos", [(1601, 1600), (1601, 800), (192, 191)])
+def test_decode_attention_at_vision_shapes(dev, t, pos, dtype):
+    """llama-3.2-vision-90b's K2 launches (GQA 64:8, D = 128) on the slices
+    the model hands it: the cross decode over one group's ``cross_k[g]``
+    of a stacked (G, B, 1601, K, D) cache (1,601 keys, not a multiple of
+    K2's 16-key chunk) at pos 1,600 (every key, the decode's) and 800; the
+    self decode over one layer's ``k[g][j]`` of a (G, per_group, B, 192, K,
+    D) cache at its last step. q at 3x unit scale."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = (3 * torch.randn((16, 64, 128), generator=gen, device=dev)).to(dtype)
+    lead = (2,) if t == 1601 else (2, 2)
+    kc = _randn(gen, lead + (16, t, 8, 128), dtype, dev)
+    vc = _randn(gen, lead + (16, t, 8, 128), dtype, dev)
+    for idx in ((0,), (1,)) if t == 1601 else ((0, 1), (1, 0)):
+        k, v = kc[idx], vc[idx]
+        assert k.is_contiguous() and k.data_ptr() % 16 == 0
+        before = ops.LAUNCHES["decode_attention"]
+        out = ops.decode_attention(q, k, v, pos, scale=128 ** -0.5)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["decode_attention"] == before + 1
+        torch.testing.assert_close(
+            out.float(), ref.ref_decode_attention(q, k, v, pos).float(),
+            **TOL[dtype])
+
+
+def test_vision_generate_launches_only_the_kernels(dev, monkeypatch):
+    """A llama-3.2-vision-90b rollout at full width cut to one group (4
+    self layers and the gated cross layer, gates 1.0) over 1,601 patch
+    embeddings, with SDPA patched to raise: exactly 5 K1 launches (4 self
+    prefills and the cross prefill) and 5 K2 a decode step, finite
+    logprobs, and logits that change with the patch embeddings."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import rollout
+
+    def refuse(*a, **k):
+        raise AssertionError("a library attention on the vision path")
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", refuse)
+    cfg = get_config("llama-3.2-vision-90b").replace(num_layers=5)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = model.init_params(gen, dev)
+    for g in ("gate_attn", "gate_mlp"):
+        params["cross_layers"][g].fill_(1.0)
+    # each row's patches share a component: at the seeded init every key
+    # weighs alike, and the mean of independent patches' values is too
+    # small to move the logits (chip_smoke.py phase 28)
+    vision = (torch.randn((2, 1601, 8192), generator=gen, device=dev)
+              + torch.randn((2, 1, 8192), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    prompt = torch.randint(3, cfg.vocab_size, (2, 16), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        toks, logps, _ = rollout.rollout(
+            model, params, prompt, gen,
+            rollout.RolloutConfig(max_new_tokens=4, greedy=True),
+            extra_inputs={"vision": vision})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == {"flash_attention": 5,
+                                "decode_attention": 20, "ssd": 0}
+        assert toks.shape == (2, 4) and bool(torch.isfinite(logps).all())
+        other = model.forward(params, {"tokens": prompt,
+                                       "vision": -vision})[0]
+        same = model.forward(params, {"tokens": prompt, "vision": vision})[0]
+    assert float((other - same).abs().max()) > \
+        2.0 ** -6 * float(same.abs().max())
+
+
 @pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 200])
 @pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("h,kh,window,softcap", [

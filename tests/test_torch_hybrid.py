@@ -177,7 +177,7 @@ def test_prefill_caches_and_teacher_forced_decode_match_jax(jax_scan,
 
 
 def _held_tokens(jm, jp, tm, tp, prompts, jtok, ttok, jextra=None,
-                 textra=None):
+                 textra=None, op_by_op=True):
     """Hold greedy tokens against JAX's. Both models are teacher-forced on
     JAX's tokens: at every step where JAX's top-2 logit margin is above the
     logit tolerance the port's logits pick JAX's token, and at every step
@@ -186,10 +186,11 @@ def _held_tokens(jm, jp, tm, tp, prompts, jtok, ttok, jextra=None,
     margin is within the tolerance, to a token within the tolerance of
     JAX's top; the row's later tokens then continue another sequence and
     are not compared. ``jextra`` / ``textra``: each side's inputs beside
-    the tokens (whisper's frames). Prints each parting; returns the number
-    of steps whose choice the tolerance decides."""
+    the tokens (whisper's frames). ``op_by_op``: JAX's forward under
+    ``jax.disable_jit``, else as ``jm.forward`` runs. Prints each parting;
+    returns the number of steps whose choice the tolerance decides."""
     seq = np.concatenate([prompts, jtok[:, :-1]], 1)
-    with jax.disable_jit():
+    with jax.disable_jit(op_by_op):
         jl = _np(jm.forward(jp, {"tokens": jnp.asarray(seq),
                                  **(jextra or {})})[0])
     tl = _np(tm.forward(tp, {"tokens": torch.from_numpy(seq).long(),

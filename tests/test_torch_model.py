@@ -21,6 +21,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as j_reduced_config
 from repro.models import layers as jl
 from repro.models.common import canonical_flat as j_canonical_flat
+from repro.models.common import canonical_unflatten as j_canonical_unflatten
 from repro.models.registry import build_model as j_build_model
 from repro.rl.rollout import _pad_cache as j_pad_cache
 from repro_torch.configs import get_config, reduced_config
@@ -174,21 +175,65 @@ def test_seeded_init_is_deterministic_and_keyed_like_jax():
     assert m.param_count() == sum(a.size for a in flat.values())
 
 
-@pytest.mark.parametrize("name,field", [
-    ("llama-3.2-vision-90b", "vision")])
-def test_unported_configs_raise_naming_the_roadmap(name, field):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        build_model(get_config(name)).param_specs()
-    assert field in str(e.value)
+def test_full_vision_builds_with_the_reference_param_count():
+    """llama-3.2-vision-90b, which raised until the vlm family was ported:
+    the full config's specs build, with the stacked self layers, the cross
+    layers and their f32 gates, and count the reference's 87,666,794,536
+    parameters."""
+    m = build_model(get_config("llama-3.2-vision-90b"))
+    specs = common.canonical_flat(m.param_specs())
+    assert specs["self_layers/attn/wq"].shape == (20, 4, 8192, 64, 128)
+    assert specs["cross_layers/attn/wk"].shape == (20, 8192, 8, 128)
+    assert specs["cross_layers/gate_attn"].shape == (20,)
+    assert specs["cross_layers/gate_mlp"].dtype == torch.float32
+    assert m.param_count() == j_build_model(
+        jax_get_config("llama-3.2-vision-90b")).param_count() \
+        == 87_666_794_536
 
 
-def test_layer_norm_decoder_only_config_raises_naming_vision():
-    """A decoder-only config with a layer norm is the vision family's, not
-    ported: the transformer module says so."""
-    cfg = reduced_config("qwen2-0.5b").replace(norm="layernorm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        build_model(cfg).param_specs()
-    assert "vision" in str(e.value) and "whisper" not in str(e.value)
+def test_layer_norm_decoder_only_config_matches_jax():
+    """A decoder-only config with a layer norm, which the transformer
+    module refused until the pieces it needs were ported (the layer norm
+    and the plain biased MLP, with whisper): qwen2's reduced config with
+    ``norm="layernorm"``, its prefill and teacher-forced decode logits
+    against the reference's transformer, the biases seeded nonzero."""
+    cfg = CFG.replace(norm="layernorm")
+    jm = j_build_model(j_reduced_config("qwen2-0.5b").replace(
+        norm="layernorm"))
+    jp = jm.init_params(jax.random.PRNGKey(11))
+    flat = {k: np.asarray(v) for k, v in
+            j_canonical_flat(jp, is_leaf=lambda x: hasattr(x, "shape")).items()}
+    assert {"layers/mlp/bi", "layers/ln1/bias", "ln_f/bias"} <= set(flat)
+    rng = np.random.default_rng(12)
+    for k in flat:
+        if k.endswith("bias") or k.endswith("/bi") or k.endswith("/bo"):
+            flat[k] = (rng.standard_normal(flat[k].shape) * 0.1).astype(
+                flat[k].dtype)
+    jp = j_canonical_unflatten(jp, {k: jnp.asarray(v) for k, v in flat.items()})
+    tm = build_model(cfg)
+    tp = convert.params_from_reference(flat, cfg)
+    b, p, n = 2, 12, 4
+    prompt = rng.integers(0, CFG.vocab_size, (b, p)).astype(np.int32)
+    forced = rng.integers(0, CFG.vocab_size, (b, n)).astype(np.int32)
+
+    def check(j, t):
+        j = np.asarray(j)
+        atol = 2.0 ** -6 * np.abs(j).max()
+        np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=atol)
+
+    jlog, _, jc = jax.jit(lambda pp, tok: jm.forward(
+        pp, {"tokens": tok}, return_cache=True))(jp, jnp.asarray(prompt))
+    tlog, _, tc = tm.forward(tp, {"tokens": torch.from_numpy(prompt).long()},
+                             return_cache=True)
+    check(jlog, tlog)
+    jdec = jax.jit(lambda pp, c, tok: jm.decode_step(pp, c, {"tokens": tok}))
+    jc, tc = j_pad_cache(jc, n), _pad_cache(tc, n)
+    for i in range(n):
+        tok = forced[:, i:i + 1]
+        jlog, jc = jdec(jp, jc, jnp.asarray(tok))
+        tlog, tc = tm.decode_step(tp, tc,
+                                  {"tokens": torch.from_numpy(tok).long()})
+        check(jlog, tlog)
 
 
 def test_full_whisper_builds_with_the_reference_param_count():

@@ -259,6 +259,7 @@ def test_port_imports_and_serves_without_jax_or_reference_package():
         "            '2', '--d-model', '128', '--rounds', '2'])",
         "assert 'repro_torch.models.hybrid' in names, names",
         "assert 'repro_torch.models.moe' in names, names",
+        "assert 'repro_torch.models.vision' in names, names",
     ])
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
