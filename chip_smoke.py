@@ -53,9 +53,10 @@ Phases (any failure raises and the process exits non-zero):
 5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
    logits on the card against the same parameters through the plain
    versions on the CPU;
-6. the serving path at full mamba2-2.7b width and depth, as phase 4, on a
-   new Router once the qwen2 one is released;
-7. whole-path parity for mamba2-2.7b, as phase 5, at full depth;
+6. the serving path at full mamba2-2.7b width, its depth cut to 32 of 64
+   layers, as phase 4, on a new Router once the qwen2 one is released;
+7. whole-path parity for mamba2-2.7b, as phase 5, at full width cut to
+   32 of its 64 layers;
 8. the GRPO training path at full qwen2-0.5b width and depth, on a new
    ``PlexCluster`` once the mamba2 router is released: jobs A and B
    (``RLControllerGRPO``) on group 0, two steps each (generate -> pack ->
@@ -71,19 +72,19 @@ Phases (any failure raises and the process exits non-zero):
    (the gradient is non-zero, the moments change, the job's tensors are
    updated in place) and one more under the profiler;
 9. training parity: one ``update_actor`` on the card against the same
-   one on the CPU's plain path, at full width and 4 layers (the tied
+   one on the CPU's plain path, at full width, 4 layers and B=2 (the tied
    embedding scaled by 1/64, so the random policy is not one-hot), and
    K1's autograd Function against plain autograd through the XLA-branch
    attention at the training shape;
-10. the serving path at full zamba2-7b width and depth (81 blocks: K3 in
-    each of the 70 Mamba2 blocks' prefill, K1 in each of the 11
-    applications of the shared attention block, K2 in each application's
-    decode), as phase 6, once every earlier router and the pinned host
-    buffers they held are released;
+10. the serving path at full zamba2-7b width, its depth cut to 43 of 81
+    blocks (K3 in each of the 37 Mamba2 blocks' prefill, K1 in each of the
+    6 applications of the shared attention block, K2 in each
+    application's decode), as phase 6, once every earlier router and the
+    pinned host buffers they held are released;
 11. whole-path parity for zamba2-7b, as phase 5, at full width cut to 15
     blocks (2 applications, 1 trailing block) for the CPU side;
 12. the training entry point: ``python -m repro_torch.launch.train`` at
-    full qwen2-0.5b width and depth (two jobs, two steps each) in a child
+    full qwen2-0.5b width, 6 of its 24 layers (two jobs, two steps each), in a child
     process on its default device, the card, with the kernels' launch
     counts set to 0 before it and printed after, and ``--ckpt-dir`` under a
     temporary directory: what it wrote after the run is listed;
@@ -94,16 +95,18 @@ Phases (any failure raises and the process exits non-zero):
     retires the profiling group and spawns one for a third job; every job
     completes, its bill equals its exec logs, and ``remove_job`` returns
     the third job's bytes to the card;
-14. phase 8 for mamba2-2.7b at full width and depth (K3 under its
-    autograd Function in every update_actor's forward: 64 launches a
-    generate and 64 an update, none of K1 or K2), once the host's
-    ``MemTotal`` and ``MemAvailable`` are printed and shown to hold both
-    jobs' pinned train state (27,025,822,724 B a job, which every switch
-    moves);
+14. phase 8 for mamba2-2.7b at full width, its depth cut to 16 of 64
+    layers (K3 under its autograd Function in every update_actor's
+    forward: 16 launches a generate and 32 an update under remat, none of
+    K1 or K2), once the host's ``MemTotal`` and ``MemAvailable`` are
+    printed and shown to hold both jobs' pinned train state (which every
+    switch moves);
 15. training parity for the ssm and hybrid families: one update_actor on
-    the card against the CPU's plain path, mamba2-2.7b at 4 layers and
-    zamba2-7b at 8 blocks and B=2 (one application of the shared block
-    between Mamba2 blocks), full width, the CPU side without remat; then K3's Function against plain autograd
+    the card against the CPU's plain path at B=2, mamba2-2.7b at 4 layers
+    and zamba2-7b at 8 blocks over 64 tokens (one application of the
+    shared block between Mamba2 blocks), full width, the CPU side without
+    remat; then
+    K3's Function against plain autograd
     through ``ssd_chunked`` at the training shape (B=16 S=128 H=80 P=64
     N=128) and K3's timing there (the record's ``training`` row);
 16. PPO: a PPO job (actor and critic) and a GRPO job of qwen2-0.5b at full
@@ -119,45 +122,45 @@ Phases (any failure raises and the process exits non-zero):
     state to DISK and back, one ``host_capacity`` eviction to DISK, then
     ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
     on the card; the temporary files are removed at the end;
-18. the process plane: phase 8's two jobs on two groups through
+18. the process plane: phase 8's two jobs, cut to 8 of the 24 layers,
+    on two groups through
     ``PlexCluster.run(concurrent=True)``, first in thread mode (one step
     each, exact launches and bills), then with
     each group's WPGs in a spawned child process on the same card
     (``process_plane=True``): every op runs in its group's child, with
     exact K1 and K2 launches read there, every op billed, both wall times
     and a child's CUDA-context memory printed; then a bit-exact
-    cross-child SYNC_WEIGHTS (0.99 GB), job B's 4.94 GB train state moved
-    live to the other child over /dev/shm and back through the disk-spill
+    cross-child SYNC_WEIGHTS, job B's train state moved live to the other
+    child over /dev/shm and back through the disk-spill
     route (bit-exact each way), and group 1's child killed with SIGKILL
     mid-generate: the op fails naming the group, its dependent is
     poisoned, the card memory comes back, the ops done before stay
     billed, the respawn leaves no segment or spill file, and the job
     restores the checkpoint it saved through the op path and takes one
     more step; ``close_processes`` leaves no child and no segment;
-19. the MoE serving path: one Qwen3-30B-A3B job at full width and depth
-    (61,089,411,072 B of parameters on the card) through Router -> WPG
-    -> rollout, INIT then two generates (B=16, prompt 256, 64 new, the
-    last under the profiler), each with exactly 48 K1 and 3,072 K2
-    launches and a peak under 80 GB, the prefill's capacity drops
-    counted;
+19. the MoE serving path: one Qwen3-30B-A3B job at full width, its
+    depth cut to 24 of 48 layers, through Router -> WPG -> rollout, INIT
+    then two generates (B=16, prompt 256, 64 new, the last under the
+    profiler), each with exactly 24 K1 and 1,536 K2 launches and a peak
+    under 80 GB, the prefill's capacity drops counted;
 20. whole-path parity for Qwen3-30B-A3B at full width cut to 2 layers,
     as phase 5 at B=16, with the routing recorded on both sides: every
     flip must be a near-tie of the router's logits, the flips few, and
     the logits are held where the routing agreed;
-21. phase 8 for granite-moe-3b-a800m at full width and depth, once the
-    host is shown to hold both jobs' pinned train state (32,991,866,884 B
-    a job, which every switch moves, the f32 router and moments
-    bit-exact across it): exactly 256 K1 and 8,192 K2 launches over the
-    four steps, every op billed, and the seeded update moves the router
-    and expert leaves in place;
-22. training parity for granite at full width and 4 layers, as phase 9,
+21. phase 8 for granite-moe-3b-a800m at full width, its depth cut to 8
+    of 32 layers, once the host is shown to hold both jobs' pinned train
+    state (which every switch moves, the f32 router and moments bit-exact
+    across it): exactly 96 K1 and 2,048 K2 launches over the four steps,
+    every op billed, and the seeded update moves the router and expert
+    leaves in place;
+22. training parity for granite at full width, 4 layers and B=2, as phase 9,
     the MoE aux loss included;
-23. the gemma2 serving path: one gemma2-27b job at full width and depth
-    (54,454,256,640 B of parameters on the card) through Router -> WPG ->
-    rollout, INIT then two generates at B=16 prompt 128 (the last
+23. the gemma2 serving path: one gemma2-27b job at full width, its depth
+    cut to 24 of 46 layers (12 local/global pairs), through Router -> WPG
+    -> rollout, INIT then two generates at B=16 prompt 128 (the last
     under the profiler) and one at B=1 prompt 4352, where the local
     layers' 4096-key window cuts in K1's prefill and in every K2 step;
-    each with exactly 46 K1 and 2,944 K2 launches and a peak under 80 GB;
+    each with exactly 24 K1 and 1,536 K2 launches and a peak under 80 GB;
 24. whole-path parity for gemma2-27b at full width cut to 2 layers (one
     local, one global), as phase 5 at B=2 prompt 128, then at B=1 prompt
     4352: on the CPU where the first check's CPU side predicts it within
@@ -165,32 +168,48 @@ Phases (any failure raises and the process exits non-zero):
     in place of K1 and K2; the logits are held before the final softcap,
     where they are a bf16 product, as phase 5 holds every other model's;
 25. the audio serving path, as phase 4: two whisper-large-v3 jobs at
-    full width and depth (3,070,438,400 B of parameters each), each
-    ``generate`` given bf16 frames (B=16, 1500, 1280) through
-    ``extra_inputs`` (B=16, prompt 128, 64 new): each with exactly 96 K1
-    (encoder, decoder self- and cross-attention prefill) and 4,096 K2
+    full width, their depth cut to 16 of 32 encoder and 16 of 32 decoder
+    layers, each ``generate`` given bf16 frames (B=16, 1500, 1280) through
+    ``extra_inputs`` (B=16, prompt 128, 64 new): each with exactly 48 K1
+    (encoder, decoder self- and cross-attention prefill) and 2,048 K2
     (self- and cross-attention decode) launches and a peak under 80 GB;
 26. whole-path parity for whisper-large-v3 at full width cut to 2
     encoder and 2 decoder layers, as phase 5 over frames at the real
     encoder_seq of 1500, the bound counting both stacks' layers;
 27. the vlm serving path, as phase 4 with one job: llama-3.2-vision-90b
-    at full width, its depth cut to 35 of 100 layers (7 groups of 4
-    self-attention layers and a gated cross-attention layer; 64,098,517,048
-    B of parameters on the card), both gates of every cross layer written
+    at full width, its depth cut to 20 of 100 layers (4 groups of 4
+    self-attention layers and a gated cross-attention layer), both gates of every cross layer written
     to 1.0 after INIT through ``StateManager.write`` (zero at init, they
     hide the cross path), then three generates (B=16, prompt 128 of seeded
     ids, 64 new, the last under the profiler), each given its own bf16
     patch embeddings (16, 1601, 8192) at the reference's ``dummy_batch``
-    scale through ``extra_inputs``: each with exactly 35 K1 (28 self, 7
-    cross prefill) and 2,240 K2 (1,792 self, 448 cross decode) launches
+    scale through ``extra_inputs``: each with exactly 20 K1 (16 self, 4
+    cross prefill) and 1,280 K2 (1,024 self, 256 cross decode) launches
     and a peak under 80 GB;
 28. whole-path parity for llama-3.2-vision-90b at full width cut to one
     group (4 self layers and the cross layer, gates 1.0), as phase 5 over
     unit-scale patch embeddings at the real vision_seq of 1601 (each
     row's sharing a component), after a check on the card that the cross
-    path moves the logits.
+    path moves the logits;
+29. the cost model on the card: qwen2-0.5b's prefill (B=16 S=128), one
+    decode step (T=192, pos=191) and one ``update_actor`` at phase 8's
+    packed batch, at full width and depth, and mamba2-2.7b's prefill
+    (B=16 S=512, phase 6's K3) at full width cut to 4 layers, each
+    through ``launch/hlo_cost`` once on the card and once on ``meta``
+    tensors: their FLOPs, bytes, ops and per-kernel launches and work
+    equal exactly, each kernel's counted launches equal the change in
+    ``LAUNCHES``, K1's, K2's and K3's work a launch is PERF.md's bound
+    column; then each step under the profiler, its counted FLOPs over the
+    device busy time printed as a share of the 989 TFLOP/s bf16 peak;
+30. the port's examples on the card: ``quickstart`` whole,
+    ``cluster_sim``, ``multiplex_rlvr``'s Parts 1-2 through its
+    ``run(...)`` and ``train_100m --steps 2`` in a child process, each
+    with its seconds and launch counts.
 
-Each phase prints its seconds.
+Each phase prints its seconds, and its start to the standard error. The
+earlier paths' depth is cut where a phase's time would otherwise crowd the
+run's 1,200 s: every kernel is still checked against its plain version at
+the paths' shapes and every path's launches are still counted.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -217,9 +236,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# published H100 SXM peaks: HBM3 bandwidth and dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 BF16_TOL = 5e-2           # rtol = atol, as tests/test_kernels.py for bf16
 L2_BYTES = 50 * 2 ** 20   # rotate inputs past the L2 cache when timing
 
@@ -240,32 +256,37 @@ DECODE_LONG = ((16, 4096), (1, 8192))
 Q_SCALE = 3.0
 
 # the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
-# heads of width 64, state 128, chunk 256, 64 layers
+# heads of width 64, state 128, chunk 256, 64 layers. Phase 6 serves it at
+# full width cut to 32 of them, phase 14 trains it cut to 16
 SSM_ARCH = "mamba2-2.7b"
 SSM_P = 512
 SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
-SSM_LAYERS = 64
+SSM_LAYERS = 32             # phase 6's depth, half the model's
+SSM_PARITY_LAYERS = 32      # phase 7's depth
+SSM_TRAIN_LAYERS = 16       # phase 14's depth, a quarter of the model's
 
 # the zamba2 serving path's shapes (batch 16, prompt 512, 64 new): 81 blocks,
 # 11 applications of the shared attention block (32 heads of width 112,
-# MHA) and 70 Mamba2 blocks (112 SSD heads of width 64, state 64, chunk 256);
-# its parity phase cuts depth to 15 blocks (2 applications, 1 trailing block)
+# MHA) and 70 Mamba2 blocks (112 SSD heads of width 64, state 64, chunk 256).
+# Phase 10 serves it at full width cut to 43 blocks (6 applications, 37
+# Mamba2 blocks, 1 trailing); its parity phase cuts depth to 15 blocks (2
+# applications, 1 trailing block)
 HYB_ARCH = "zamba2-7b"
 HYB_P = 512
 HYB_H, HYB_D = 32, 112
 HYB_SSM_H, HYB_SSM_N = 112, 64
-HYB_APPS, HYB_MAMBA = 11, 70
+HYB_LAYERS = 43
 HYB_PARITY_LAYERS = 15
 
 
-# the MoE serving path (phase 19): Qwen3-30B-A3B at full width and depth,
-# one job (batch 16, prompt 256, 64 new): 48 layers of 32 query heads and 4
-# KV heads of width 128, 128 experts top-8; its parity phase (20) cuts depth
-# to 2 layers
+# the MoE serving path (phase 19): Qwen3-30B-A3B at full width, its depth
+# cut to 24 of 48 layers, one job (batch 16, prompt 256, 64 new): 32 query
+# heads and 4 KV heads of width 128, 128 experts top-8; its parity phase
+# (20) cuts depth to 2 layers
 MOE_ARCH = "paper-qwen3-30b-a3b"
 MOE_P = 256
 MOE_H, MOE_KH, MOE_D = 32, 4, 128
-MOE_LAYERS = 48
+MOE_LAYERS = 24
 MOE_ROUNDS = 2
 MOE_PARITY_LAYERS = 2
 MOE_PARITY_B = 16
@@ -276,22 +297,23 @@ MOE_PARITY_B = 16
 # (PERF.md)
 MOE_FLIP_SHARE = 2.5e-3
 # the MoE training path (phase 21): phase 8's two GRPO jobs of granite at
-# full width and depth (32 layers of 24 query heads and 8 KV heads of width
-# 64, 40 experts top-8); its parity phase (22) cuts depth to 4 layers
+# full width (24 query heads and 8 KV heads of width 64, 40 experts top-8),
+# its depth cut to 8 of 32 layers; its parity phase (22) cuts depth to 4
+# layers
 GRANITE_ARCH = "granite-moe-3b-a800m"
 GRANITE_H, GRANITE_KH, GRANITE_D = 24, 8, 64
-GRANITE_LAYERS = 32
+GRANITE_LAYERS = 8
 
-# the gemma2 serving path (phase 23): gemma2-27b at full width and depth,
-# one job: 46 layers in pairs of a local layer (a 4096-key window) and a
-# global one, 32 query heads and 16 KV heads of width 128, the attention
+# the gemma2 serving path (phase 23): gemma2-27b at full width, its depth
+# cut to 24 of 46 layers, one job: pairs of a local layer (a 4096-key
+# window) and a global one, 32 query heads and 16 KV heads of width 128, the attention
 # softcap 50 and scale (4608 / 32)^-1/2 = 1/12; rounds at B=16 prompt 128,
 # then one at B=1 prompt 4352 (T = 4416), where the window cuts in K1's
 # prefill and in every K2 step. Its parity phase (24) cuts depth to one
 # pair, at B=2 prompt 128, and once more at B=1 prompt 4352
 GEMMA_ARCH = "gemma2-27b"
 GEMMA_H, GEMMA_KH, GEMMA_D = 32, 16, 128
-GEMMA_LAYERS = 46
+GEMMA_LAYERS = 24
 GEMMA_WINDOW, GEMMA_CAP, GEMMA_SCALE = 4096, 50.0, 1 / 12
 GEMMA_P, GEMMA_ROUNDS, GEMMA_LONG_P = 128, 2, 4352
 GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 2
@@ -300,30 +322,31 @@ GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 2
 # else against the card's plain attention
 GEMMA_CPU_LONG_S = 120.0
 
-# the whisper serving path (phase 25): whisper-large-v3 at full width and
-# depth, two jobs on one group: 32 encoder layers over 1,500 frames and 32
-# decoder layers, 20 heads of width 64 (MHA), prompt 128, 64 new; 96 K1 (32
-# each of the encoder, the decoder's self-attention and its cross-attention
-# prefill) and 2 x 32 x 64 K2 (self and cross) a generate. A switch moves
-# the 3,070,438,400 B of bf16 parameters. Its parity phase (26) cuts depth
-# to 2 encoder and 2 decoder layers
+# the whisper serving path (phase 25): whisper-large-v3 at full width, its
+# depth cut to 16 of its 32 encoder layers (over 1,500 frames) and 16 of its
+# 32 decoder layers, two jobs on one group: 20 heads of width 64 (MHA),
+# prompt 128, 64 new; 48 K1 (16 each of the encoder, the decoder's
+# self-attention and its cross-attention prefill) and 2 x 16 x 64 K2 (self
+# and cross) a generate. The full model holds 3,070,438,400 B of bf16
+# parameters; a switch moves the cut one's. Its parity phase (26) cuts
+# depth to 2 encoder and 2 decoder layers
 WHISPER_ARCH = "whisper-large-v3"
 WHISPER_H, WHISPER_D, WHISPER_T = 20, 64, 1500
-WHISPER_LAYERS, WHISPER_P = 32, 128
+WHISPER_LAYERS, WHISPER_P = 16, 128
 WHISPER_BYTES = 3_070_438_400
 WHISPER_FRAME_SCALE = 0.02      # the reference's dummy_batch
 WHISPER_PARITY_LAYERS = 2
 
 # the vlm serving path (phase 27): llama-3.2-vision-90b at full width, its
-# depth cut to 35 of 100 layers (a multiple of the cross_attn_period of 5;
-# at 40 the parameters' 72.66 GB would leave too little of the 80 GB for a
-# round's transients), one job: 7 groups of 4 self layers and a gated cross
-# layer, 64 query heads and 8 KV heads of width 128, the cross layers over
-# 1,601 patch embeddings; prompt 128, 64 new; 35 K1 and 35 x 64 K2 a
-# generate. Its parity phase (28) cuts depth to one group
+# depth cut to 20 of 100 layers (a multiple of the cross_attn_period of 5;
+# the full model's parameters would not fit the 80 GB), one job: 4 groups
+# of 4 self layers and a gated cross layer, 64 query heads and 8 KV heads
+# of width 128, the cross layers over 1,601 patch embeddings; prompt 128,
+# 64 new; 20 K1 and 20 x 64 K2 a generate. Its parity phase (28) cuts
+# depth to one group
 VISION_ARCH = "llama-3.2-vision-90b"
 VISION_H, VISION_KH, VISION_D, VISION_T = 64, 8, 128, 1601
-VISION_LAYERS, VISION_PERIOD, VISION_P = 35, 5, 128
+VISION_LAYERS, VISION_PERIOD, VISION_P = 20, 5, 128
 VISION_SCALE = 0.02             # the reference's dummy_batch
 VISION_GATE = 1.0
 
@@ -332,25 +355,41 @@ VISION_GATE = 1.0
 TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
              seq_len=128, steps=2)
 TRAIN_OVERRIDES = ()
-PARITY_LAYERS, PARITY_B, PARITY_S = 4, 4, 128
+# phase 18's jobs: phase 8's at full width, cut to 8 of the 24 layers (a
+# generate still lasts long enough to be caught and killed mid-way)
+PROC_OVERRIDES = (("num_layers", 8),)
+# the training parity phases (9, 15, 22) at B=2: their CPU sides are the
+# script's slowest (zamba2's 38–42 s at B=4, the others 12–13 s)
+PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 128
 # phase 15's zamba2 parity: the fewest blocks (period 7) that hold one
-# application of the shared block with Mamba2 blocks on both sides
+# application of the shared block with Mamba2 blocks on both sides, over
+# 64 tokens (its CPU side, 28–30 s at 128, is the script's slowest)
 HYB_TRAIN_PARITY_LAYERS = 8
-# and its batch: its CPU side is the script's slowest (38–42 s at B=4)
-HYB_TRAIN_PARITY_B = 2
+HYB_TRAIN_PARITY_S = 64
 TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
 
-# phase 12: the training entry point at the full config (0 keeps the
-# config's own depth, width and vocab), phase 8's shapes
+# phase 12: the training entry point at full width (0 keeps the config's
+# own width and vocab), its depth cut to a quarter of the config's 24
+# layers, phase 8's shapes
+TRAIN_CLI_LAYERS = 6
 TRAIN_CLI = ["--arch", ARCH, "--jobs", "2", "--steps", "2", "--batch-size",
              "16", "--group-size", "4", "--max-new-tokens", "64",
-             "--seq-len", "128", "--layers", "0", "--d-model", "0",
-             "--vocab", "0"]
+             "--seq-len", "128", "--layers", str(TRAIN_CLI_LAYERS),
+             "--d-model", "0", "--vocab", "0"]
 # phase 13: the jobs the director places, phase 8's shapes with 16 new
 # tokens a step
 CP_STEPS = {"auto-a": 3, "auto-b": 3, "auto-c": 2}
 CP_NEW = 16
 MEM_TOL = 0.1e9            # remove_job's release, against the job's bytes
+
+
+# phase 29: the cost model's mamba2 step at full width cut to 4 layers;
+# the per-launch work of PERF.md's bound column, (FLOPs, bytes), at
+# qwen2-0.5b's prefill (K1), last decode step (K2) and mamba2's prefill (K3)
+COST_SSM_LAYERS = 4
+PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
+             "decode_attention": (11_010_048, 1_630_208),
+             "ssd": (53_812_920_320, 216_531_264)}
 
 
 def fail(msg: str):
@@ -410,12 +449,6 @@ def device_ms(torch, fn, arg_sets, reps: int) -> float:
 
 def n_sets(bytes_per_call: int) -> int:
     return max(2, math.ceil(2 * L2_BYTES / bytes_per_call))
-
-
-def bound(nbytes: int, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_close(torch, name, out, expect) -> float:
@@ -683,13 +716,16 @@ def flash_timing(torch, randn, b, s, h, kh, d, iters=200, *, t=None,
     ``flex_attention`` compiled (``flex_call``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import bound
 
     g = h // kh
     t = t or s
     kw = dict(causal=causal, **opts)
     window = opts.get("window", 0)
-    # q, k, v read once and the output written once, bf16
-    per_call = (2 * b * s * h * d + 2 * b * t * kh * d) * 2
+    # q, k, v read once and the output written once, bf16; a causal row i
+    # sees min(i + 1, window) keys, a non-causal one all T
+    flops, per_call = ops.flash_attention_work(b, s, t, h, kh, d, 2,
+                                               causal=causal, window=window)
     sets = [(Q_SCALE * randn(b, s, h, d), randn(b, t, kh, d),
              randn(b, t, kh, d)) for _ in range(n_sets(per_call))]
     q, k, v = sets[0]
@@ -719,10 +755,6 @@ def flash_timing(torch, randn, b, s, h, kh, d, iters=200, *, t=None,
         sets, max(4, iters // 4))
     d_kernel = device_ms(torch, kernel, sets, 20)
     t_lib, d_lib = library_times(torch, library, sets, iters, 20)
-    # a causal row i sees min(i + 1, window) keys, a non-causal one all T
-    keys = sum(min(i + 1, window or s) for i in range(s)) if causal \
-        else s * t
-    flops = 4 * b * h * d * keys
     t_bound, by = bound(per_call, flops)
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
           f"plain {t_plain} ms, {library.label} "
@@ -817,12 +849,14 @@ def decode_timing(torch, randn, b, t_cap, pos, iters, h=H, kh=KH, d=D,
     window."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import bound
 
     window = opts.get("window", 0)
     live = min(pos + 1, window or pos + 1)
     # q read and the output written once; K and V cache rows of the live
     # keys read once
-    per_call = (2 * b * h * d + 2 * b * live * kh * d) * 2
+    flops, per_call = ops.decode_attention_work(b, h, kh, d, pos, 2, 2,
+                                                window=window)
     sets = [(Q_SCALE * randn(b, h, d), randn(b, t_cap, kh, d),
              randn(b, t_cap, kh, d)) for _ in range(n_sets(per_call))]
     q, kc, vc = sets[0]
@@ -853,7 +887,6 @@ def decode_timing(torch, randn, b, t_cap, pos, iters, h=H, kh=KH, d=D,
         q, k, v, pos, **opts), sets, iters // 5)
     d_kernel = device_ms(torch, kernel, sets, reps)
     t_lib, d_lib = library_times(torch, library, sets, iters, reps)
-    flops = 4 * b * h * d * live
     t_bound, by = bound(per_call, flops)
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
           f"plain {t_plain} ms, {library.label} "
@@ -900,18 +933,6 @@ def decode_window_check(torch, randn):
     return dict(window=100, positions=[2912, 3090], max_abs_err=max(errs))
 
 
-def ssd_flops(b, s, h, p, n, chunk) -> int:
-    """Operations of the chunk scan, counting each chunk's causal half of
-    the scores: C.B and the scores times x over the pairs j <= i, the
-    carried state's C S, and the state update."""
-    total = 0
-    for t0 in range(0, s, chunk):
-        lc = min(chunk, s - t0)
-        pairs = lc * (lc + 1) // 2
-        total += 2 * pairs * (n + p) + 2 * 2 * lc * n * p
-    return b * h * total
-
-
 def ssd_kernel_phase(torch, dev):
     """K3 against ref_ssd at the mamba2 prefill shape, a ragged sequence and
     one shorter than a chunk, then at zamba2's prefill shape (state 64):
@@ -937,6 +958,7 @@ def ssd_timing(torch, gen, dev, h, n, cases):
     the first one beside its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import bound
 
     b, p = B, SSM_HD
 
@@ -969,9 +991,9 @@ def ssd_timing(torch, gen, dev, h, n, cases):
                  f"version")
         errs.append(y_err)
     s = cases[0][1]
-    # x, dt, B, C (and A) read once; y and the f32 final state written once
-    per_call = (2 * b * s * h * p * 2 + b * s * h * 4 + 2 * b * s * n * 2
-                + h * 4 + b * h * p * n * 4)
+    # x, dt, B, C (and A) read once; y and the f32 final state written
+    # once; the operations count each chunk's causal half of the scores
+    flops, per_call = ops.ssd_work(b, s, h, p, 1, n, SSM_CHUNK, 2, 2)
     sets = [inputs(s) for _ in range(n_sets(per_call))]
 
     def kernel(*a):
@@ -981,7 +1003,6 @@ def ssd_timing(torch, gen, dev, h, n, cases):
     t_plain = time_ms(torch, lambda *a: ref.ref_ssd(*a, chunk=SSM_CHUNK),
                       sets, 4)
     d_kernel = device_ms(torch, kernel, sets, 10)
-    flops = ssd_flops(b, s, h, p, n, SSM_CHUNK)
     t_bound, by = bound(per_call, flops)
     shape = f"B={b} S={s} H={h} P={p} N={n} chunk={min(SSM_CHUNK, s)}"
     print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
@@ -1387,7 +1408,7 @@ def train_phase(torch, dev, records, phase=8, arch=ARCH, overrides=None):
 
     overrides = TRAIN_OVERRIDES if overrides is None else overrides
     n_new = TRAIN["max_new_tokens"]
-    print(f"phase {phase}: GRPO training {arch} at full width and depth, "
+    print(f"phase {phase}: GRPO training {arch} at full width, "
           f"jobs A and B on group 0 ({TRAIN}, overrides {overrides}) "
           f"through PlexCluster.run(interleave=True)")
     cfg = get_config(arch).replace(**dict(overrides))
@@ -1562,10 +1583,10 @@ def check_bill(cluster, rec, wpgs, submitted, steps):
              f"logs' {logged} s")
 
 
-def update_parity(torch, dev, phase, arch, overrides, b=None):
+def update_parity(torch, dev, phase, arch, overrides, s=PARITY_S):
     """One update_actor of ``arch`` (cut by ``overrides``) on the card and
     on the CPU's plain path (without remat) from the same parameters and
-    a batch of ``b`` (default PARITY_B) rows: loss,
+    a batch of PARITY_B rows of ``s`` tokens: loss,
     pg_loss, kl and the MoE aux loss (0 without experts) within 5e-2,
     grad_norm within 5 %, each leaf's f32 mu within 5e-2 * max|mu|.
     Returns the worst |diff| / tolerance."""
@@ -1588,10 +1609,9 @@ def update_parity(torch, dev, phase, arch, overrides, b=None):
         spec, overrides=tuple(overrides) + (("remat", "none"),)),
         StateManager(), adamw_cfg=adamw)
     cfg = card.cfg
-    b = b or PARITY_B
     print(f"phase {phase}: training parity card vs CPU plain, {arch} at "
           f"full width cut to {cfg.num_layers} layers (depth only), "
-          f"B={b} S={PARITY_S}, AdamW {TRAIN_LR}"
+          f"B={PARITY_B} S={s}, AdamW {TRAIN_LR}"
           + (", tied embedding scaled by 1/64" if cfg.tie_embeddings
              else ""))
     # the seeded init's unit-scale tied embedding gives logits near 1e3
@@ -1608,7 +1628,7 @@ def update_parity(torch, dev, phase, arch, overrides, b=None):
     del params
     batch = seeded_train_batch(
         lambda b: card.execute(api.make_op(spec, api.Op.FORWARD, b)),
-        b, PARITY_S, PARITY_S // 2, 4)
+        PARITY_B, s, s // 2, 4)
     out = {}
     for where, w in (("card", card), ("cpu", cpu)):
         out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR, batch))
@@ -1690,7 +1710,7 @@ def ssm_parity_phase(torch, dev, records):
     release(torch, dev, "mamba2 parity WPGs")
     update_parity(torch, dev, 15, HYB_ARCH,
                   (("num_layers", HYB_TRAIN_PARITY_LAYERS),),
-                  b=HYB_TRAIN_PARITY_B)
+                  s=HYB_TRAIN_PARITY_S)
     release(torch, dev, "zamba2 parity WPGs")
 
     b, s = TRAIN["batch_size"], TRAIN["seq_len"]
@@ -2053,14 +2073,14 @@ def counted_in_child(wpg, job, log):
 
 
 def proc_workload(process_plane: bool, steps: int = TRAIN["steps"]):
-    """Phase 8's two GRPO jobs, A on group 0 and B on group 1, ``steps``
-    steps each."""
+    """Phase 8's two GRPO jobs cut to phase 18's depth, A on group 0 and B
+    on group 1, ``steps`` steps each."""
     from repro_torch.core.cluster import PlexCluster
     from repro_torch.core.controller import JobConfig
 
     cluster = PlexCluster(n_groups=2, process_plane=process_plane)
     ctls = {job: cluster.add_job(JobConfig(
-        job_id=job, model_name=ARCH, seed=seed, overrides=TRAIN_OVERRIDES,
+        job_id=job, model_name=ARCH, seed=seed, overrides=PROC_OVERRIDES,
         **dict(TRAIN, steps=steps)), group_id=g)
         for g, (seed, job) in enumerate(((1, "A"), (2, "B")))}
     return cluster, ctls
@@ -2078,9 +2098,9 @@ def proc_phase(torch, dev, records, tmp):
     from repro_torch.launch.proc_plane import StateManagerProxy
 
     steps, n_new = TRAIN["steps"], TRAIN["max_new_tokens"]
-    cfg = get_config_arch()
-    print(f"phase 18: the process plane, {ARCH} at full width and depth, "
-          f"jobs A and B on groups 0 and 1 ({TRAIN}) through "
+    cfg = proc_config()
+    print(f"phase 18: the process plane, {ARCH} at full width, overrides "
+          f"{dict(PROC_OVERRIDES)}, jobs A and B on groups 0 and 1 ({TRAIN}) through "
           f"PlexCluster.run(interleave=True, concurrent=True); card "
           f"{card_line()}; /dev/shm free {host_shm_bytes()} B; "
           f"shm_available() {shmt.shm_available()}")
@@ -2167,7 +2187,7 @@ def proc_phase(torch, dev, records, tmp):
     # rollout deployment of job A on group 1
     d_roll = router.deploy(api.DeploymentSpec(
         deployment_id="A-rollout", job_id="A", model_name=ARCH,
-        role="rollout", overrides=TRAIN_OVERRIDES), group_id=1)
+        role="rollout", overrides=PROC_OVERRIDES), group_id=1)
     f = d_roll.init(seed=9)
     router.run_until_idle()
     f.result()
@@ -2337,7 +2357,7 @@ def proc_kill(torch, dev, cluster, ctls, tmp, nbytes):
     metrics = [t.result() for t in tails]
     t_step = time.perf_counter() - t0
     grew = gp.call("probe")[0]["launches"]
-    step_want = step_launches(get_config_arch(), GRPO_STEP,
+    step_want = step_launches(proc_config(), GRPO_STEP,
                               TRAIN["max_new_tokens"])
     print(f"  respawn_dead_groups() {respawned}: {t_respawn} s (spawn, "
           f"handshake, deployment replay; new pid {gp.pid()}); segments of "
@@ -2356,22 +2376,23 @@ def proc_kill(torch, dev, cluster, ctls, tmp, nbytes):
         fail(f"the parent launched kernels: {ops.LAUNCHES}")
 
 
-def get_config_arch():
+def proc_config():
     from repro_torch.configs import get_config
-    return get_config(ARCH).replace(**dict(TRAIN_OVERRIDES))
+    return get_config(ARCH).replace(**dict(PROC_OVERRIDES))
 
 
-def pinned_train_phase(torch, dev, records, phase, arch):
-    """Phase 8's two GRPO jobs of ``arch`` at full width and depth, once
-    the card and the pinned host memory of earlier phases are released:
-    phase 14 (mamba2-2.7b) and 21 (granite-moe-3b-a800m). Fails unless the
-    host can pin both jobs' train state, every switch moves a whole job
-    and the kernels' launches over the four steps are exactly those of
-    ``launches_per_op``."""
+def pinned_train_phase(torch, dev, records, phase, arch, layers):
+    """Phase 8's two GRPO jobs of ``arch`` at full width cut to ``layers``
+    layers, once the card and the pinned host memory of earlier phases are
+    released: phase 14 (mamba2-2.7b) and 21 (granite-moe-3b-a800m). Fails
+    unless the host can pin both jobs' train state, every switch moves a
+    whole job and the kernels' launches over the four steps are exactly
+    those of ``launches_per_op``."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
-    cfg = get_config(arch)
+    overrides = (("num_layers", layers),)
+    cfg = get_config(arch).replace(**dict(overrides))
     n = build_model(cfg).param_count()
     # the parameters (bf16, but the f32 leaves: mamba2's A_log, D and
     # dt_bias, the MoE router), f32 mu and nu, the int32 step
@@ -2387,7 +2408,7 @@ def pinned_train_phase(torch, dev, records, phase, arch):
     if mem.get("MemAvailable", mem["MemTotal"]) < 2 * state:
         fail(f"the host cannot pin two {arch} jobs' train state "
              f"({2 * state} B)")
-    cluster = train_phase(torch, dev, records, phase, arch, ())
+    cluster = train_phase(torch, dev, records, phase, arch, overrides)
     sm = cluster.router.state_managers[0]
     held = {c.cfg.job_id: sm.job_bytes(c.dep.wpg.job_prefix)
             for c in cluster.controllers.values()}
@@ -2418,17 +2439,18 @@ def step_launches(cfg, ops, n_new, steps=1):
     return {k: steps * sum(p[k] for p in per_op) for k in per_op[0]}
 
 
-def train_launches_want(steps, n_new):
-    """Launches of ``steps`` GRPO steps of the full ARCH: K1 in each
-    generate's prefill and each update_actor's forward, K2 in each decode
-    step."""
+def train_launches_want(steps, n_new, layers=LAYERS):
+    """Launches of ``steps`` GRPO steps of ARCH at full width and
+    ``layers`` deep: K1 in each generate's prefill and each update_actor's
+    forward, K2 in each decode step."""
     from repro_torch.configs import get_config
-    return step_launches(get_config(ARCH), GRPO_STEP, n_new, steps)
+    return step_launches(get_config(ARCH).replace(num_layers=layers),
+                         GRPO_STEP, n_new, steps)
 
 
 def train_cli_phase(records, tmp):
-    """``python -m repro_torch.launch.train`` at the full config in a child
-    process on its default device, checkpointing under ``tmp`` after the
+    """``python -m repro_torch.launch.train`` at full width and
+    TRAIN_CLI_LAYERS deep in a child process on its default device, checkpointing under ``tmp`` after the
     run. The child runs the module as ``-m`` does (runpy) between zeroing
     and printing the kernels' launch counts."""
     ckpt_dir = os.path.join(tmp, "launch_train")
@@ -2468,7 +2490,7 @@ def train_cli_phase(records, tmp):
     if switches < 3 or tail[2] != "device=cuda:0":
         fail(f"launch.train: {' '.join(tail)}")
     launches = json.loads(lines[-1].split(" ", 1)[1])
-    want = train_launches_want(4, 64)
+    want = train_launches_want(4, 64, TRAIN_CLI_LAYERS)
     print(f"  child process {wall} s; launches {launches}, want {want}")
     if launches != want:
         fail(f"launch.train launches {launches}, want {want}")
@@ -2615,8 +2637,8 @@ def control_plane_phase(torch, dev, records):
 # ------------------------------------------- phases 19, 20: the MoE
 
 def moe_serve_phase(torch, dev, records):
-    """Phase 19: one Qwen3-30B-A3B job at full width and depth through
-    Router -> HRRS -> WPG -> rollout: INIT, then MOE_ROUNDS batched
+    """Phase 19: one Qwen3-30B-A3B job at full width, cut to MOE_LAYERS
+    layers, through Router -> HRRS -> WPG -> rollout: INIT, then MOE_ROUNDS batched
     generates, the last under the profiler, each with exactly MOE_LAYERS K1
     and MOE_LAYERS * N_NEW K2 launches (the counts set to 0 before each);
     the prefill's capacity drops are counted on the card. Round 0 reads
@@ -2632,21 +2654,22 @@ def moe_serve_phase(torch, dev, records):
     from repro_torch.models.registry import build_model
     from repro_torch.rl import data as data_lib
 
-    cfg = get_config(MOE_ARCH)
+    overrides = (("num_layers", MOE_LAYERS),)
+    cfg = get_config(MOE_ARCH).replace(**dict(overrides))
     model = build_model(cfg)
     want_bytes = spec_bytes(cfg)
     want = {"flash_attention": MOE_LAYERS,
             "decode_attention": MOE_LAYERS * N_NEW, "ssd": 0}
     cap = moe.expert_capacity(cfg, MOE_P)
-    print(f"phase 19: serving {MOE_ARCH} at full width and depth, one job "
-          f"(B={B}, prompt {MOE_P}, {N_NEW} new, temperature 0.7; "
+    print(f"phase 19: serving {MOE_ARCH} at full width cut to {MOE_LAYERS} "
+          f"layers, one job (B={B}, prompt {MOE_P}, {N_NEW} new, temperature 0.7; "
           f"{model.param_count()} parameters, {model.active_param_count()} "
           f"active; the prefill's capacity {cap} a row and expert)")
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     router = Router()                 # the CUDA devices; one card here
     dep = router.deploy(api.DeploymentSpec(
         deployment_id="rollout-moe", job_id="M", model_name=MOE_ARCH,
-        role="rollout", overrides=()), group_id=0)
+        role="rollout", overrides=overrides), group_id=0)
     rng = np.random.default_rng(0)
     padded = next(data_lib.MathDataset(seed=0).batches(B, MOE_P))[0]
     prompt_sets = [("MathDataset", padded) if r == 0 else
@@ -2821,8 +2844,8 @@ def moe_parity_phase(torch, dev):
 # ------------------------------------------ phases 23, 24: gemma2
 
 def gemma2_serve_phase(torch, dev, records):
-    """Phase 23: one gemma2-27b job at full width and depth through
-    Router -> HRRS -> WPG -> rollout: INIT, then GEMMA_ROUNDS generates at
+    """Phase 23: one gemma2-27b job at full width, cut to GEMMA_LAYERS
+    layers, through Router -> HRRS -> WPG -> rollout: INIT, then GEMMA_ROUNDS generates at
     B=16 prompt GEMMA_P (the last under the profiler) and one at B=1 prompt
     GEMMA_LONG_P, where the local layers' window cuts in K1's prefill and
     in every K2 step; each with exactly GEMMA_LAYERS K1 and GEMMA_LAYERS *
@@ -2836,20 +2859,21 @@ def gemma2_serve_phase(torch, dev, records):
     from repro_torch.models.registry import build_model
     from repro_torch.rl import data as data_lib
 
-    cfg = get_config(GEMMA_ARCH)
+    overrides = (("num_layers", GEMMA_LAYERS),)
+    cfg = get_config(GEMMA_ARCH).replace(**dict(overrides))
     model = build_model(cfg)
     want_bytes = spec_bytes(cfg)
     want = {"flash_attention": GEMMA_LAYERS,
             "decode_attention": GEMMA_LAYERS * N_NEW, "ssd": 0}
-    print(f"phase 23: serving {GEMMA_ARCH} at full width and depth, one job "
-          f"({model.param_count()} parameters; {GEMMA_ROUNDS} rounds at "
+    print(f"phase 23: serving {GEMMA_ARCH} at full width cut to "
+          f"{GEMMA_LAYERS} layers, one job ({model.param_count()} parameters; {GEMMA_ROUNDS} rounds at "
           f"B={B} prompt {GEMMA_P}, then B=1 prompt {GEMMA_LONG_P}; {N_NEW} "
           f"new, temperature 0.7)")
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     router = Router()                 # the CUDA devices; one card here
     dep = router.deploy(api.DeploymentSpec(
         deployment_id="rollout-gemma2", job_id="G", model_name=GEMMA_ARCH,
-        role="rollout", overrides=()), group_id=0)
+        role="rollout", overrides=overrides), group_id=0)
     rng = np.random.default_rng(0)
     rounds = [(B, GEMMA_P, r == GEMMA_ROUNDS - 1)
               for r in range(GEMMA_ROUNDS)] + [(1, GEMMA_LONG_P, False)]
@@ -2965,9 +2989,10 @@ def whisper_frames(torch, dev, b, seed):
 
 def whisper_serve_phase(torch, dev, records):
     """Phase 25: ``serve_phase`` for two whisper-large-v3 jobs at full
-    width and depth, each generate given its own bf16 frames through
-    ``extra_inputs`` and seeded-id prompts over the vocabulary; exactly 96
-    K1 and 4,096 K2 launches a generate, and each job's 3,070,438,400 B
+    width, cut to WHISPER_LAYERS encoder and decoder layers, each generate
+    given its own bf16 frames through ``extra_inputs`` and seeded-id
+    prompts over the vocabulary; exactly 3 x WHISPER_LAYERS K1 and 2 x
+    WHISPER_LAYERS x N_NEW K2 launches a generate, and each job's bytes
     moved whole by a switch. The launches are written into the K1 and K2
     records' whisper rows, one per shape."""
     import numpy as np
@@ -2977,6 +3002,8 @@ def whisper_serve_phase(torch, dev, records):
     cfg = get_config(WHISPER_ARCH)
     if spec_bytes(cfg) != WHISPER_BYTES:
         fail(f"whisper's specs hold {spec_bytes(cfg)} B, not {WHISPER_BYTES}")
+    overrides = (("num_layers", WHISPER_LAYERS),
+                 ("encoder_layers", WHISPER_LAYERS))
     want = {"flash_attention": 3 * WHISPER_LAYERS,
             "decode_attention": 2 * WHISPER_LAYERS * N_NEW, "ssd": 0}
     rng = np.random.default_rng(0)
@@ -2986,7 +3013,7 @@ def whisper_serve_phase(torch, dev, records):
                               size=(B, WHISPER_P), dtype=np.int32)
                  for _ in range(4)],
         extras=[{"frames": whisper_frames(torch, dev, B, r)}
-                for r in range(4)])
+                for r in range(4)], overrides=overrides)
     # each generate ran WHISPER_LAYERS K1 launches at each of K1's three
     # shapes and WHISPER_LAYERS * N_NEW K2 at each of K2's two (the exact
     # counts were checked every round)
@@ -3140,6 +3167,178 @@ def vision_parity_phase(torch, dev):
     parity_phase(torch, model, params, dev, 28, extra={"vision": vision})
 
 
+# ------------------------------------------ phases 29, 30: cost, examples
+
+def cost_steps(torch, dev):
+    """Phase 29's steps: (label, step, card arguments, meta arguments,
+    {kernel: launches}). qwen2-0.5b at full width and depth (its prefill
+    at B=16 S=128, one decode step at T=192 pos=191, one update_actor at
+    phase 8's packed B=16 S=128) and mamba2-2.7b at full width cut to
+    COST_SSM_LAYERS layers (its prefill at B=16 S=512, phase 6's K3)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import grpo
+    from repro_torch.train import train_state as ts
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    qwen = build_model(get_config(ARCH))
+    mamba = build_model(get_config(SSM_ARCH).replace(
+        num_layers=COST_SSM_LAYERS))
+    state = ts.init(qwen, gen, device=dev)
+    t_cap = P + N_NEW
+    prefill = ShapeSpec("prefill", "prefill", P, B)
+    decode = ShapeSpec("decode", "decode", t_cap, B)
+    train = ShapeSpec("train", "train", TRAIN["seq_len"],
+                      TRAIN["batch_size"])
+    ssm = ShapeSpec("prefill", "prefill", SSM_P, B)
+    return [
+        (f"qwen2-0.5b prefill B={B} S={P}", grpo.make_prefill(qwen),
+         (state.params, qwen.dummy_batch(gen, prefill)),
+         (qwen.abstract_params(), qwen.abstract_batch(prefill)),
+         {"flash_attention": LAYERS}),
+        (f"qwen2-0.5b decode B={B} T={t_cap} pos={t_cap - 1}",
+         grpo.make_decode(qwen),
+         (state.params, dict(qwen.init_cache(gen, B, t_cap, dev),
+                             pos=t_cap - 1), qwen.dummy_batch(gen, decode)),
+         (qwen.abstract_params(), qwen.abstract_cache(B, t_cap, t_cap - 1),
+          qwen.abstract_batch(decode)),
+         {"decode_attention": LAYERS}),
+        (f"qwen2-0.5b update_actor B={train.global_batch} "
+         f"S={train.seq_len}", grpo.make_update_actor(qwen),
+         (state, qwen.dummy_batch(gen, train)),
+         (ts.abstract(qwen), qwen.abstract_batch(train)),
+         {"flash_attention": 2 * LAYERS}),        # forward and recompute
+        (f"mamba2-2.7b ({COST_SSM_LAYERS} layers) prefill B={B} S={SSM_P}",
+         grpo.make_prefill(mamba),
+         (mamba.init_params(gen, dev), mamba.dummy_batch(gen, ssm)),
+         (mamba.abstract_params(), mamba.abstract_batch(ssm)),
+         {"ssd": COST_SSM_LAYERS}),
+    ]
+
+
+def cost_phase(torch, dev, card):
+    """Phase 29: each step through ``launch/hlo_cost`` once on the card and
+    once on ``meta`` tensors. Their FLOPs, bytes, op counts and per-kernel
+    launches and work must be equal exactly; each kernel's counted
+    launches must equal the change in ``kops.LAUNCHES`` (set to 0 before
+    the step) and the path's own count; K1's, K2's and K3's work a launch
+    must be PERF.md's bound-column figures. Then the step once more under
+    the profiler: its counted FLOPs over the device busy time, as a share
+    of the 989 TFLOP/s bf16 peak."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.mesh import HW
+
+    keys = ("flops", "traffic_bytes", "ops", "kernels")
+    for label, step, args, meta_args, want in cost_steps(torch, dev):
+        print(f"phase 29: {label}")
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        with hlo_cost.Counter() as counter:
+            step(*args)
+            torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        on_card = counter.stats()
+        launched = dict(kops.LAUNCHES)
+        t0 = time.perf_counter()
+        on_meta = hlo_cost.analyze(step, *meta_args)
+        t_meta = time.perf_counter() - t0
+        counted = {k: v["launches"] for k, v in on_card["kernels"].items()}
+        print(f"  card ({t_card} s counted): {on_card['flops']} FLOP, "
+              f"{on_card['traffic_bytes']} B, {on_card['ops']} ops, "
+              f"kernels {on_card['kernels']}; meta ({t_meta} s): "
+              f"{on_meta['flops']} FLOP, {on_meta['traffic_bytes']} B, "
+              f"{on_meta['ops']} ops; LAUNCHES {launched}")
+        if {k: on_card[k] for k in keys} != {k: on_meta[k] for k in keys}:
+            fail(f"{label}: the card counts {[on_card[k] for k in keys]}, "
+                 f"meta {[on_meta[k] for k in keys]}")
+        if counted != launched:
+            fail(f"{label}: counted launches {counted}, LAUNCHES {launched}")
+        for name, n in want.items():
+            work = on_card["kernels"][name]
+            if counted[name] != n:
+                fail(f"{label}: {counted[name]} {name} launches, want {n}")
+            per = (work["flops"] // n, work["bytes"] // n)
+            if (work["flops"], work["bytes"]) != \
+                    (n * PERF_WORK[name][0], n * PERF_WORK[name][1]):
+                fail(f"{label}: {name} work a launch {per}, PERF.md's "
+                     f"bound column {PERF_WORK[name]}")
+            print(f"  {name}: {n} launches of {per[0]} FLOP and {per[1]} B "
+                  f"each (PERF.md's bound column)")
+        _, busy = profile_round(torch, lambda: (step(*args),
+                                                torch.cuda.synchronize()))
+        share = on_card["flops"] / busy / HW["peak_flops_bf16"]
+        print(f"  {label}: counted {on_card['flops']} FLOP over "
+              f"{busy * 1e3} ms device busy: {share} of "
+              f"{HW['peak_flops_bf16'] / 1e12:.0f} TFLOP/s bf16 ({card})")
+
+
+def examples_phase(torch, tmp):
+    """Phase 30: the port's examples on the card, each with the kernels'
+    launch counts set to 0 before it and read after: quickstart whole,
+    cluster_sim (host code: it launches nothing), multiplex_rlvr's Parts
+    1-2 through its ``run(...)``, and train_100m --steps 2 in a child
+    process. Each prints its seconds; no failure is caught."""
+    from repro_torch.examples import cluster_sim, multiplex_rlvr, quickstart
+    from repro_torch.kernels import ops as kops
+
+    def example(label, fn, kernels=("flash_attention", "decode_attention")):
+        print(f"phase 30: {label}")
+        kops.reset_launches()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        print(f"  {label} took {time.monotonic() - t0} s; launches "
+              f"{dict(kops.LAUNCHES)}")
+        for name in kernels:
+            if kops.LAUNCHES[name] == 0:
+                fail(f"{label} launched no {name}")
+
+    example("quickstart", lambda: quickstart.main([]))
+    example("cluster_sim", lambda: cluster_sim.main([]), kernels=())
+
+    def parts_1_2():
+        for kw in (dict(interleave=False), dict(interleave=True),
+                   dict(interleave=True, n_groups=2),
+                   dict(interleave=True, n_groups=2, concurrent=True)):
+            cluster, billing, wall = multiplex_rlvr.run(**kw)
+            steps = {j: billing[j].steps for j in ("alpha", "beta")}
+            print(f"  run({kw}): wall {wall} s, steps {steps}, switches "
+                  f"{len(cluster.router.switch_log)}")
+            if steps != {"alpha": 3, "beta": 3}:
+                fail(f"multiplex_rlvr run({kw}) billed {steps}")
+
+    example("multiplex_rlvr Parts 1-2", parts_1_2)
+
+    argv = ["--steps", "2", "--ckpt-dir", os.path.join(tmp, "train_100m")]
+    print(f"phase 30: python -m repro_torch.examples.train_100m "
+          f"{' '.join(argv)} (a child process, its default device)")
+    code = "\n".join([
+        "import json, runpy, sys",
+        "from repro_torch.kernels import ops",
+        f"sys.argv = ['repro_torch.examples.train_100m'] + {argv!r}",
+        "ops.reset_launches()",
+        "runpy.run_module('repro_torch.examples.train_100m',",
+        "                 run_name='__main__', alter_sys=True)",
+        "print('launches ' + json.dumps(ops.LAUNCHES))"])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        print(f"  {line}")
+    if proc.returncode != 0:
+        fail(f"train_100m exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    launches = json.loads(lines[-1].split(" ", 1)[1])
+    print(f"  train_100m took {time.monotonic() - t0} s (child process); "
+          f"launches {launches}")
+    if not any(ln.startswith("[job0] steps=2") for ln in lines) or \
+            not launches["flash_attention"] or \
+            not launches["decode_attention"]:
+        fail(f"train_100m: {lines[-4:]}")
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -3176,25 +3375,32 @@ def pinned_bytes(torch):
     return "not reported by this torch" if held is None else held
 
 
-def hybrid_parity_phase(torch, dev, phase):
-    """Phase 5's parity for zamba2 at full width, cut to HYB_PARITY_LAYERS
-    blocks (depth only) for the CPU side, from the port's seeded init."""
+def cut_parity_phase(torch, dev, phase, arch, layers):
+    """Phase 5's parity for ``arch`` at full width, cut to ``layers``
+    layers or blocks (depth only) for the CPU side, from the port's seeded
+    init."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
-    model = build_model(get_config(HYB_ARCH).replace(
-        num_layers=HYB_PARITY_LAYERS))
+    model = build_model(get_config(arch).replace(num_layers=layers))
     params = model.init_params(torch.Generator(device=dev).manual_seed(1),
                                dev)
     return parity_phase(torch, model, params, dev, phase)
 
 
+T_START = time.monotonic()
+
+
 @contextlib.contextmanager
 def phase_seconds(name):
-    """Print the seconds the phase (or phases) ``name`` took."""
+    """Print the seconds the phase (or phases) ``name`` took, and its start
+    to the standard error, so a run stopped from outside shows how far it
+    got."""
     t0 = time.monotonic()
+    print(f"chip_smoke: {name} starts at {t0 - T_START:.1f} s",
+          file=sys.stderr, flush=True)
     yield
-    print(f"{name} took {time.monotonic() - t0} s")
+    print(f"{name} took {time.monotonic() - t0} s", flush=True)
 
 
 def main():
@@ -3203,9 +3409,11 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
+        from repro_torch.configs import get_config
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
+    sys.stdout.reconfigure(line_buffering=True)   # a stopped run shows its end
     t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3235,15 +3443,16 @@ def main():
         del router, wpg
         release(torch, dev, "qwen2 router")
 
+    cut = (("num_layers", SSM_LAYERS),)
     want = {"flash_attention": 0, "decode_attention": 0, "ssd": SSM_LAYERS}
     with phase_seconds("phase 6"):
-        router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want)
+        router, launches = serve_phase(torch, dev, 6, SSM_ARCH, SSM_P, want,
+                                       overrides=cut)
         path_launches(records, launches, want)
     with phase_seconds("phase 7"):
-        wpg = router.wpgs["rollout-A"]
-        parity_phase(torch, wpg.model, wpg.params(), dev, 7)
-        del router, wpg
+        del router
         release(torch, dev, "mamba2 router")
+        cut_parity_phase(torch, dev, 7, SSM_ARCH, SSM_PARITY_LAYERS)
 
     with phase_seconds("phase 8"):
         cluster = train_phase(torch, dev, records)
@@ -3253,16 +3462,18 @@ def main():
         train_parity_phase(torch, dev)
         release(torch, dev, "training parity WPGs")
 
-    # zamba2: all three kernels on one path, at full width and depth
-    want = {"flash_attention": HYB_APPS, "decode_attention": HYB_APPS * N_NEW,
-            "ssd": HYB_MAMBA}
+    # zamba2: all three kernels on one path, at full width
+    cut = (("num_layers", HYB_LAYERS),)
+    want = launches_per_op(get_config(HYB_ARCH).replace(**dict(cut)),
+                           "generate", N_NEW)
     with phase_seconds("phase 10"):
-        router, launches = serve_phase(torch, dev, 10, HYB_ARCH, HYB_P, want)
+        router, launches = serve_phase(torch, dev, 10, HYB_ARCH, HYB_P, want,
+                                       overrides=cut)
         path_launches(records, launches, want, "zamba2")
         del router
         release(torch, dev, "zamba2 router")
     with phase_seconds("phase 11"):
-        hybrid_parity_phase(torch, dev, 11)
+        cut_parity_phase(torch, dev, 11, HYB_ARCH, HYB_PARITY_LAYERS)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3273,7 +3484,8 @@ def main():
             release(torch, dev, "control-plane cluster")
 
         with phase_seconds("phase 14"):
-            cluster = pinned_train_phase(torch, dev, records, 14, SSM_ARCH)
+            cluster = pinned_train_phase(torch, dev, records, 14, SSM_ARCH,
+                                         SSM_TRAIN_LAYERS)
             del cluster
             release(torch, dev, "mamba2 training cluster")
         with phase_seconds("phase 15"):
@@ -3297,7 +3509,7 @@ def main():
             release(torch, dev, "MoE parity parameters")
         with phase_seconds("phase 21"):
             cluster = pinned_train_phase(torch, dev, records, 21,
-                                         GRANITE_ARCH)
+                                         GRANITE_ARCH, GRANITE_LAYERS)
             del cluster
             # the granite rows' launches: 4 generates and 4 update_actors
             for name, row, op in (("flash_attention", "granite_prefill",
@@ -3337,6 +3549,13 @@ def main():
         with phase_seconds("phase 28"):
             vision_parity_phase(torch, dev)
             release(torch, dev, "vision parity parameters")
+
+        with phase_seconds("phase 29"):
+            cost_phase(torch, dev, card)
+            release(torch, dev, "cost-model steps")
+        with phase_seconds("phase 30"):
+            examples_phase(torch, tmp)
+            release(torch, dev, "examples")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -72,7 +72,7 @@ class PlexCluster:
         ``process_plane`` and ``proc_wpg_factory`` go to the Router."""
         if devices_per_group is not None and devices_per_group > 1:
             raise _not_ported("node groups of more than one device",
-                              "item 7, sharding")
+                              "item 5, sharding")
         kwargs = {} if wpg_factory is None else {"wpg_factory": wpg_factory}
         self.router = Router(policy=policy, device_plane=device_plane,
                              process_plane=process_plane,

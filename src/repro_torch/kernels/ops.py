@@ -13,12 +13,28 @@ differentiates it, as the JAX package differentiates its XLA attention.
 backward recomputes :func:`repro_torch.models.mamba2.ssd_chunked` and
 differentiates it, as the JAX package differentiates ``ssd_chunked``.
 Neither kernel has a backward kernel: the JAX package has none either.
+
+A ``meta`` tensor takes a third route: the wrapper returns outputs of the
+kernel's shapes, dtypes and (contiguous) layout and computes nothing. It
+is abstract evaluation for the cost model (``launch/hlo_cost.py``,
+``launch/dryrun.py``), the counterpart of the reference's
+``jit(...).lower``, and never a path for a real tensor. The plain route's
+outputs are made contiguous too, so the ops after a wrapper are the same
+on every device.
+
+:func:`flash_attention_work`, :func:`decode_attention_work` and
+:func:`ssd_work` give each kernel's work (FLOPs, bytes) from its shapes
+and options: the bound column of ``chip_smoke.py`` and the cost model's
+kernel terms. Each wrapper call reports its work to the active counters
+(:data:`COUNTERS`), which leave out the ops that carry the call out.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import decode_attention as dec
@@ -42,6 +58,92 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+# the cost model's active counters (``launch/hlo_cost.Counter``): each
+# wrapper call hands them its kernel's name and work, and they count none
+# of the ops inside the call. A list shared by all threads, since autograd
+# runs a rematerialised forward, and its K1 and K3 calls, on its own
+# device thread.
+COUNTERS: List = []
+
+
+_UNCOUNTED = contextlib.nullcontext()
+
+
+def _kernel_call(name: str, work, *shape, **opts):
+    """The context of one wrapper call: with a counter active, it hands
+    each its kernel's name and ``work(*shape, **opts)``; without one it
+    costs nothing more (the work is not even computed: the wrappers' host
+    time is part of ``chip_smoke.py``'s ``ms``)."""
+    if not COUNTERS:
+        return _UNCOUNTED
+    return _counted(list(COUNTERS), name, work(*shape, **opts))
+
+
+@contextlib.contextmanager
+def _counted(counters, name: str, work: Tuple[int, int]):
+    for c in counters:
+        c.kernel_begin(name, *work)
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.kernel_end()
+
+
+# ------------------------------------------------------------------ work
+
+def _attended_keys(s: int, t: int, causal: bool, window: int) -> int:
+    """Query-key pairs a prefill attends: row i (position i) sees key j
+    (position j < t) where j <= i when causal and i - window < j when
+    ``window`` > 0, as ``ref.ref_attention`` masks them."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_work(b: int, s: int, t: int, h: int, kh: int, d: int,
+                         itemsize: int, *, causal: bool = True,
+                         window: int = 0) -> Tuple[int, int]:
+    """K1's (FLOPs, bytes): QK^T and PV over the pairs the masks keep (a
+    causal row's keys up to its own, those in the window), 2 FLOPs a
+    multiply-add; q, k, v read once and the output written once."""
+    flops = 4 * b * h * d * _attended_keys(s, t, causal, window)
+    return flops, (2 * b * s * h * d + 2 * b * t * kh * d) * itemsize
+
+
+def decode_attention_work(b: int, h: int, kh: int, d: int, pos: int,
+                          itemsize: int, cache_itemsize: int, *,
+                          window: int = 0) -> Tuple[int, int]:
+    """K2's (FLOPs, bytes): one query row over the live keys (0..pos, the
+    last ``window`` of them); q read and the output written once, the live
+    K and V cache rows read once."""
+    live = min(pos + 1, window or pos + 1)
+    return (4 * b * h * d * live,
+            2 * b * h * d * itemsize + 2 * b * live * kh * d * cache_itemsize)
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Operations of the chunk scan, counting each chunk's causal half of
+    the scores: C.B and the scores times x over the pairs j <= i, the
+    carried state's C S, and the state update."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        lc = min(chunk, s - t0)
+        pairs = lc * (lc + 1) // 2
+        total += 2 * pairs * (n + p) + 2 * 2 * lc * n * p
+    return b * h * total
+
+
+def ssd_work(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+             x_itemsize: int, bc_itemsize: int) -> Tuple[int, int]:
+    """K3's (FLOPs, bytes): :func:`ssd_flops`; x, dt (f32), B, C and A
+    (f32) read once, y and the f32 final state written once."""
+    nbytes = (2 * b * s * h * p * x_itemsize + b * s * h * 4
+              + 2 * b * s * g * n * bc_itemsize + h * 4 + b * h * p * n * 4)
+    return ssd_flops(b, s, h, p, n, chunk), nbytes
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward; backward through the XLA attention's autograd."""
 
@@ -51,14 +153,21 @@ class _FlashAttention(torch.autograd.Function):
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         scale=scale)
         ctx.q_chunk = q_chunk
-        if q.device.type == "cpu":
-            g = q.shape[2] // k.shape[2]
-            return ref.ref_attention(
-                q, torch.repeat_interleave(k, g, dim=2),
-                torch.repeat_interleave(v, g, dim=2), **ctx.opts)
-        out = fa.flash_attention_fwd(q, k, v, **ctx.opts)
-        _count("flash_attention")
-        return out
+        b, s, h, d = q.shape
+        with _kernel_call("flash_attention", flash_attention_work, b, s,
+                          k.shape[1], h, k.shape[2], d, q.element_size(),
+                          causal=causal, window=window):
+            if q.device.type == "meta":
+                return torch.empty(q.shape, dtype=q.dtype, device="meta")
+            if q.device.type == "cpu":
+                g = h // k.shape[2]
+                return ref.ref_attention(
+                    q, torch.repeat_interleave(k, g, dim=2),
+                    torch.repeat_interleave(v, g, dim=2),
+                    **ctx.opts).contiguous()
+            out = fa.flash_attention_fwd(q, k, v, **ctx.opts)
+            _count("flash_attention")
+            return out
 
     @staticmethod
     def backward(ctx, dout):
@@ -86,11 +195,18 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     last ``window`` of them when ``window`` > 0, with the scores capped at
     ``softcap`` (None: no cap)."""
     opts = dict(scale=scale, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return ref.ref_decode_attention(q, k_cache, v_cache, pos, **opts)
-    out = dec.decode_attention(q, k_cache, v_cache, pos, **opts)
-    _count("decode_attention")
-    return out
+    b, h, d = q.shape
+    with _kernel_call("decode_attention", decode_attention_work, b, h,
+                      k_cache.shape[2], d, pos, q.element_size(),
+                      k_cache.element_size(), window=window):
+        if q.device.type == "meta":
+            return torch.empty(q.shape, dtype=q.dtype, device="meta")
+        if q.device.type == "cpu":
+            return ref.ref_decode_attention(q, k_cache, v_cache, pos,
+                                            **opts).contiguous()
+        out = dec.decode_attention(q, k_cache, v_cache, pos, **opts)
+        _count("decode_attention")
+        return out
 
 
 class _SSDScan(torch.autograd.Function):
@@ -108,11 +224,20 @@ class _SSDScan(torch.autograd.Function):
         # an unused final state (the training path drops it) comes back
         # as None, not as a (b, h, p, n) tensor of zeros
         ctx.set_materialize_grads(False)
-        if x.device.type == "cpu":
-            return ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
-        out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
-        _count("ssd")
-        return out
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        with _kernel_call("ssd", ssd_work, b, s, h, p, g, n, chunk,
+                          x.element_size(), B.element_size()):
+            if x.device.type == "meta":
+                return (torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                        torch.empty((b, h, p, n), dtype=torch.float32,
+                                    device="meta"))
+            if x.device.type == "cpu":
+                y, state = ref.ref_ssd(x, dt, A, B, C, chunk=chunk)
+                return y.contiguous(), state.contiguous()
+            out = ssd_k.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+            _count("ssd")
+            return out
 
     @staticmethod
     def backward(ctx, dy, dstate):

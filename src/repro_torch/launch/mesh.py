@@ -9,6 +9,11 @@ the JAX plane does on one device; a retired group returns its lease
 and raises when there are none; tests pass ``devices=[torch.device("cpu")]``.
 Multi-device slices wait for the sharding port (ROADMAP.md, Queue 1).
 
+:data:`HW` holds the card's datasheet peaks, the cost model's constants
+(``launch/dryrun.py``) and those of ``chip_smoke.py``'s bound column
+(:func:`bound`). :func:`make_production_mesh` exists only to say that a
+multi-device mesh is not ported.
+
 :func:`env_for_slice` and :func:`device_for_slice` give a process-plane
 child (``launch/proc_plane.py``) its view of a slice: a CUDA slice is the
 only card the child sees, as its ``cuda:0``.
@@ -59,6 +64,34 @@ def host_shm_bytes(path: str = "/dev/shm") -> Optional[int]:
     except OSError:
         return None
     return st.f_bavail * st.f_frsize
+
+
+# NVIDIA H100 80GB HBM3 (SXM), 700 W, from NVIDIA's datasheet: dense bf16
+# tensor-core rate (no sparsity), HBM3 bandwidth and capacity. One card has
+# no collectives, so no interconnect term (the collective term is 0).
+HW = {
+    "name": "NVIDIA H100 80GB HBM3 (SXM), 700 W",
+    "peak_flops_bf16": 989e12,     # FLOP/s
+    "hbm_bw": 3.35e12,             # bytes/s
+    "hbm_bytes": 80e9,             # bytes
+}
+
+
+def bound(nbytes: float, flops: float):
+    """The least ms the card can take for work that moves ``nbytes`` and
+    does ``flops`` bf16 operations, and which of the two bounds it:
+    ``(ms, "bytes" | "operations")``."""
+    t_bytes = nbytes / HW["hbm_bw"] * 1e3
+    t_ops = flops / HW["peak_flops_bf16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's 256- and 512-chip meshes: not ported, one H100 runs
+    only the one-device case."""
+    raise NotImplementedError(
+        "a multi-device mesh is not ported yet (ROADMAP.md, Queue 1: item "
+        "5, sharding)")
 
 
 class DevicePlane:

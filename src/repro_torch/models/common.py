@@ -2,7 +2,8 @@
 
 Parameters are declared as :class:`ParamSpec` trees (nested dicts: shape +
 logical axes + init), from which ``init_params`` materialises tensors from
-an explicit ``torch.Generator``. ``canonical_flat`` gives the flat
+an explicit ``torch.Generator`` and ``abstract_params`` makes ``meta``
+tensors (shape and dtype, no storage: the dry run's inputs). ``canonical_flat`` gives the flat
 ``{key: leaf}`` view whose '/'-joined keys are the same as the JAX
 package's (``repro.models.common.canonical_flat``): the StateManager and
 the weight converter key on them.
@@ -46,6 +47,12 @@ def stack_specs(tree, num: int):
     """Prepend a ``layers`` dimension to every spec in the tree."""
     return tree_map(lambda s: ParamSpec((num,) + s.shape, ("layers",) + s.axes,
                                         s.init, s.dtype, s.scale), tree)
+
+
+def abstract_params(specs):
+    """Each spec as a ``meta`` tensor of its shape and dtype."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
 
 
 # each leaf is drawn in slices along its leading axis of at most this many

@@ -164,3 +164,25 @@ def make_compute_log_prob(model: Model):
         return token_logprobs(logits, batch["tokens"])
 
     return step
+
+
+def make_prefill(model: Model):
+    """The serving prefill (``repro/rl/grpo.py:139``): (params, batch) ->
+    (the last position's logits (B, 1, V), the cache)."""
+
+    def step(params, batch):
+        logits, _, cache = model.forward(params, batch, return_cache=True)
+        return logits[:, -1:], cache
+
+    return step
+
+
+def make_decode(model: Model):
+    """One decode step (``repro/rl/grpo.py:148``): (params, cache, batch)
+    -> (logits (B, 1, V), the cache with ``pos`` + 1), the cache written
+    in place."""
+
+    def step(params, cache, batch):
+        return model.decode_step(params, cache, batch)
+
+    return step

@@ -25,3 +25,12 @@ def init(model: Model, gen: torch.Generator,
     params = model.init_params(gen, device)
     return TrainState(params=params, opt_state=opt.init(params, adamw),
                       step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def abstract(model: Model,
+             adamw: opt.AdamWConfig = opt.AdamWConfig()) -> TrainState:
+    """The state as ``meta`` tensors: parameters, moments in
+    ``adamw.moment_dtype`` and the int32 step (the dry run's input)."""
+    params = model.abstract_params()
+    return TrainState(params=params, opt_state=opt.init(params, adamw),
+                      step=torch.zeros((), dtype=torch.int32, device="meta"))

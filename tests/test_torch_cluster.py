@@ -514,7 +514,7 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     """Sharding still raises, naming its Queue 1 item; a PPO job (an actor
     and a critic deployment) attaches."""
     P = _Pkg("repro_torch")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5, sharding"):
         PlexCluster(device_plane=cpu_plane(), devices_per_group=2)
     c = PlexCluster(device_plane=cpu_plane(), wpg_factory=SleepWPG)
     ctl = c.add_job(_tiny(P, "p", 1), algo="ppo")

@@ -1,0 +1,322 @@
+"""The port's cost model and dry run, held against the JAX package.
+
+- The registry's abstract inputs: for all 13 configs at full width the
+  ``meta`` parameters, train state and cache match the reference's
+  ``abstract_params`` / ``train_state.abstract`` / ``abstract_cache`` leaf
+  by canonical key in shape and dtype, ``param_count`` and
+  ``active_param_count`` are exact, and ``input_specs`` match for every
+  shape kind; ``dummy_batch`` matches in shapes, dtypes and ranges.
+- ``launch/hlo_cost``: a matmul counts 2·M·K·N (``tests/test_hlo_cost.py``);
+  K1, K2 and K3 count the work of PERF.md's bound column through their
+  wrappers' meta route; each family's reduced prefill, decode step and
+  ``update_actor`` count the same on ``meta`` and on the CPU, exactly; a
+  reduced forward's FLOPs equal the reference's ``hlo_cost.analyze`` of
+  its compiled forward within 1 %, once the query-key pairs K1's count
+  leaves out (the causal half, the window) and the reference's XLA
+  attention computes are added back by closed form.
+- ``launch/dryrun.run_cell`` completes at full width for seven cells; two
+  cells' outputs equal the reference's ``jax.eval_shape`` of the step.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduced_config as jreduced
+from repro.launch import hlo_cost as jcost
+from repro.models.common import canonical_flat as jflat
+from repro.models.registry import build_model as jbuild
+from repro.rl import grpo as jgrpo
+from repro.train import train_state as jts
+from repro_torch.configs import SHAPES, ShapeSpec, list_configs
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import ops as kops
+from repro_torch.launch import dryrun, hlo_cost, mesh
+from repro_torch.models import common
+from repro_torch.models.registry import build_model
+from repro_torch.rl import grpo
+from repro_torch.train import train_state as ts
+
+torch.set_num_threads(2)
+
+
+def _jleaves(tree):
+    return {k: (tuple(v.shape), str(jnp.dtype(v.dtype)))
+            for k, v in jflat(tree, is_leaf=lambda x: hasattr(x, "shape")
+                              ).items()}
+
+
+def _tleaves(tree):
+    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in common.canonical_flat(
+                tree, is_leaf=torch.is_tensor).items()}
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# ------------------------------------------------------------- registry
+
+@pytest.mark.parametrize("arch", list_configs())
+def test_abstract_inputs_match_the_reference(arch):
+    jm, tm = jbuild(jget_config(arch)), build_model(get_config(arch))
+    assert _tleaves(tm.abstract_params()) == _jleaves(jm.abstract_params())
+    assert all(t.device.type == "meta" for t in common.canonical_flat(
+        tm.abstract_params(), is_leaf=torch.is_tensor).values())
+    assert tm.param_count() == jm.param_count()
+    assert tm.active_param_count() == jm.active_param_count()
+    jstate, tstate = jts.abstract(jm), ts.abstract(tm)
+    for part in ("mu", "nu"):
+        assert _tleaves(getattr(tstate.opt_state, part)) == \
+            _jleaves(getattr(jstate.opt_state, part))
+    assert _tleaves({"s": tstate.step}) == _jleaves({"s": jstate.step})
+    # the port's cache keeps pos as a host int, the reference an int32 leaf
+    jcache = _jleaves(jm.abstract_cache(2, 64))
+    assert jcache.pop("pos") == ((), "int32")
+    tcache = tm.abstract_cache(2, 64, pos=5)
+    assert tcache.pop("pos") == 5
+    assert _tleaves(tcache) == jcache
+    for shape in SHAPES.values():
+        for rl_train in (True, False):
+            js = jm.input_specs(shape, rl_train)
+            tspecs = tm.input_specs(shape, rl_train)
+            assert list(tspecs) == list(js)
+            for k, sp in tspecs.items():
+                assert sp.shape == js[k].sds.shape, (k, shape)
+                assert str(sp.dtype) == f"torch.{jnp.dtype(js[k].sds.dtype)}"
+                assert sp.axes == js[k].axes
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
+def test_dummy_batch_and_init_cache_match_the_reference_in_kind(arch):
+    jm, tm = jbuild(jreduced(arch)), build_model(reduced_config(arch))
+    shape = ShapeSpec("t", "train", 12, 4)
+    jb = jm.dummy_batch(jax.random.PRNGKey(0), shape)
+    tb = tm.dummy_batch(torch.Generator().manual_seed(0), shape)
+    assert list(tb) == list(jb)
+    for k, v in tb.items():
+        assert tuple(v.shape) == jb[k].shape
+        assert str(v.dtype) == f"torch.{jnp.dtype(jb[k].dtype)}"
+    vocab = tm.cfg.vocab_size
+    assert 0 <= int(tb["tokens"].min()) and int(tb["tokens"].max()) < vocab
+    assert bool((tb["behavior_logprobs"] <= 0).all())
+    assert bool((tb["loss_mask"] == 1).all())
+    extra = tb["frames" if "frames" in tb else "vision"].float()
+    assert 0.01 < float(extra.std()) < 0.03
+    cache = tm.init_cache(torch.Generator().manual_seed(0), 2, 16)
+    assert cache.pop("pos") == 0
+    assert all(not bool(v.any()) for v in cache.values())
+    assert _tleaves(cache) == {k: v for k, v in _jleaves(
+        jm.abstract_cache(2, 16)).items() if k != "pos"}
+
+
+# ------------------------------------------------------------ the counter
+
+def test_matmul_counts_2mkn_on_every_device():
+    M, K, N = 64, 128, 32
+    for dev in ("cpu", "meta"):
+        a, b = torch.randn(M, K).to(dev), torch.randn(K, N).to(dev)
+        res = hlo_cost.analyze(lambda: a @ b)
+        assert res["flops"] == 2 * M * K * N
+        assert res["traffic_bytes"] == (M * K + K * N + M * N) * 4
+        assert res["collective_bytes"] == 0
+
+
+def test_kernel_work_is_perf_md_bound_column():
+    """PERF.md §6: qwen2 K1 8.39 MB and 0.473 GFLOP, K2 1.63 MB and 11.0
+    MFLOP, mamba2 K3 216.5 MB and 53.8 GFLOP, counted through the
+    wrappers' meta route (no launch: LAUNCHES is unchanged)."""
+    before = dict(kops.LAUNCHES)
+    q, k = _meta(16, 128, 14, 64), _meta(16, 128, 2, 64)
+    k1 = hlo_cost.analyze(lambda: kops.flash_attention(q, k, k))
+    qd, kc = _meta(16, 14, 64), _meta(16, 192, 2, 64)
+    k2 = hlo_cost.analyze(lambda: kops.decode_attention(qd, kc, kc, 191))
+    x, dt = _meta(16, 512, 80, 64), _meta(16, 512, 80, dtype=torch.float32)
+    A, Bm = _meta(80, dtype=torch.float32), _meta(16, 512, 1, 128)
+    k3 = hlo_cost.analyze(lambda: kops.ssd(x, dt, A, Bm, Bm, chunk=256))
+    assert kops.LAUNCHES == before
+    for res, name, nbytes, flops in (
+            (k1, "flash_attention", 8.39e6, 0.473e9),
+            (k2, "decode_attention", 1.63e6, 11.0e6),
+            (k3, "ssd", 216.5e6, 53.8e9)):
+        work = res["kernels"][name]
+        assert work["launches"] == 1 and res["ops"] == 0
+        assert (res["flops"], res["traffic_bytes"]) == \
+            (work["flops"], work["bytes"])
+        assert float(f"{work['bytes']:.4g}") == pytest.approx(nbytes,
+                                                              rel=5e-3)
+        assert float(f"{work['flops']:.3g}") == flops
+    assert k1["kernels"]["flash_attention"]["flops"] == 473_432_064
+    assert k3["kernels"]["ssd"]["bytes"] == 216_531_264
+
+
+def test_meta_route_returns_the_kernels_shapes():
+    q, k = _meta(2, 5, 4, 64), _meta(2, 7, 2, 64)
+    out = kops.flash_attention(q, k, k, causal=False)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    assert out.is_contiguous()
+    out = kops.decode_attention(_meta(2, 4, 64), k, k, 6)
+    assert (out.shape, out.dtype) == ((2, 4, 64), torch.bfloat16)
+    y, st = kops.ssd(_meta(2, 9, 3, 8), _meta(2, 9, 3, dtype=torch.float32),
+                     _meta(3, dtype=torch.float32), _meta(2, 9, 1, 16),
+                     _meta(2, 9, 1, 16), chunk=4)
+    assert (y.shape, y.dtype) == ((2, 9, 3, 8), torch.bfloat16)
+    assert (st.shape, st.dtype) == ((2, 3, 8, 16), torch.float32)
+    assert kops.flash_attention_work(1, 4, 4, 1, 1, 1, 2, window=2)[0] == \
+        4 * (1 + 2 + 2 + 2)
+
+
+def _steps(model, device):
+    """(update_actor, prefill, decode) stats of one model on ``device``:
+    seeded tensors on the CPU, ``meta`` tensors else."""
+    sh_t, sh_p = ShapeSpec("t", "train", 16, 4), ShapeSpec("p", "prefill",
+                                                           16, 2)
+    sh_d = ShapeSpec("d", "decode", 24, 2)
+    if device == "meta":
+        state, batches = ts.abstract(model), [
+            model.abstract_batch(s) for s in (sh_t, sh_p, sh_d)]
+        cache = model.abstract_cache(2, 24, pos=23)
+    else:
+        g = torch.Generator().manual_seed(0)
+        state = ts.init(model, g)
+        batches = [model.dummy_batch(g, s) for s in (sh_t, sh_p, sh_d)]
+        cache = dict(model.init_cache(g, 2, 24), pos=23)
+    stats = [hlo_cost.analyze(grpo.make_update_actor(model), state,
+                              batches[0]),
+             hlo_cost.analyze(grpo.make_prefill(model), state.params,
+                              batches[1]),
+             hlo_cost.analyze(grpo.make_decode(model), state.params, cache,
+                              batches[2])]
+    return [{k: s[k] for k in ("flops", "traffic_bytes", "ops", "kernels")}
+            for s in stats]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-moe-3b-a800m",
+                                  "mamba2-2.7b", "zamba2-7b",
+                                  "whisper-large-v3", "llama-3.2-vision-90b"])
+def test_each_family_counts_the_same_on_meta_and_cpu(arch):
+    model = build_model(reduced_config(arch))
+    meta, cpu = _steps(model, "meta"), _steps(model, "cpu")
+    assert meta == cpu
+    update, prefill, decode = meta
+    layers = model.cfg.num_layers
+    if model.cfg.family in ("dense", "moe"):
+        # remat: K1 in the forward and again in its recompute
+        assert update["kernels"]["flash_attention"]["launches"] == 2 * layers
+        assert prefill["kernels"]["flash_attention"]["launches"] == layers
+        assert decode["kernels"]["decode_attention"]["launches"] == layers
+    if model.cfg.family == "ssm":
+        assert prefill["kernels"]["ssd"]["launches"] == layers
+    assert all(s["flops"] > 0 and s["traffic_bytes"] > 0 for s in meta)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b"])
+def test_reduced_forward_flops_match_the_reference_hlo_cost(arch):
+    """The reference's XLA attention computes every query-key pair of its
+    query chunks; K1's count keeps the causal ones (and gemma2's local
+    layers only those in the window). Added back by closed form, the
+    port's forward FLOPs equal the reference's within 1 %."""
+    b, s = 2, 64
+    jm = jbuild(jreduced(arch))
+    compiled = jax.jit(lambda p, t: jm.forward(p, {"tokens": t})[0]).lower(
+        jm.abstract_params(), jax.ShapeDtypeStruct((b, s), jnp.int32)
+    ).compile()
+    ref = jcost.analyze(compiled.as_text())["flops"]
+    cfg = reduced_config(arch)
+    tm = build_model(cfg)
+    assert s % cfg.attn_q_chunk == 0          # no padded query rows
+    with torch.no_grad():
+        res = hlo_cost.analyze(lambda: tm.forward(
+            tm.abstract_params(), {"tokens": _meta(b, s, dtype=torch.int32)}))
+    k1 = res["kernels"]["flash_attention"]
+    every_pair = cfg.num_layers * 4 * b * cfg.num_heads \
+        * cfg.resolved_head_dim * s * s
+    assert k1["launches"] == cfg.num_layers
+    assert k1["flops"] < every_pair
+    assert res["flops"] - k1["flops"] + every_pair == pytest.approx(
+        ref, rel=0.01)
+
+
+# -------------------------------------------------------------- dry run
+
+DRY_CELLS = [("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"),
+             ("qwen2-0.5b", "decode_32k"), ("qwen2-0.5b", "long_500k"),
+             ("paper-qwen3-30b-a3b", "train_4k"),
+             ("mamba2-2.7b", "long_500k"), ("arctic-480b", "decode_32k")]
+
+
+def _jax_outputs(arch, shape_name):
+    """{key: (shape, dtype)} of the reference's step by ``jax.eval_shape``
+    (its int32 ``pos`` leaf left out)."""
+    jm = jbuild(jget_config(arch))
+    shape = SHAPES[shape_name]
+    batch = {k: v.sds for k, v in jm.input_specs(shape).items()}
+    if shape.kind == "prefill":
+        out = jax.eval_shape(jgrpo.make_prefill(jm), jm.abstract_params(),
+                             batch)
+    else:
+        out = jax.eval_shape(jgrpo.make_decode(jm), jm.abstract_params(),
+                             jm.abstract_cache(shape.global_batch,
+                                               shape.seq_len), batch)
+    flat = jflat({"0": out[0], "1": out[1]},
+                 is_leaf=lambda x: hasattr(x, "shape"))
+    return {k: [list(v.shape), f"torch.{jnp.dtype(v.dtype)}"]
+            for k, v in flat.items() if k != "1/pos"}
+
+
+@pytest.mark.parametrize("arch,shape_name", DRY_CELLS)
+def test_dryrun_cell_at_full_width(arch, shape_name):
+    res = dryrun.run_cell(arch, shape_name, verbose=False)
+    json.dumps(res)
+    if arch == "qwen2-0.5b" and shape_name == "long_500k":
+        assert res["status"] == "SKIP"
+        return
+    assert res["status"] == "OK" and res["mesh"] == "h100x1"
+    cfg = get_config(arch)
+    assert res["params"] == jbuild(jget_config(arch)).param_count()
+    r = res["roofline"]
+    assert r["flops"] > 0 and r["traffic_bytes"] > 0
+    assert r["compute_term_s"] == r["flops"] / mesh.HW["peak_flops_bf16"]
+    assert r["memory_term_s"] == r["traffic_bytes"] / mesh.HW["hbm_bw"]
+    assert r["collective_bytes"] == 0
+    assert 0 < r["useful_flops_ratio"] < 1.5
+    assert res["fits_one_card"] == (res["argument_bytes_total"] <= 80e9)
+    k = {name: v["launches"] for name, v in res["kernels"].items()}
+    kind = SHAPES[shape_name].kind
+    if cfg.family in ("dense", "moe"):
+        want = {"train": 2 * cfg.num_layers, "prefill": cfg.num_layers,
+                "decode": 0}[kind]
+        assert k["flash_attention"] == want
+        assert k["decode_attention"] == (cfg.num_layers if kind == "decode"
+                                         else 0)
+    if (arch, shape_name) in (("qwen2-0.5b", "prefill_32k"),
+                              ("mamba2-2.7b", "long_500k")):
+        outs = {k: v for k, v in res["outputs"].items() if k != "1/pos"}
+        assert outs == _jax_outputs(arch, shape_name)
+
+
+def test_dryrun_main_writes_cells_and_refuses_unported_meshes(tmp_path):
+    out = str(tmp_path)
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
+                 out])
+    path = tmp_path / "h100x1" / "qwen2-0.5b__decode_32k.json"
+    cell = json.loads(path.read_text())
+    assert cell["status"] == "OK" and cell["argument_bytes"]["cache"] == \
+        2 * 24 * 128 * 32768 * 2 * 64 * 2
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
+                 out])                            # cached: not recounted
+    assert json.loads(path.read_text()) == cell
+    for flag in (["--multi-pod"], ["--both-meshes"], ["--rules", "tp"]):
+        with pytest.raises(NotImplementedError, match="item 5, sharding"):
+            dryrun.main(["--all", "--out", out] + flag)
+    with pytest.raises(NotImplementedError, match="item 5, sharding"):
+        mesh.make_production_mesh()
+    assert (mesh.HW["peak_flops_bf16"], mesh.HW["hbm_bw"],
+            mesh.HW["hbm_bytes"]) == (989e12, 3.35e12, 80e9)
+    assert mesh.bound(3.35e9, 1.0) == (pytest.approx(1.0), "bytes")

@@ -639,3 +639,54 @@ def test_moe_apply_on_the_card_matches_the_cpu(dev, arch):
     torch.testing.assert_close(got.cpu().float()[rows], out.float()[rows],
                                **TOL[torch.bfloat16])
     torch.testing.assert_close(got_aux.cpu(), aux, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("qwen2-0.5b", {"head_dim": 64}),            # K1 and K2 take D >= 64
+    ("mamba2-2.7b", {})])
+def test_cost_model_counts_the_same_on_the_card_and_on_meta(dev, arch,
+                                                            overrides):
+    """``launch/hlo_cost`` over a reduced config's prefill, one decode step
+    and one update_actor: the FLOPs, bytes, ops and per-kernel launches
+    and work counted on the card equal those counted on ``meta`` tensors,
+    and each kernel's counted launches equal the change in LAUNCHES."""
+    from repro_torch.configs import ShapeSpec, reduced_config
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import grpo
+    from repro_torch.train import train_state as tst
+
+    model = build_model(reduced_config(arch).replace(**overrides))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = tst.init(model, gen, device=dev)
+    shapes = [ShapeSpec("t", "train", 32, 4), ShapeSpec("p", "prefill", 32, 2),
+              ShapeSpec("d", "decode", 40, 2)]
+    card = [(grpo.make_update_actor(model),
+             (state, model.dummy_batch(gen, shapes[0]))),
+            (grpo.make_prefill(model),
+             (state.params, model.dummy_batch(gen, shapes[1]))),
+            (grpo.make_decode(model),
+             (state.params, dict(model.init_cache(gen, 2, 40, dev), pos=39),
+              model.dummy_batch(gen, shapes[2])))]
+    meta = [(tst.abstract(model), model.abstract_batch(shapes[0])),
+            (model.abstract_params(), model.abstract_batch(shapes[1])),
+            (model.abstract_params(), model.abstract_cache(2, 40, 39),
+             model.abstract_batch(shapes[2]))]
+    keys = ("flops", "traffic_bytes", "ops", "kernels")
+    launched = []
+    for (step, args), meta_args in zip(card, meta):
+        ops.reset_launches()
+        with hlo_cost.Counter() as counter:
+            step(*args)
+            torch.cuda.synchronize()
+        on_card = counter.stats()
+        assert {k: v["launches"] for k, v in on_card["kernels"].items()} \
+            == ops.LAUNCHES
+        on_meta = hlo_cost.analyze(step, *meta_args)
+        assert {k: on_card[k] for k in keys} == {k: on_meta[k] for k in keys}
+        launched.append(sum(ops.LAUNCHES.values()))
+    # update_actor and the prefill launch K1 or K3; mamba2's decode step is
+    # plain PyTorch (no kernel), a transformer's runs K2
+    assert launched[0] > 0 and launched[1] > 0
+    assert launched[2] == (0 if model.cfg.family == "ssm"
+                           else model.cfg.num_layers)
