@@ -12,7 +12,8 @@ Phases (any failure raises and the process exits non-zero):
    them, and fail unless the SASS of the bf16 (tensor-core) K1, K2 and K3
    kernels holds ``HMMA`` instructions and ptxas reports no spills there;
    print how many clusters of K2's bf16 route stay resident at each head
-   dim (64, 112, 128) for 1 split and for the most, and fail at 0;
+   dim (16, 32, 64, 112, 128) for 1 split and for the most, and fail at
+   0;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, with timings (kernel, plain version, one library
    call as a yardstick where one exists, and the card's least time for the
@@ -34,7 +35,10 @@ Phases (any failure raises and the process exits non-zero):
    and at llama-3.2-vision-90b's (GQA 64:8, head_dim 128: K1 causal at
    the self-attention prefill, S = T = 128, and non-causal at the
    cross-attention prefill, S = 128 over the T = 1601 patch keys; K2 over
-   the 1601 cross keys and at the self-attention's last step),
+   the 1601 cross keys and at the self-attention's last step), and at
+   the examples' head widths (16 built, 12 padded to 16, each at an
+   example's shapes; 12, 16 and 32 also checked with a window, non-causal
+   over a ragged T, and K2 over a 16-split cache),
    K1's and K2's queries at 3x unit scale (``Q_SCALE``); the bounds
    count only the keys inside a window (a non-causal row all T), and the
    library call where SDPA takes no softcap is ``flex_attention``
@@ -53,10 +57,10 @@ Phases (any failure raises and the process exits non-zero):
 5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
    logits on the card against the same parameters through the plain
    versions on the CPU;
-6. the serving path at full mamba2-2.7b width, its depth cut to 32 of 64
+6. the serving path at full mamba2-2.7b width, its depth cut to 16 of 64
    layers, as phase 4, on a new Router once the qwen2 one is released;
 7. whole-path parity for mamba2-2.7b, as phase 5, at full width cut to
-   32 of its 64 layers;
+   16 of its 64 layers;
 8. the GRPO training path at full qwen2-0.5b width and depth, on a new
    ``PlexCluster`` once the mamba2 router is released: jobs A and B
    (``RLControllerGRPO``) on group 0, two steps each (generate -> pack ->
@@ -76,9 +80,9 @@ Phases (any failure raises and the process exits non-zero):
    embedding scaled by 1/64, so the random policy is not one-hot), and
    K1's autograd Function against plain autograd through the XLA-branch
    attention at the training shape;
-10. the serving path at full zamba2-7b width, its depth cut to 43 of 81
-    blocks (K3 in each of the 37 Mamba2 blocks' prefill, K1 in each of the
-    6 applications of the shared attention block, K2 in each
+10. the serving path at full zamba2-7b width, its depth cut to 29 of 81
+    blocks (K3 in each of the 25 Mamba2 blocks' prefill, K1 in each of the
+    4 applications of the shared attention block, K2 in each
     application's decode), as phase 6, once every earlier router and the
     pinned host buffers they held are released;
 11. whole-path parity for zamba2-7b, as phase 5, at full width cut to 15
@@ -199,12 +203,27 @@ Phases (any failure raises and the process exits non-zero):
     tensors: their FLOPs, bytes, ops and per-kernel launches and work
     equal exactly, each kernel's counted launches equal the change in
     ``LAUNCHES``, K1's, K2's and K3's work a launch is PERF.md's bound
-    column; then each step under the profiler, its counted FLOPs over the
-    device busy time printed as a share of the 989 TFLOP/s bf16 peak;
-30. the port's examples on the card: ``quickstart`` whole,
+    column; each step's peak of live bytes tracked on ``meta`` (the dry
+    run's temporaries and the outputs the step makes) within 10 % + 64 MiB
+    of the card's ``max_memory_allocated()`` above what was allocated
+    before it; then each step under the profiler, its counted FLOPs over
+    the device busy time printed as a share of the 989 TFLOP/s bf16 peak;
+30. the port's examples on the card at the reference's head widths
+    (quickstart 16, multiplex_rlvr 12): ``quickstart`` whole,
     ``cluster_sim``, ``multiplex_rlvr``'s Parts 1-2 through its
-    ``run(...)`` and ``train_100m --steps 2`` in a child process, each
-    with its seconds and launch counts.
+    ``run(...)``, its Parts 3-6 (Part 6's SLO trigger preempting or
+    holding the best-effort job, then admitting the queued one) and
+    ``train_100m --steps 2`` in a child process, each with its seconds
+    and launch counts;
+31. multi-token cache writes: K1 with a query offset over the first
+    cache_pos + s rows of a cache read in place, against its plain
+    version and timed (SDPA with a boolean mask, or compiled
+    ``flex_attention`` for gemma2's window and softcap, as the library
+    yardstick) at qwen2-0.5b's (GQA 14:2, D=64), gemma2-27b's (32:16,
+    D=128, softcap 50, scale 1/12, cache_pos 4,120 where the 4,096-key
+    window cuts) and zamba2-7b's (MHA 32:32, D=112) heads, s = 2, 16 and
+    128 (timed at 2 and 128); then ``attn_apply`` with s new tokens on the card, one K1 launch
+    each, against the same full-width layer on the CPU.
 
 Each phase prints its seconds, and its start to the standard error. The
 earlier paths' depth is cut where a phase's time would otherwise crowd the
@@ -257,25 +276,25 @@ Q_SCALE = 3.0
 
 # the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
 # heads of width 64, state 128, chunk 256, 64 layers. Phase 6 serves it at
-# full width cut to 32 of them, phase 14 trains it cut to 16
+# full width cut to 16 of them, phase 14 trains it cut to 16
 SSM_ARCH = "mamba2-2.7b"
 SSM_P = 512
 SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
-SSM_LAYERS = 32             # phase 6's depth, half the model's
-SSM_PARITY_LAYERS = 32      # phase 7's depth
+SSM_LAYERS = 16             # phase 6's depth, a quarter of the model's
+SSM_PARITY_LAYERS = 16      # phase 7's depth
 SSM_TRAIN_LAYERS = 16       # phase 14's depth, a quarter of the model's
 
 # the zamba2 serving path's shapes (batch 16, prompt 512, 64 new): 81 blocks,
 # 11 applications of the shared attention block (32 heads of width 112,
 # MHA) and 70 Mamba2 blocks (112 SSD heads of width 64, state 64, chunk 256).
-# Phase 10 serves it at full width cut to 43 blocks (6 applications, 37
-# Mamba2 blocks, 1 trailing); its parity phase cuts depth to 15 blocks (2
-# applications, 1 trailing block)
+# Phase 10 serves it at full width cut to 29 blocks (4 applications, 25
+# Mamba2 blocks, 1 trailing); its parity phase cuts depth to
+# 15 blocks (2 applications, 1 trailing block)
 HYB_ARCH = "zamba2-7b"
 HYB_P = 512
 HYB_H, HYB_D = 32, 112
 HYB_SSM_H, HYB_SSM_N = 112, 64
-HYB_LAYERS = 43
+HYB_LAYERS = 29
 HYB_PARITY_LAYERS = 15
 
 
@@ -349,6 +368,28 @@ VISION_H, VISION_KH, VISION_D, VISION_T = 64, 8, 128, 1601
 VISION_LAYERS, VISION_PERIOD, VISION_P = 20, 5, 128
 VISION_SCALE = 0.02             # the reference's dummy_batch
 VISION_GATE = 1.0
+
+# the examples' head widths (phase 3): quickstart's 16 (built) at its
+# update_actor (B=8 S=32) and last decode step (B=4 T=16), multiplex_rlvr's
+# 12 (padded to 16) at its generate's prefill (B=8 S=12) and last decode
+# step (B=8 T=18), 4 query and 2 KV heads; 32 (built) checked only; K2 also
+# over one long cache (B=1 T=4096: 16 splits, more than D / 4, so each row's
+# m and l go to several blocks of the cluster)
+EX_H, EX_KH = 4, 2
+EX_LONG_T = 4096
+
+# phase 31: multi-token cache writes through K1 with a query offset, at
+# full width: (label, arch, B, cache_pos, attention options); cache_pos sits
+# mid-tile (not a multiple of K1's 32-key chunks or 64-row q-tiles), and
+# gemma2's at its long round, where the 4096-key window cuts
+OFFSET_CASES = (
+    ("qwen2", "qwen2-0.5b", B, 150, {}),
+    ("gemma2", "gemma2-27b", 1, 4120,
+     dict(window=GEMMA_WINDOW, softcap=GEMMA_CAP, scale=GEMMA_SCALE)),
+    ("zamba2", "zamba2-7b", B, 550, {}),
+)
+OFFSET_S = (2, 16, 128)
+OFFSET_TIMED = (2, 128)     # the s whose K1 calls are timed
 
 # the training path (phase 8): two GRPO jobs, as JobConfig fields, at the
 # full config (TRAIN_OVERRIDES empty); phase 9's parity cuts depth only
@@ -448,7 +489,10 @@ def device_ms(torch, fn, arg_sets, reps: int) -> float:
 
 
 def n_sets(bytes_per_call: int) -> int:
-    return max(2, math.ceil(2 * L2_BYTES / bytes_per_call))
+    """Input sets enough to rotate past the L2 cache; at most 128, which
+    leaves only calls under 0.8 MB (the examples' widths) in L2, as their
+    callers find them."""
+    return max(2, min(128, math.ceil(2 * L2_BYTES / bytes_per_call)))
 
 
 def check_close(torch, name, out, expect) -> float:
@@ -679,6 +723,17 @@ def kernel_phase(torch, dev):
                                               t_vis - 1, 200, *heads)
     de["vision_self_decode"] = decode_timing(torch, randn, B, t_cap,
                                              t_cap - 1, 500, *heads)
+
+    print("phase 3: K1 and K2 at the examples' head widths (bf16, H=4 K=2: "
+          "D=16 built, D=12 padded to 16, D=32 built)")
+    fa["examples_d16"] = flash_timing(torch, randn, 8, 32, EX_H, EX_KH, 16)
+    fa["examples_d12"] = flash_timing(torch, randn, 8, 12, EX_H, EX_KH, 12)
+    de["examples_d16"] = decode_timing(torch, randn, 4, 16, 15, 500, EX_H,
+                                       EX_KH, 16)
+    de["examples_d12"] = decode_timing(torch, randn, 8, 18, 17, 500, EX_H,
+                                       EX_KH, 12)
+    fa["examples_check"], de["examples_check"] = head_width_checks(
+        torch, randn)
     for name, rows in (("flash_attention", ("zamba2", "qwen3_moe",
                                             "granite_prefill",
                                             "granite_training", "gemma2",
@@ -689,7 +744,9 @@ def kernel_phase(torch, dev):
                                             "whisper_cross",
                                             "whisper_self_prefill",
                                             "vision_self_prefill",
-                                            "vision_cross_prefill")),
+                                            "vision_cross_prefill",
+                                            "examples_d16", "examples_d12",
+                                            "examples_check")),
                        ("decode_attention", ("zamba2", "qwen3_moe",
                                              "granite", "gemma2_local",
                                              "gemma2_long_local",
@@ -697,13 +754,50 @@ def kernel_phase(torch, dev):
                                              "whisper_cross",
                                              "whisper_self",
                                              "vision_cross_decode",
-                                             "vision_self_decode"))):
+                                             "vision_self_decode",
+                                             "examples_d16", "examples_d12",
+                                             "examples_check"))):
         rec = records[name]
         rec["max_abs_err"] = max([rec["max_abs_err"]]
                                  + [rec[r]["max_abs_err"] for r in rows])
     de["max_abs_err"] = max(de["max_abs_err"],
                             de["gemma2_window_check"]["max_abs_err"])
     return records
+
+
+def head_width_checks(torch, randn):
+    """K1 and K2 at D = 12 (padded), 16 and 32 against their plain
+    versions: K1 causal with a window and non-causal over a ragged T, K2
+    at a short cache and over one long cache of 16 splits, all of the cache
+    and a window of 1,000 keys. Returns the two kernels' check records."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops, ref
+
+    g = EX_H // EX_KH
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1, k2 = [], []
+    for d in (12, 16, 32):
+        for s, t, kw in ((100, 100, dict(causal=True, window=37)),
+                         (77, 131, dict(causal=False))):
+            q, k, v = (Q_SCALE * randn(4, s, EX_H, d), randn(4, t, EX_KH, d),
+                       randn(4, t, EX_KH, d))
+            k1.append(check_close(
+                torch, f"K1 B=4 S={s} T={t} H={EX_H} K={EX_KH} D={d} {kw}",
+                ops.flash_attention(q, k, v, **kw),
+                ref.ref_attention(q, k.repeat_interleave(g, 2),
+                                  v.repeat_interleave(g, 2), **kw)))
+        for b, t, pos, kw in ((4, 40, 30, {}), (1, EX_LONG_T, 4000, {}),
+                              (1, EX_LONG_T, 4000, dict(window=1000))):
+            q, kc, vc = (Q_SCALE * randn(b, EX_H, d), randn(b, t, EX_KH, d),
+                         randn(b, t, EX_KH, d))
+            splits = dec.splits_for(b, EX_KH, t, sms)
+            k2.append(check_close(
+                torch, f"K2 B={b} T={t} H={EX_H} K={EX_KH} D={d} pos={pos} "
+                f"{kw} ({splits} splits)",
+                ops.decode_attention(q, kc, vc, pos, **kw),
+                ref.ref_decode_attention(q, kc, vc, pos, **kw)))
+    return ({"widths": [12, 16, 32], "max_abs_err": max(k1)},
+            {"widths": [12, 16, 32], "max_abs_err": max(k2)})
 
 
 def flash_timing(torch, randn, b, s, h, kh, d, iters=200, *, t=None,
@@ -810,7 +904,12 @@ def flex_call(torch, s, t, pos, *, window=0, softcap=None, scale=None):
 @functools.lru_cache(maxsize=None)
 def _compiled(torch, fn):
     """``torch.compile(fn)``, once: a new shape recompiles it, the same
-    shape reuses it."""
+    shape reuses it. Phases 3 and 31 compile it for more shapes than
+    dynamo's default of 8 recompiles, past which it would run uncompiled."""
+    config = torch._dynamo.config
+    name = "recompile_limit" if hasattr(config, "recompile_limit") \
+        else "cache_size_limit"
+    setattr(config, name, max(getattr(config, name), 64))
     return torch.compile(fn)
 
 
@@ -3224,7 +3323,14 @@ def cost_phase(torch, dev, card):
     the step) and the path's own count; K1's, K2's and K3's work a launch
     must be PERF.md's bound-column figures. Then the step once more under
     the profiler: its counted FLOPs over the device busy time, as a share
-    of the 989 TFLOP/s bf16 peak."""
+    of the 989 TFLOP/s bf16 peak.
+
+    The temporaries: each step's peak of live bytes tracked on ``meta``
+    (``hlo_cost``, the dry run's ``temp_bytes`` plus the outputs it makes)
+    must lie within 10 % + 64 MiB (the allocator's block rounding and
+    cuBLAS's workspace) of the card's ``max_memory_allocated()`` less the
+    bytes allocated before the step, after ``reset_peak_memory_stats()``;
+    the same tracker's figure on the card is printed beside them."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import hlo_cost
     from repro_torch.launch.mesh import HW
@@ -3233,16 +3339,28 @@ def cost_phase(torch, dev, card):
     for label, step, args, meta_args, want in cost_steps(torch, dev):
         print(f"phase 29: {label}")
         kops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         with hlo_cost.Counter() as counter:
             step(*args)
             torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
+        card_peak = torch.cuda.max_memory_allocated(dev) - before
         on_card = counter.stats()
         launched = dict(kops.LAUNCHES)
         t0 = time.perf_counter()
         on_meta = hlo_cost.analyze(step, *meta_args)
         t_meta = time.perf_counter() - t0
+        meta_peak = on_meta["peak_live_bytes"]
+        print(f"  temporaries: meta peak above the arguments {meta_peak} B, "
+              f"card max_memory_allocated less before {card_peak} B "
+              f"(ratio {meta_peak / card_peak}), the card's tracked peak "
+              f"{on_card['peak_live_bytes']} B")
+        if abs(meta_peak - card_peak) > 0.1 * card_peak + 64 * 2 ** 20:
+            fail(f"{label}: meta peak {meta_peak} B against the card's "
+                 f"{card_peak} B")
         counted = {k: v["launches"] for k, v in on_card["kernels"].items()}
         print(f"  card ({t_card} s counted): {on_card['flops']} FLOP, "
               f"{on_card['traffic_bytes']} B, {on_card['ops']} ops, "
@@ -3273,12 +3391,17 @@ def cost_phase(torch, dev, card):
               f"{HW['peak_flops_bf16'] / 1e12:.0f} TFLOP/s bf16 ({card})")
 
 
-def examples_phase(torch, tmp):
-    """Phase 30: the port's examples on the card, each with the kernels'
-    launch counts set to 0 before it and read after: quickstart whole,
-    cluster_sim (host code: it launches nothing), multiplex_rlvr's Parts
-    1-2 through its ``run(...)``, and train_100m --steps 2 in a child
-    process. Each prints its seconds; no failure is caught."""
+def examples_phase(torch, tmp, records):
+    """Phase 30: the port's examples on the card, at the reference's head
+    widths (quickstart 16, multiplex_rlvr 12, padded to 16 in K1 and K2),
+    each with the kernels' launch counts set to 0 before it and read
+    after: quickstart whole, cluster_sim (host code: it launches nothing),
+    multiplex_rlvr's Parts 1-2 through its ``run(...)``, Parts 3, 4 and 6
+    (Part 6 must preempt or hold the best-effort lab-1 and then admit
+    lab-2) and Part 5 (a virtual clock: no launch), and train_100m
+    --steps 2 in a child process. Each prints its seconds; no failure is
+    caught. The kernels' ``examples_d16`` rows take quickstart's launches,
+    the ``examples_d12`` rows those of multiplex_rlvr's six parts."""
     from repro_torch.examples import cluster_sim, multiplex_rlvr, quickstart
     from repro_torch.kernels import ops as kops
 
@@ -3293,8 +3416,13 @@ def examples_phase(torch, tmp):
         for name in kernels:
             if kops.LAUNCHES[name] == 0:
                 fail(f"{label} launched no {name}")
+        return dict(kops.LAUNCHES)
 
-    example("quickstart", lambda: quickstart.main([]))
+    def rows(width, launches):
+        for name in ("flash_attention", "decode_attention"):
+            records[name][f"examples_d{width}"]["launches"] = launches[name]
+
+    rows(16, example("quickstart", lambda: quickstart.main([])))
     example("cluster_sim", lambda: cluster_sim.main([]), kernels=())
 
     def parts_1_2():
@@ -3308,7 +3436,39 @@ def examples_phase(torch, tmp):
             if steps != {"alpha": 3, "beta": 3}:
                 fail(f"multiplex_rlvr run({kw}) billed {steps}")
 
-    example("multiplex_rlvr Parts 1-2", parts_1_2)
+    parts = [example("multiplex_rlvr Parts 1-2", parts_1_2)]
+
+    def part3():
+        cluster = multiplex_rlvr.part3_serve_mode()
+        steps = {j: cluster.billing[j].steps
+                 for j in ("alpha", "beta", "gamma")}
+        print(f"  Part 3 billed steps {steps}")
+        if steps["alpha"] != 3 or steps["beta"] != 3 or not steps["gamma"]:
+            fail(f"multiplex_rlvr Part 3 billed {steps}")
+
+    def part4():
+        cluster = multiplex_rlvr.part4_auto_placement()
+        phases = {j: cluster.director.job_state(j).phase
+                  for j in ("alpha", "beta", "delta")}
+        if phases["alpha"] != "warm" or phases["beta"] != "warm":
+            fail(f"multiplex_rlvr Part 4 phases {phases}")
+
+    def part6():
+        cluster = multiplex_rlvr.part6_multi_tenant_service()
+        events = [e for e in cluster.director.events
+                  if e["event"] in ("slo_preempt", "slo_hold")]
+        print(f"  Part 6 trigger 4: {events}")
+        if not events or events[0]["job"] != "lab-1" or \
+                "lab-2" not in cluster.controllers:
+            fail("multiplex_rlvr Part 6 neither preempted nor held lab-1, "
+                 "or never admitted lab-2")
+
+    parts += [example("multiplex_rlvr Part 3", part3),
+              example("multiplex_rlvr Part 4", part4),
+              example("multiplex_rlvr Part 5",
+                      multiplex_rlvr.part5_drift_reconciliation, kernels=()),
+              example("multiplex_rlvr Part 6", part6)]
+    rows(12, {name: sum(p[name] for p in parts) for name in parts[0]})
 
     argv = ["--steps", "2", "--ckpt-dir", os.path.join(tmp, "train_100m")]
     print(f"phase 30: python -m repro_torch.examples.train_100m "
@@ -3337,6 +3497,141 @@ def examples_phase(torch, tmp):
             not launches["flash_attention"] or \
             not launches["decode_attention"]:
         fail(f"train_100m: {lines[-4:]}")
+
+
+def offset_timing(torch, randn, b, s, q_off, t_cap, h, kh, d, iters=200,
+                  timed=True, **opts):
+    """K1 with a query offset: ``s`` queries at positions q_off.. over the
+    first t = q_off + s rows of (B, T_cap, K, D) caches, read in place
+    (views), checked against its plain version and, if ``timed``, timed
+    beside its bound (the keys attended: from the window's first on) and
+    the library call: SDPA with a boolean mask over the sliced caches, or
+    where SDPA takes no softcap ``flex_attention`` compiled."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import bound
+
+    g, t = h // kh, q_off + s
+    window = opts.get("window", 0)
+    flops, per_call = ops.flash_attention_work(b, s, t, h, kh, d, 2,
+                                               window=window, q_off=q_off)
+    sets = [(Q_SCALE * randn(b, s, h, d), randn(b, t_cap, kh, d),
+             randn(b, t_cap, kh, d))
+            for _ in range(n_sets(per_call) if timed else 1)]
+    shape = (f"B={b} S={s} q_off={q_off} T={t} of {t_cap} H={h} K={kh} "
+             f"D={d}" + "".join(f" {k} {v}" for k, v in opts.items()))
+
+    def kernel(q, kc, vc):
+        return ops.flash_attention(q, kc[:, :t], vc[:, :t], q_off=q_off,
+                                   **opts)
+
+    def plain(q, kc, vc):
+        return ref.ref_attention(q, kc[:, :t].repeat_interleave(g, 2),
+                                 vc[:, :t].repeat_interleave(g, 2),
+                                 q_off=q_off, **opts)
+
+    err = check_close(torch, shape, kernel(*sets[0]), plain(*sets[0]))
+    if not timed:
+        return dict(shape=shape, max_abs_err=err)
+    if opts.get("softcap") or window:
+        flex = flex_call(torch, s, t, q_off, **opts)
+
+        def library(q, kc, vc):
+            return flex(q, kc[:, :t], vc[:, :t])
+
+        library.label = flex.label
+    else:
+        mask = (torch.arange(t, device=sets[0][0].device)[None, :]
+                <= q_off + torch.arange(s, device=sets[0][0].device)[:, None])
+
+        def library(q, kc, vc):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc[:, :t].transpose(1, 2),
+                vc[:, :t].transpose(1, 2), attn_mask=mask, enable_gqa=True,
+                scale=opts.get("scale")).transpose(1, 2)
+
+        library.label = "sdpa (boolean mask)"
+    t_kernel = time_ms(torch, kernel, sets, iters)
+    t_plain = time_ms(torch, plain, sets, max(4, iters // 10))
+    d_kernel = device_ms(torch, kernel, sets, 20)
+    t_lib, d_lib = library_times(torch, library, sets, iters, 20)
+    t_bound, by = bound(per_call, flops)
+    print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
+          f"plain {t_plain} ms, {library.label} {t_lib} ms (device "
+          f"{d_lib} ms), bound {t_bound} ms ({by}: {per_call} B, {flops} "
+          f"FLOP)")
+    return dict(shape=shape, max_abs_err=err, ms=t_kernel,
+                device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
+                bound_by=by, library_ms=t_lib, library_device_ms=d_lib,
+                library=library.label)
+
+
+def offset_phase(torch, dev, records):
+    """Phase 31: multi-token cache writes. For each of OFFSET_CASES and
+    each s of OFFSET_S, K1 with a query offset against its plain version,
+    timed at the s of OFFSET_TIMED (``offset_timing``); then ``attn_apply`` with those s new
+    tokens at cache_pos on the card (K1 over the cache read in place)
+    against the same layer on the CPU (the port of the reference's XLA
+    branch), through one full-width attention layer of the model with
+    seeded weights at B=2, with K1's launches counted from 0: exactly one
+    a call, and no other kernel. The outputs and the written caches are
+    held at the bf16 tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import common
+    from repro_torch.models import layers as tl
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    fa = records["flash_attention"]
+    errs = []
+    for label, arch, b, cache_pos, opts in OFFSET_CASES:
+        cfg = get_config(arch)
+        h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        t_cap = cache_pos + max(OFFSET_S) + 64
+        window = opts.get("window", 0)
+        print(f"phase 31: {arch} (H={h} K={kh} D={d}) cache_pos {cache_pos}"
+              f" of {t_cap} {opts}")
+        params = common.init_params(gen, tl.attn_param_specs(cfg), dev)
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        for s in OFFSET_S:
+            row = offset_timing(torch, randn, b, s, cache_pos, t_cap, h, kh,
+                                d, iters=100 if b == 1 else 200,
+                                timed=s in OFFSET_TIMED, **opts)
+            x = Q_SCALE * randn(2, s, cfg.d_model)
+            live = (torch.arange(t_cap, device=dev) < cache_pos)[
+                None, :, None, None]
+            k0 = randn(2, t_cap, kh, d) * live
+            v0 = randn(2, t_cap, kh, d) * live
+            pos = (cache_pos + torch.arange(s, device=dev))[None].expand(2, s)
+            cache = {"k": k0.clone(), "v": v0.clone()}
+            kops.reset_launches()
+            out, _ = tl.attn_apply(params, cfg, x, positions=pos,
+                                   window=window, cache=cache,
+                                   cache_pos=cache_pos)
+            torch.cuda.synchronize()
+            launched = dict(kops.LAUNCHES)
+            if launched != {"flash_attention": 1, "decode_attention": 0,
+                            "ssd": 0}:
+                fail(f"attn_apply at {label} s={s} launched {launched}")
+            cpu_cache = {"k": k0.cpu(), "v": v0.cpu()}
+            expect, _ = tl.attn_apply(cpu_params, cfg, x.cpu(),
+                                      positions=pos.cpu(), window=window,
+                                      cache=cpu_cache, cache_pos=cache_pos)
+            what = f"attn_apply {arch} B=2 s={s} cache_pos={cache_pos}"
+            row["attn_apply_max_abs_err"] = check_close(
+                torch, what, out.cpu(), expect)
+            for n in ("k", "v"):
+                check_close(torch, f"{what} cache {n}", cache[n].cpu(),
+                            cpu_cache[n])
+            row["launches"] = launched["flash_attention"]
+            errs += [row["max_abs_err"], row["attn_apply_max_abs_err"]]
+            fa[f"offset_{label}_s{s}"] = row
+        del params, cpu_params
+    fa["max_abs_err"] = max([fa["max_abs_err"]] + errs)
 
 
 def path_launches(records, launches, want, path=None):
@@ -3554,8 +3849,11 @@ def main():
             cost_phase(torch, dev, card)
             release(torch, dev, "cost-model steps")
         with phase_seconds("phase 30"):
-            examples_phase(torch, tmp)
+            examples_phase(torch, tmp, records)
             release(torch, dev, "examples")
+        with phase_seconds("phase 31"):
+            offset_phase(torch, dev, records)
+            release(torch, dev, "multi-token cache writes")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -10,8 +10,8 @@
 3. The same chain against a live ``serve()`` plane: submit from client
    code while the dispatch workers run in the background.
 
-The sizes are the reference's (``examples/quickstart.py``) but for the
-head width: 64, not 16, since K1 and K2 take head_dim 64, 112 and 128.
+The sizes are the reference's (``examples/quickstart.py``), head width 16
+included.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 (on the CUDA card unless ``--device`` is given)
@@ -29,7 +29,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.rl import grpo
 from repro_torch.train import train_state as ts
 
-HEAD_DIM = 64        # the reference's reduced config has 16; K1 takes 64+
+HEAD_DIM = 16        # the reference's reduced config's
 
 
 def main(argv=None):

@@ -37,7 +37,7 @@ _L = ctypes.c_longlong
 # addresses are never cut to a 32-bit int
 SIGNATURES = {
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, _I, _I, _F, _P],
+                                  _F, _I, _I, _F, _I, _L, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _I, _F, _I, _P],
     "repro_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

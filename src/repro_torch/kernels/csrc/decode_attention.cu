@@ -96,7 +96,12 @@
 // lane rows (up to 32 KB) staged as f32, probabilities kept in f32. It is
 // on no serving path.
 //
-// Head dims 64, 112 (zamba2's shared attention block) and 128 are built.
+// Head dims 16, 32, 64, 112 (zamba2's shared attention block) and 128 are
+// built; the wrapper pads any other D up to the next of them with zeros
+// (a copy of the cache each step, tolerable only at the examples' widths).
+// Below D = 64 a row has fewer than MAX_SPLITS four-dim groups, so the
+// thread with dims 4i..4i+3 sends the row's m and l to every block i
+// (mod D / 4) of the cluster, not to block i alone.
 // zamba2 decodes MHA (G = 1): one of the 16 rows of each m16 tile is live,
 // and at B = 16 with 32 KV heads the grid of 512 blocks takes one split.
 // At D = 112 the split route's shared memory is 70,912 B a block.
@@ -304,9 +309,9 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                 float softcap, int span) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   // the combine moves four dims a thread, and the thread with dims
-  // 4i..4i+3 of a row sends that row's m and l to block i of the cluster
-  static_assert(D % 4 == 0 && D / 4 >= MAX_SPLITS,
-                "every split receives m and l from one thread of a row");
+  // 4i..4i+3 of a row sends that row's m and l to the blocks i (mod D / 4)
+  // of the cluster
+  static_assert(D % 4 == 0, "the combine moves four dims a thread");
   static_assert((D / 8) % 2 == 0, "O's n-tiles pair up for ldmatrix.x4");
   using L = Layout<D>;
   static_assert(L::LD % 8 == 0 && L::WLD % 4 == 0,
@@ -550,9 +555,16 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     }
     *reinterpret_cast<float4*>(cluster.map_shared_rank(recv_acc, e / per) +
                                rank * per + e % per) = a;
-    if (d / 4 < nsplit) {
-      cluster.map_shared_rank(recv_m, d / 4)[rank * 16 + r] = mx;
-      cluster.map_shared_rank(recv_l, d / 4)[rank * 16 + r] = ls;
+    if constexpr (D / 4 >= MAX_SPLITS) {
+      if (d / 4 < nsplit) {
+        cluster.map_shared_rank(recv_m, d / 4)[rank * 16 + r] = mx;
+        cluster.map_shared_rank(recv_l, d / 4)[rank * 16 + r] = ls;
+      }
+    } else {
+      for (int i = d / 4; i < nsplit; i += D / 4) {
+        cluster.map_shared_rank(recv_m, i)[rank * 16 + r] = mx;
+        cluster.map_shared_rank(recv_l, i)[rank * 16 + r] = ls;
+      }
     }
   }
   cluster.sync();   // every block's partial has landed with its owners
@@ -666,9 +678,13 @@ extern "C" int repro_decode_attention(
 #define REPRO_BF16(DIM)                                                      \
   split::launch<DIM>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale,    \
                      window, softcap, splits, st)
+  if (dtype == 0 && D == 16) return REPRO_F32(16);
+  if (dtype == 0 && D == 32) return REPRO_F32(32);
   if (dtype == 0 && D == 64) return REPRO_F32(64);
   if (dtype == 0 && D == 112) return REPRO_F32(112);
   if (dtype == 0 && D == 128) return REPRO_F32(128);
+  if (dtype == 1 && D == 16) return REPRO_BF16(16);
+  if (dtype == 1 && D == 32) return REPRO_BF16(32);
   if (dtype == 1 && D == 64) return REPRO_BF16(64);
   if (dtype == 1 && D == 112) return REPRO_BF16(112);
   if (dtype == 1 && D == 128) return REPRO_BF16(128);
@@ -680,6 +696,8 @@ extern "C" int repro_decode_attention(
 // The bf16 route's resident clusters of `splits` blocks at head dim D
 // (cudaOccupancyMaxActiveClusters) into *out. Returns a cudaError_t.
 extern "C" int repro_decode_max_active_clusters(int D, int splits, int* out) {
+  if (D == 16) return split::max_clusters<16>(splits, out);
+  if (D == 32) return split::max_clusters<32>(splits, out);
   if (D == 64) return split::max_clusters<64>(splits, out);
   if (D == 112) return split::max_clusters<112>(splits, out);
   if (D == 128) return split::max_clusters<128>(splits, out);

@@ -6,9 +6,13 @@
 //
 // What it computes: out = softmax(mask(softcap(scale * q k^T))) v with an
 // online softmax, per (batch, query head). q is (B, S, H, D); k and v are
-// (B, T, KH, D) with KH | H. Query row s and key t sit at positions s and t
-// (both from 0), as in the TPU kernel. Masks: causal (t <= s), sliding
-// window (t > s - window when window > 0), logit softcap (softcap > 0).
+// (B, T, KH, D) with KH | H. Query row s sits at position q_off + s and key
+// t at position t: q_off = 0 is the TPU kernel's prefill; q_off > 0 is a
+// multi-token cache write, whose s new queries attend the first
+// T = q_off + s rows of a (B, T_cap, KH, D) cache read in place (the K/V
+// batch stride kv_bstride is T_cap KH D elements, not T KH D). Masks, at
+// query position p: causal (t <= p), sliding window (t > p - window when
+// window > 0), logit softcap (softcap > 0).
 // Masked scores are NEG_INF = -1e30 and a row whose running sum is 0 writes
 // 0, as _flash_kernel does; in the bf16 route a masked score adds nothing
 // to the sum even before the row's first unmasked key, so a row with no
@@ -51,7 +55,11 @@
 // staged as f32 in shared memory, probabilities kept in f32. It is on no
 // serving path.
 //
-// Head dims 64, 112 (zamba2's shared attention block) and 128 are built.
+// Head dims 16, 32, 64, 112 (zamba2's shared attention block) and 128 are
+// built; the wrapper pads any other D up to the next of them with zeros.
+// At D = 16 and 32 the bf16 route takes one and two k-steps of Q K^T; its
+// padded rows are 48 and 80 B, so the eight rows an ldmatrix reads start in
+// distinct bank quads there too.
 // At D = 112 = 7 x 16 the bf16 route takes 7 k-steps of Q K^T and 14
 // n-tiles of O (7 ldmatrix.x4 pairs); its padded rows are 240 B, so the
 // eight rows an ldmatrix reads start in bank quads 0, 7, 6, ..., 1, and
@@ -65,7 +73,11 @@
 // in a one-wave grid, then each warp's chain of chunks (variants without
 // the P V products or without the exponentials took as long). It re-reads
 // K/V once per q-tile (every 64 query rows) from L2;
-// wgmma and TMA would matter only for long prompts.
+// wgmma and TMA would matter only for long prompts. A multi-token cache
+// write (q_off > 0: S of 2 to 128 new queries over a cache prefix of T keys)
+// reads all T keys for few queries, so, like K2, it is bound by the cache
+// bytes; one block covers 64 queries, so each (q-tile, head) reads the
+// prefix once, and a window that cuts starts the key loop at the window.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -88,7 +100,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int S, int T_len, int H, int KH, float scale, int causal,
-                 int window, float softcap) {
+                 int window, float softcap, int q_off, long long kv_bstride) {
   // keys per tile: up to 32 KB of f32 K and V, in whole CHUNKs (at
   // D = 112, 4096 / D = 36 would leave a ragged chunk that reads past the
   // tile): 64 at D = 64, 32 at D = 112 and 128
@@ -105,14 +117,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / KH);
   const int tid = threadIdx.x;
   const int part = tid % TPR;      // this thread's dims: part + TPR * i
-  const int qpos = q0 + tid / TPR;
+  const int qrow = q0 + tid / TPR;  // this thread's query row
+  const int qpos = q_off + qrow;    // and its position
 
   float qr[DPT];
   float acc[DPT];
-  const T* qp = q + ((static_cast<size_t>(b) * S + qpos) * H + h) * D;
+  const T* qp = q + ((static_cast<size_t>(b) * S + qrow) * H + h) * D;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = qpos < S ? to_f32(qp[part + TPR * i]) : 0.f;
+    qr[i] = qrow < S ? to_f32(qp[part + TPR * i]) : 0.f;
     acc[i] = 0.f;
   }
   float m = NEG_INF;
@@ -120,12 +133,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // keys any row of this tile can see
   int kv_hi = T_len;
-  if (causal) kv_hi = min(kv_hi, q0 + BQ);
-  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  if (causal) kv_hi = min(kv_hi, q_off + q0 + BQ);
+  const int kv_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   const size_t t_stride = static_cast<size_t>(KH) * D;
-  const T* kb = k + (static_cast<size_t>(b) * T_len * KH + kh) * D;
-  const T* vb = v + (static_cast<size_t>(b) * T_len * KH + kh) * D;
+  const T* kb = k + b * kv_bstride + static_cast<size_t>(kh) * D;
+  const T* vb = v + b * kv_bstride + static_cast<size_t>(kh) * D;
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += BK) {
     __syncthreads();               // the previous tile is consumed
@@ -175,9 +188,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (qpos < S) {
+  if (qrow < S) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* op = o + ((static_cast<size_t>(b) * S + qpos) * H + h) * D;
+    T* op = o + ((static_cast<size_t>(b) * S + qrow) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) store(op + part + TPR * i, acc[i] * inv);
   }
@@ -186,12 +199,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T_len, int H, int KH, float scale,
-                   int causal, int window, float softcap, cudaStream_t stream) {
+                   int causal, int window, float softcap, int q_off,
+                   long long kv_bstride, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, T_len, H, KH, scale,
-      causal, window, softcap);
+      causal, window, softcap, q_off, kv_bstride);
   return cudaGetLastError();
 }
 
@@ -235,7 +249,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              int S, int T_len, int H, int KH, float scale, int causal,
-             int window, float softcap) {
+             int window, float softcap, int q_off, long long kv_bstride) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = ld<D>();
   constexpr int KD = D / 16;       // k-steps of Q K^T
@@ -266,18 +280,19 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int rq = q0 + warp * 16;   // this warp's first row
-  const int row0 = rq + g;         // this lane's rows: row0, row0 + 8
+  const int pq = q_off + rq;       // and its position
+  const int row0 = pq + g;         // this lane's positions: row0, row0 + 8
 
   // keys any row of this tile can see
   int kv_hi = T_len;
-  if (causal) kv_hi = min(kv_hi, q0 + BQ);
-  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  if (causal) kv_hi = min(kv_hi, q_off + q0 + BQ);
+  const int kv_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   const size_t q_ts = static_cast<size_t>(H) * D;
   const size_t kv_ts = static_cast<size_t>(KH) * D;
   const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * S * H + h) * D;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * T_len * KH + kh) * D;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * T_len * KH + kh) * D;
+  const __nv_bfloat16* kb = k + b * kv_bstride + static_cast<size_t>(kh) * D;
+  const __nv_bfloat16* vb = v + b * kv_bstride + static_cast<size_t>(kh) * D;
 
   if (tid == 0)
     for (int i = 0; i < SLOTS; ++i) tc::mbar_init(&full[i], THREADS);
@@ -333,8 +348,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* vt = vs + (i % SLOTS) * SUB * LD;
     // a chunk masked whole for this warp's 16 rows is skipped, as
     // _flash_kernel skips masked blocks
-    const bool skip = (causal && kb0 > rq + 15) ||
-                      (window > 0 && kb0 + SUB - 1 <= rq - window);
+    const bool skip = (causal && kb0 > pq + 15) ||
+                      (window > 0 && kb0 + SUB - 1 <= pq - window);
     if (!skip) {
       // S = Q K^T for this warp's 16 rows and the chunk's keys
       float s[NS][4];
@@ -347,7 +362,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       bool half_live[NS / 2];
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np)
-        half_live[np] = !(causal && kb0 + 16 * np > rq + 15);
+        half_live[np] = !(causal && kb0 + 16 * np > pq + 15);
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
@@ -366,8 +381,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       // key); a chunk that no mask reaches for this warp's rows skips the
       // tests
       const bool masked = kb0 + SUB > kv_hi ||
-                          (causal && kb0 + SUB - 1 > rq) ||
-                          (window > 0 && kb0 <= rq + 15 - window);
+                          (causal && kb0 + SUB - 1 > pq) ||
+                          (window > 0 && kb0 <= pq + 15 - window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
@@ -480,7 +495,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T_len, int H, int KH, float scale,
-                   int causal, int window, float softcap, cudaStream_t stream) {
+                   int causal, int window, float softcap, int q_off,
+                   long long kv_bstride, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t err = tc::set_smem_once(
       reinterpret_cast<const void*>(flash_fwd_tc<D>), smem_bytes<D>(),
@@ -490,7 +506,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_tc<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      T_len, H, KH, scale, causal, window, softcap);
+      T_len, H, KH, scale, causal, window, softcap, q_off, kv_bstride);
   return cudaGetLastError();
 }
 
@@ -498,25 +514,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route).
-// Returns a cudaError_t (0 = launched).
+// Query row i sits at position q_off + i; the K and V rows of sequence b
+// start kv_bstride elements after those of b - 1 (T_len KH D for a whole
+// (B, T_len, KH, D) tensor). Returns a cudaError_t (0 = launched).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int T_len, int H, int KH, int D, int dtype, float scale, int causal,
-    int window, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || T_len <= 0 || KH <= 0 || H % KH != 0)
+    int window, float softcap, int q_off, long long kv_bstride,
+    void* stream) {
+  if (B <= 0 || S <= 0 || T_len <= 0 || KH <= 0 || H % KH != 0 ||
+      q_off < 0 || kv_bstride < static_cast<long long>(T_len) * KH * D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
-  if (dtype == 0 && D == 112)
-    return launch<float, 112>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
-  if (dtype == 1 && D == 64)
-    return tcr::launch<64>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
-  if (dtype == 1 && D == 112)
-    return tcr::launch<112>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
-  if (dtype == 1 && D == 128)
-    return tcr::launch<128>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, softcap, st);
+#define REPRO_F32(DIM)                                                     \
+  launch<float, DIM>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window, \
+                     softcap, q_off, kv_bstride, st)
+#define REPRO_BF16(DIM)                                                    \
+  tcr::launch<DIM>(q, k, v, o, B, S, T_len, H, KH, scale, causal, window,  \
+                   softcap, q_off, kv_bstride, st)
+  if (dtype == 0 && D == 16) return REPRO_F32(16);
+  if (dtype == 0 && D == 32) return REPRO_F32(32);
+  if (dtype == 0 && D == 64) return REPRO_F32(64);
+  if (dtype == 0 && D == 112) return REPRO_F32(112);
+  if (dtype == 0 && D == 128) return REPRO_F32(128);
+  if (dtype == 1 && D == 16) return REPRO_BF16(16);
+  if (dtype == 1 && D == 32) return REPRO_BF16(32);
+  if (dtype == 1 && D == 64) return REPRO_BF16(64);
+  if (dtype == 1 && D == 112) return REPRO_BF16(112);
+  if (dtype == 1 && D == 128) return REPRO_BF16(128);
+#undef REPRO_F32
+#undef REPRO_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,8 +9,10 @@ the reference's XLA decode (``repro/models/layers.py:296-302``), which the
 TPU kernel lacks. bf16 inputs take the split-KV
 route: :func:`splits_for` cuts the key axis into slices, one block each,
 whose partial softmax results are combined on the chip inside one
-thread-block cluster. f32 inputs take the first CUDA-core kernel. Only
-CUDA tensors are accepted;
+thread-block cluster. f32 inputs take the first CUDA-core kernel. A head
+width that is not built runs padded with zeros to the next built one, as
+K1's (``flash_attention.padded_dim``): that copies the cache each step,
+tolerable only at the examples' widths. Only CUDA tensors are accepted;
 :func:`repro_torch.kernels.ops.decode_attention` is the wrapper that
 sends CPU tensors to the plain version.
 """
@@ -23,9 +25,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, pad_head_dim,
+                                                 padded_dim)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128)
 MAX_GROUP = 16          # query heads per KV head
 MAX_SPLITS = 16         # blocks a cluster: the H100's non-portable limit
 CHUNK = 16              # keys a warp takes at a time
@@ -77,13 +80,17 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
             or v_cache.dtype != q.dtype:
         raise ValueError(f"decode_attention takes f32 or bf16, got "
                          f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
-    if d not in HEAD_DIMS or k_cache.shape != (b, t, kh, d) \
+    if k_cache.shape != (b, t, kh, d) \
             or v_cache.shape != k_cache.shape or h % kh \
             or h // kh > MAX_GROUP:
         raise ValueError(f"decode_attention shapes q {tuple(q.shape)} "
                          f"cache {tuple(k_cache.shape)}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention needs contiguous caches")
+    width = padded_dim(d)
+    scale = d ** -0.5 if scale is None else scale
+    q, k_cache, v_cache = (pad_head_dim(x, width)
+                           for x in (q, k_cache, v_cache))
     q = q.contiguous()
     splits = 1
     if q.dtype == torch.bfloat16:
@@ -95,14 +102,13 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     if window < 0 or (softcap is not None and softcap <= 0):
         raise ValueError(f"decode_attention: window {window}, softcap "
                          f"{softcap}")
-    scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, t, h, kh, d, _DTYPES[q.dtype], int(pos),
+            out.data_ptr(), b, t, h, kh, width, _DTYPES[q.dtype], int(pos),
             float(scale), int(window), float(softcap or 0.0), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
-    return out
+    return out if width == d else out[..., :d].contiguous()

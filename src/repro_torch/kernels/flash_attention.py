@@ -10,6 +10,15 @@ kernel rounds it); f32 takes the CUDA-core kernel. Only CUDA tensors are
 accepted; :func:`repro_torch.kernels.ops.flash_attention` is the wrapper
 that sends CPU tensors to the plain version.
 
+A query offset ``q_off`` puts query row i at position ``q_off + i``: a
+multi-token cache write attends the first ``q_off + S`` rows of its
+(B, T_cap, K, D) cache, passed as the view ``cache[:, :q_off + S]`` and
+read in place through its batch stride. The kernel is built at the head
+widths :data:`HEAD_DIMS`; any other width up to 128 runs padded with zero
+columns to the next one (:func:`padded_dim`), which adds nothing to the
+scores, at the true width's scale, and the padded output columns are
+dropped.
+
 K1 has no backward kernel, and neither has the TPU kernel: the JAX package
 differentiates the XLA branch of ``attention_core``
 (``repro/models/layers.py:144-180``; ``repro/rl/grpo.py:91,102``), never
@@ -32,13 +41,42 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)     # the widths K1 and K2 are built at
+
+
+def padded_dim(d: int) -> int:
+    """The built head width a width-``d`` call runs at: ``d`` itself, or
+    the next wider one of :data:`HEAD_DIMS`, its extra columns zero."""
+    for width in HEAD_DIMS:
+        if width >= d:
+            return width
+    raise ValueError(f"head_dim {d} is wider than {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x, width: int):
+    """``x`` with its last dimension zero-padded to ``width`` (a copy), or
+    ``x`` itself where it is that wide already."""
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
+
+
+def _rows_in_place(k, v) -> bool:
+    """Whether K1 reads k and v where they lie: each sequence's (T, K, D)
+    rows contiguous, one batch stride for both, and for the bf16 route's
+    16-byte copies 16-byte aligned starts."""
+    t, kh, d = k.shape[1:]
+    if k.stride()[1:] != (kh * d, d, 1) or v.stride() != k.stride() or \
+            (k.shape[0] > 1 and k.stride(0) < t * kh * d):
+        return False
+    step = k.stride(0) * k.element_size() if k.shape[0] > 1 else 0
+    return k.dtype != torch.bfloat16 or not any(
+        x.data_ptr() % 16 or step % 16 for x in (k, v))
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: Optional[float] = None,
-                        scale: Optional[float] = None):
-    """q: (B, S, H, D); k, v: (B, T, K, D) with K | H. Returns (B, S, H, D)."""
+                        scale: Optional[float] = None, q_off: int = 0):
+    """q: (B, S, H, D); k, v: (B, T, K, D) with K | H, any batch stride;
+    query row i at position ``q_off + i``. Returns (B, S, H, D)."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -46,24 +84,30 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_fwd takes f32 or bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS or k.shape != (b, t, kh, d) or v.shape != k.shape \
-            or h % kh:
+    if k.shape != (b, t, kh, d) or v.shape != k.shape or h % kh:
         raise ValueError(f"flash_attention_fwd shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q_off < 0:
+        raise ValueError(f"flash_attention_fwd: q_off {q_off}")
+    width = padded_dim(d)
     scale = d ** -0.5 if scale is None else scale
+    q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
+    q = q.contiguous()
+    if not _rows_in_place(k, v):
+        k, v = k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, h, kh, d, _DTYPES[q.dtype], float(scale), int(causal),
-            int(window), float(softcap or 0.0),
+            b, s, t, h, kh, width, _DTYPES[q.dtype], float(scale),
+            int(causal), int(window), float(softcap or 0.0), int(q_off),
+            k.stride(0) if b > 1 else t * kh * width,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd")
-    return out
+    return out if width == d else out[..., :d].contiguous()
 
 
 def xla_attention(q, k, v, *, causal: bool, window: int = 0,

@@ -92,11 +92,12 @@ def _counted(counters, name: str, work: Tuple[int, int]):
 
 # ------------------------------------------------------------------ work
 
-def _attended_keys(s: int, t: int, causal: bool, window: int) -> int:
-    """Query-key pairs a prefill attends: row i (position i) sees key j
-    (position j < t) where j <= i when causal and i - window < j when
-    ``window`` > 0, as ``ref.ref_attention`` masks them."""
-    i = np.arange(s, dtype=np.int64)
+def _attended_keys(s: int, t: int, causal: bool, window: int,
+                   q_off: int = 0) -> int:
+    """Query-key pairs a prefill attends: row i (position p = q_off + i)
+    sees key j (position j < t) where j <= p when causal and p - window <
+    j when ``window`` > 0, as ``ref.ref_attention`` masks them."""
+    i = q_off + np.arange(s, dtype=np.int64)
     hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
     lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
     return int(np.clip(hi - lo + 1, 0, None).sum())
@@ -104,12 +105,17 @@ def _attended_keys(s: int, t: int, causal: bool, window: int) -> int:
 
 def flash_attention_work(b: int, s: int, t: int, h: int, kh: int, d: int,
                          itemsize: int, *, causal: bool = True,
-                         window: int = 0) -> Tuple[int, int]:
+                         window: int = 0, q_off: int = 0) -> Tuple[int, int]:
     """K1's (FLOPs, bytes): QK^T and PV over the pairs the masks keep (a
     causal row's keys up to its own, those in the window), 2 FLOPs a
-    multiply-add; q, k, v read once and the output written once."""
-    flops = 4 * b * h * d * _attended_keys(s, t, causal, window)
-    return flops, (2 * b * s * h * d + 2 * b * t * kh * d) * itemsize
+    multiply-add; q read and the output written once, and the K and V
+    rows read once: all T of them, but for a query offset (a multi-token
+    cache write) whose window starts past key 0, from the window's first
+    key on."""
+    flops = 4 * b * h * d * _attended_keys(s, t, causal, window, q_off)
+    first = max(0, q_off - window + 1) if window else 0
+    return flops, (2 * b * s * h * d + 2 * b * (t - first) * kh * d) \
+        * itemsize
 
 
 def decode_attention_work(b: int, h: int, kh: int, d: int, pos: int,
@@ -148,44 +154,53 @@ class _FlashAttention(torch.autograd.Function):
     """K1 forward; backward through the XLA attention's autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk):
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk,
+                q_off):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         scale=scale)
         ctx.q_chunk = q_chunk
+        ctx.q_off = q_off
         b, s, h, d = q.shape
         with _kernel_call("flash_attention", flash_attention_work, b, s,
                           k.shape[1], h, k.shape[2], d, q.element_size(),
-                          causal=causal, window=window):
+                          causal=causal, window=window, q_off=q_off):
             if q.device.type == "meta":
                 return torch.empty(q.shape, dtype=q.dtype, device="meta")
             if q.device.type == "cpu":
                 g = h // k.shape[2]
                 return ref.ref_attention(
                     q, torch.repeat_interleave(k, g, dim=2),
-                    torch.repeat_interleave(v, g, dim=2),
+                    torch.repeat_interleave(v, g, dim=2), q_off=q_off,
                     **ctx.opts).contiguous()
-            out = fa.flash_attention_fwd(q, k, v, **ctx.opts)
+            out = fa.flash_attention_fwd(q, k, v, q_off=q_off, **ctx.opts)
             _count("flash_attention")
             return out
 
     @staticmethod
     def backward(ctx, dout):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        s = leaves[0].shape[1]
+        positions = None if not ctx.q_off else (
+            ctx.q_off + torch.arange(s, device=dout.device))[None]
         with torch.enable_grad():
-            out = fa.xla_attention(*leaves, **ctx.opts, q_chunk=ctx.q_chunk)
+            out = fa.xla_attention(*leaves, **ctx.opts, q_chunk=ctx.q_chunk,
+                                   q_positions=positions)
         grads = torch.autograd.grad(out, leaves, dout)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None, q_chunk: int = 256):
-    """q: (B,S,H,D); k,v: (B,T,K,D) with K | H. Returns (B,S,H,D),
-    differentiable in q, k and v; the backward recomputes the XLA
-    attention in blocks of ``q_chunk`` query rows."""
+                    scale: Optional[float] = None, q_chunk: int = 256,
+                    q_off: int = 0):
+    """q: (B,S,H,D); k,v: (B,T,K,D) with K | H; query row i at position
+    ``q_off + i`` (a multi-token cache write passes the first ``q_off + S``
+    rows of its cache as k and v). Returns (B,S,H,D), differentiable in
+    q, k and v; the backward recomputes the XLA attention in blocks of
+    ``q_chunk`` query rows."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
-                                 q_chunk)
+                                 q_chunk, q_off)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,

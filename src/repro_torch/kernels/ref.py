@@ -20,15 +20,16 @@ NEG_INF = -1e30
 
 def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   softcap: Optional[float] = None,
-                  scale: Optional[float] = None):
-    """Dense attention. q: (B,S,H,D); k,v: (B,T,H,D) (pre-repeated GQA)."""
+                  scale: Optional[float] = None, q_off: int = 0):
+    """Dense attention. q: (B,S,H,D); k,v: (B,T,H,D) (pre-repeated GQA);
+    query row i at position ``q_off + i``, key j at position j."""
     s, d = q.shape[1], q.shape[3]
     t = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    qpos = torch.arange(s, device=q.device)[:, None]
+    qpos = q_off + torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:

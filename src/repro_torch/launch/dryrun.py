@@ -14,9 +14,8 @@ The step of a cell is the reference's (``repro/launch/dryrun.py:151-238``):
 ``update_actor`` for a train cell (``compute_grads`` for the
 :data:`HOST_OPTIM` models, whose optimizer runs on the host), the prefill
 for a prefill cell, one decode step against a cache of ``seq_len`` slots,
-at its last slot, for a decode cell. A train cell takes its batch in one
-microbatch (``grad_accum`` 1): the reference splits it so a TPU's saved
-activations stay under 6 GB, which a meta run does not hold; the split
+at its last slot, for a decode cell. A train cell counts its FLOPs and
+bytes over its batch in one microbatch (``grad_accum`` 1): the split
 changes no matmul's FLOPs, and one microbatch reads each weight once.
 
 Per cell it records the reference's fields where one card gives them:
@@ -24,8 +23,20 @@ Per cell it records the reference's fields where one card gives them:
 ``flops``, ``traffic_bytes``, ``compute_term_s`` and ``memory_term_s`` at
 the card's datasheet peaks (``launch/mesh.HW``), the ``dominant`` term,
 ``model_flops_total`` (2 or 6 x active params x tokens),
-``useful_flops_ratio`` and ``fits_one_card`` (the arguments within the
-card's 80 GB). The mesh is ``h100x1``; one card has no collectives.
+``useful_flops_ratio``, and ``memory``: the reference's
+``memory_analysis()`` fields ``argument_bytes``, ``temp_bytes``,
+``output_bytes`` and ``alias_bytes`` (outputs that are arguments' storage,
+as the in-place train state), from ``hlo_cost``'s peak of live bytes:
+``temp_bytes`` is that peak less the outputs the step makes, so
+``per_device_bytes`` = arguments + temporaries + outputs - aliases, the
+reference's per-device sum, is the arguments plus the peak.
+``fits_one_card`` holds it to the card's 80 GB. A train cell's
+temporaries are those of one microbatch of the reference's
+``default_grad_accum`` (its microbatches keep a TPU's saved activations
+under 6 GB; its compiled step peaks at one), counted in a second run of
+the step on that microbatch, plus the f32 gradient accumulator
+(``compute_grads``) where there is more than one; ``memory["microbatch"]``
+says which. The mesh is ``h100x1``; one card has no collectives.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--force]
@@ -38,6 +49,7 @@ sharding, which is not ported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -95,6 +107,74 @@ def tree_shapes(tree, prefix: str = "") -> Dict[str, list]:
     return out
 
 
+def default_grad_accum(arch: str, shape: ShapeSpec) -> int:
+    """The reference's microbatch count (``repro/launch/dryrun.py:63``) on
+    one device: doubled while a microbatch's saved activations, 2.5 bf16
+    copies of the residual stream a layer, pass 6 GB."""
+    if shape.kind != "train":
+        return 1
+    cfg = get_config(arch)
+    b_local = max(1, shape.global_batch)
+    layers = cfg.num_layers + cfg.encoder_layers
+    carry_bytes = layers * b_local * shape.seq_len * cfg.d_model * 2 * 2.5
+    accum = 1
+    while carry_bytes / accum > 6e9 and accum < b_local:
+        accum *= 2
+    return accum
+
+
+def _storages(tree) -> Dict[int, int]:
+    """{id: bytes} of the distinct storages of the tensors in a tree."""
+    out: Dict[int, int] = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            out[id(st)] = st.nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return out
+
+
+def memory_fields(args, out, peak_live: int, extra_temp: int = 0,
+                  arguments=None):
+    """The reference's ``memory_analysis()`` fields of a step run on
+    ``args`` that returned ``out`` at ``peak_live`` bytes (``hlo_cost``):
+    the outputs that are storages of the arguments are aliases, the rest
+    were made by the step and lie inside its peak. ``arguments`` (default
+    ``args``) gives the argument bytes: a train cell's whole batch where
+    ``args`` holds one microbatch."""
+    held, made = _storages(args), _storages(out)
+    alias = sum(n for k, n in made.items() if k in held)
+    output = sum(made.values())
+    temp = max(peak_live - (output - alias), 0) + extra_temp
+    argument = sum(_storages(args if arguments is None
+                             else arguments).values())
+    return {"argument_bytes": argument, "temp_bytes": temp,
+            "output_bytes": output, "alias_bytes": alias,
+            "per_device_bytes": argument + temp + output - alias}
+
+
+def _counted(fn, args):
+    """``fn(*args)`` under ``hlo_cost.Counter``: (its output, stats)."""
+    # a full-width step dispatches ~10^5 ops, each making short-lived Python
+    # objects: frozen, the heap that exists before it is not walked again
+    # by every collection (a quarter of the time in a test process)
+    gc.freeze()
+    try:
+        with hlo_cost.Counter() as counter:
+            out = fn(*args)
+    finally:
+        gc.unfreeze()
+    return out, counter.stats()
+
+
 def build_cell(arch: str, shape: ShapeSpec):
     """(step, its meta arguments, {argument group: bytes}) of a cell."""
     model = build_model(get_config(arch))
@@ -135,24 +215,28 @@ def run_cell(arch: str, shape_name: str,
         return result
     result["grad_accum"] = 1
     result["host_optim"] = arch in HOST_OPTIM and shape.kind == "train"
+    accum = default_grad_accum(arch, shape)
     t0 = time.time()
     fn, args, arg_bytes = build_cell(arch, shape)
     t_build = time.time() - t0
     t0 = time.time()
-    # a full-width step dispatches ~10^5 ops, each making short-lived Python
-    # objects: frozen, the heap that exists before it is not walked again
-    # by every collection (a quarter of the time in a test process)
-    gc.freeze()
-    try:
-        with hlo_cost.Counter() as counter:
-            out = fn(*args)
-    finally:
-        gc.unfreeze()
-    t_count = time.time() - t0
-    hc = counter.stats()
-
+    out, hc = _counted(fn, args)
     model = build_model(cfg)
     n_params = model.param_count()
+    if accum == 1:
+        mem = memory_fields(args, out, hc["peak_live_bytes"])
+    else:
+        # the temporaries of one microbatch, and the f32 accumulator of
+        # its gradients
+        micro = dataclasses.replace(shape,
+                                    global_batch=shape.global_batch // accum)
+        m_fn, m_args, _ = build_cell(arch, micro)
+        m_out, m_hc = _counted(m_fn, m_args)
+        mem = memory_fields(m_args, m_out, m_hc["peak_live_bytes"],
+                            extra_temp=4 * n_params, arguments=args)
+    mem["microbatch"] = {"grad_accum": accum,
+                         "batch": shape.global_batch // accum}
+    t_count = time.time() - t0
     n_active = model.active_param_count()
     flops, nbytes = hc["flops"], hc["traffic_bytes"]
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
@@ -172,7 +256,8 @@ def run_cell(arch: str, shape_name: str,
         "count_s": t_count,
         "argument_bytes": arg_bytes,
         "argument_bytes_total": total_args,
-        "fits_one_card": total_args <= HW["hbm_bytes"],
+        "memory": mem,
+        "fits_one_card": mem["per_device_bytes"] <= HW["hbm_bytes"],
         "ops": hc["ops"],
         "kernels": hc["kernels"],
         "roofline": {
@@ -191,7 +276,10 @@ def run_cell(arch: str, shape_name: str,
     if verbose:
         r = result["roofline"]
         print(f"[{MESH}] {arch} x {shape_name}: count {t_count:.1f}s | "
-              f"args {total_args / 1e9:.2f} GB "
+              f"args {total_args / 1e9:.2f} GB, temp "
+              f"{mem['temp_bytes'] / 1e9:.2f} GB (microbatch "
+              f"{mem['microbatch']['batch']}), per device "
+              f"{mem['per_device_bytes'] / 1e9:.2f} GB "
               f"({'fits' if result['fits_one_card'] else 'exceeds'} one "
               f"card) | flops {flops:.3e} | bytes {nbytes:.3e} | "
               f"dominant={r['dominant']} | "
@@ -207,20 +295,24 @@ def artifact_path(out_dir: str, arch: str, shape_name: str) -> str:
 
 def table(results) -> str:
     """A markdown table of the cells (the one PERF.md keeps)."""
-    rows = ["| arch x shape | params | argument GB | FLOPs | bytes | "
-            "compute s | memory s | dominant | fits one card |",
-            "| --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
+    rows = ["| arch x shape | params | argument GB | temp GB (microbatch) | "
+            "per-device GB | FLOPs | bytes | compute s | memory s | "
+            "dominant | fits one card |",
+            "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | "
+            "--- |"]
     for r in results:
         if r.get("status") != "OK":
             rows.append(f"| {r['arch']} x {r['shape']} | "
                         f"{r.get('status')}: "
                         f"{r.get('reason') or r.get('error')} |"
-                        + " |" * 7)
+                        + " |" * 9)
             continue
-        f = r["roofline"]
+        f, m = r["roofline"], r["memory"]
         rows.append(
             f"| {r['arch']} x {r['shape']} | {r['params']:,} | "
-            f"{r['argument_bytes_total'] / 1e9:.2f} | {f['flops']:.4g} | "
+            f"{r['argument_bytes_total'] / 1e9:.2f} | "
+            f"{m['temp_bytes'] / 1e9:.2f} ({m['microbatch']['batch']}) | "
+            f"{m['per_device_bytes'] / 1e9:.2f} | {f['flops']:.4g} | "
             f"{f['traffic_bytes']:.4g} | {f['compute_term_s']:.4g} | "
             f"{f['memory_term_s']:.4g} | {f['dominant']} | "
             f"{'yes' if r['fits_one_card'] else 'no'} |")

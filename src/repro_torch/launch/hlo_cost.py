@@ -28,6 +28,19 @@ layer group's forward runs again, kernels included.
 
 One card has no collectives: ``collective_bytes`` is 0.
 
+The same mode also tracks the step's live bytes, the counterpart of the
+reference's ``compiled.memory_analysis()`` (:class:`LiveBytes`): each
+op's results that alias none of its operands
+count, by their storage's bytes, from the op until the last reference to
+that storage dies; views and in-place results cost nothing, and a storage
+counts once. Inside a kernel wrapper's call only the storages still alive
+when the call returns count (its outputs), so its plain version's
+intermediates on the CPU and a launcher's transient copies on the card
+count on neither, as on ``meta``. ``stats()["peak_live_bytes"]`` is the
+most that was alive at once: what the step adds to its arguments at its
+peak. XLA fuses ops and reuses buffers where eager PyTorch allocates, so
+the figure is not XLA's.
+
     stats = analyze(step, params, batch)
     with Counter() as c:
         out = step(params, batch)
@@ -36,6 +49,7 @@ One card has no collectives: ``collective_bytes`` is 0.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Any, Dict
 
 import torch
@@ -69,6 +83,61 @@ def _tensors(args, kwargs, out):
     return seen.values()
 
 
+class LiveBytes:
+    """The peak of the live bytes of the storages a step creates (see the
+    module's docstring). Storages are told apart by their Python objects,
+    which PyTorch keeps alive, and so at one ``id``, as long as the
+    storage lives; a finalizer on each drops its bytes when it dies, on
+    whichever thread lets it go."""
+
+    def __init__(self):
+        self.lock = threading.RLock()    # finalizers may run inside a note
+        self.live = 0
+        self.peak = 0
+        self.sizes: Dict[int, int] = {}  # id -> bytes of counted storages
+        # made inside a kernel wrapper's call, counted once it returns
+        self.inside: Dict[int, int] = {}
+
+    @staticmethod
+    def _storages(tensors):
+        return [t.untyped_storage() for t in tensors
+                if isinstance(t, torch.Tensor)]
+
+    def note(self, operands, results, inside: bool) -> None:
+        """One op's results: count each storage that none of its operands
+        holds and that is not counted yet."""
+        held = {id(st) for st in self._storages(operands)}
+        for st in self._storages(results):
+            key = id(st)
+            with self.lock:
+                if key in held or key in self.sizes or key in self.inside:
+                    continue
+                nbytes = st.nbytes()
+                if inside:
+                    self.inside[key] = nbytes
+                else:
+                    self._count(key, nbytes)
+            weakref.finalize(st, self._free, key).atexit = False
+
+    def _count(self, key: int, nbytes: int) -> None:
+        self.sizes[key] = nbytes
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+
+    def kernel_returned(self) -> None:
+        """The storages made inside the call that are still alive are its
+        outputs: count them from now on."""
+        with self.lock:
+            for key, nbytes in self.inside.items():
+                self._count(key, nbytes)
+            self.inside.clear()
+
+    def _free(self, key: int) -> None:
+        with self.lock:
+            if self.inside.pop(key, None) is None:
+                self.live -= self.sizes.pop(key, 0)
+
+
 class _CostMode(TorchDispatchMode):
     """Counts each dispatched op's FLOPs and bytes into its counter,
     unless the counter is inside a kernel wrapper's call."""
@@ -91,6 +160,9 @@ class _CostMode(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         c = self.counter
+        if not func.is_view:
+            c.memory.note(_tensors(args, kwargs, ()),
+                          _tensors((), {}, out), inside=c.depth > 0)
         counted, flops = self._rule_of(func)
         if c.depth or not counted:
             return out
@@ -117,6 +189,7 @@ class Counter:
         self.kernels: Dict[str, Dict[str, int]] = {
             name: {"launches": 0, "flops": 0, "bytes": 0}
             for name in kops.LAUNCHES}
+        self.memory = LiveBytes()
 
     # the kernel wrappers' hooks (kernels/ops.py: _kernel_call)
     def kernel_begin(self, name: str, flops: int, nbytes: int):
@@ -130,6 +203,9 @@ class Counter:
     def kernel_end(self):
         with self.lock:
             self.depth -= 1
+            outermost = self.depth == 0
+        if outermost:
+            self.memory.kernel_returned()
 
     def __enter__(self):
         if kops.COUNTERS:
@@ -148,7 +224,8 @@ class Counter:
         """The reference's keys (``flops``, ``traffic_bytes``,
         ``collective_bytes``), the dispatched ops counted and each kernel's
         launches and work. The kernels' work is inside ``flops`` and
-        ``traffic_bytes``."""
+        ``traffic_bytes``. ``peak_live_bytes`` is the most the step's own
+        storages held at once."""
         return {
             "flops": self.flops + sum(k["flops"]
                                       for k in self.kernels.values()),
@@ -157,6 +234,7 @@ class Counter:
             "collective_bytes": 0,
             "ops": self.ops,
             "kernels": {k: dict(v) for k, v in self.kernels.items()},
+            "peak_live_bytes": self.memory.peak,
         }
 
 

@@ -49,6 +49,11 @@ def stack_specs(tree, num: int):
                                         s.init, s.dtype, s.scale), tree)
 
 
+def logical_axes(specs):
+    """The logical-axes tree of a spec tree (``models/sharding.py``)."""
+    return tree_map(lambda s: s.axes, specs)
+
+
 def abstract_params(specs):
     """Each spec as a ``meta`` tensor of its shape and dtype."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,

@@ -147,7 +147,10 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
     from ``x``. cache: optional {"k": (B, T, K, D), "v": ...}; the new keys
     and values are written at ``cache_pos`` (a host int) IN PLACE, which
     saves a copy of the cache per token (the JAX version returns an updated
-    copy). Returns ``(out, kv)``: the cache dict when one was given, else
+    copy). The ``s`` new queries sit at positions ``cache_pos ..
+    cache_pos + s - 1``: one goes to K2; several go to K1 with that query
+    offset on the card and to the port of the reference's XLA branch on
+    the CPU. Returns ``(out, kv)``: the cache dict when one was given, else
     the freshly projected (post-rope) {"k", "v"} the prefill uses to build
     one.
     """
@@ -170,10 +173,14 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
                                         scale=scale, window=window,
                                         softcap=softcap)[:, None]
         elif x.is_cuda:
-            raise NotImplementedError(
-                "K2 decodes one token; a multi-token cache write on the "
-                "card is not ported (ROADMAP.md, Queue 1: multi-token "
-                "cache writes)")
+            # K1 with the queries at cache_pos.., over the cache's first
+            # cache_pos + s rows, read in place
+            t = cache_pos + s
+            out = kops.flash_attention(q, ck[:, :t], cv[:, :t],
+                                       causal=causal, window=window,
+                                       softcap=softcap, scale=scale,
+                                       q_chunk=cfg.attn_q_chunk,
+                                       q_off=cache_pos)
         else:
             kv_mask = torch.arange(ck.shape[1], device=x.device) \
                 <= cache_pos + s - 1

@@ -53,6 +53,9 @@ class Model:
     def init_params(self, gen: torch.Generator, device=None):
         return common.init_params(gen, self.param_specs(), device)
 
+    def logical_axes(self):
+        return common.logical_axes(self.param_specs())
+
     def abstract_params(self):
         return common.abstract_params(self.param_specs())
 

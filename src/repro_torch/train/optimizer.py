@@ -6,7 +6,8 @@ from the step count BEFORE the update (linear warmup), the bias
 corrections from the count after it; gradients are clipped by their
 global norm (squares summed in f32); parameters update in f32 and are cast
 back to their dtype, the moments kept in ``moment_dtype``. The ZeRO
-moment-spec helpers wait for the sharding port (ROADMAP.md, Queue 1).
+moment specs (:func:`zero_moment_spec`, :func:`state_partition_specs`) are
+the reference's logic over shapes (``models/sharding.py``).
 
 :func:`update_` is the step: unlike the reference's ``update``, which
 returns new trees, it writes the new values into the parameter and moment
@@ -23,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import common
+from repro_torch.models.sharding import PartitionSpec as P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +125,40 @@ def update_(grads, state: AdamWState, params,
     state.step.copy_(step)
     return {"grad_norm": gnorm, "lr": lr}
 
+
+# ------------------------------------------------------------- ZeRO specs
+
+def zero_moment_spec(param_spec: P, shape, mesh, zero_axis: str = "data") -> P:
+    """Derive a moment PartitionSpec: param spec + ``zero_axis`` on the first
+    divisible unsharded dim (ZeRO-2 moment sharding)."""
+    if zero_axis not in mesh.axis_names:
+        return param_spec
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a:
+                used.add(a)
+    if zero_axis in used:
+        return param_spec
+    n = mesh.shape[zero_axis]
+    for i, e in enumerate(entries):
+        if e is None and shape[i] % n == 0 and shape[i] >= n:
+            entries[i] = zero_axis
+            while entries and entries[-1] is None:
+                entries.pop()
+            return P(*entries)
+    return param_spec
+
+
+def state_partition_specs(param_pspecs, abstract_params, mesh,
+                          zero: bool = True) -> AdamWState:
+    """PartitionSpecs for the full AdamWState."""
+    if zero:
+        shapes = common.canonical_flat(abstract_params)
+        mom = common.canonical_unflatten(param_pspecs, {
+            k: zero_moment_spec(ps, shapes[k].shape, mesh)
+            for k, ps in common.canonical_flat(param_pspecs).items()})
+    else:
+        mom = param_pspecs
+    return AdamWState(step=P(), mu=mom, nu=mom)

@@ -1,12 +1,14 @@
 """TrainState: parameters, AdamW state and step (port of
-``repro.train.train_state``; its partition specs wait for the sharding
-port, ROADMAP.md Queue 1)."""
+``repro.train.train_state``), and its partition specs by the sharding
+rules; the shardings that place it on a mesh need a multi-device runtime,
+which is not ported (ROADMAP.md, Queue 1: item 5, sharding)."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.registry import Model
 from repro_torch.train import optimizer as opt
 
@@ -34,3 +36,17 @@ def abstract(model: Model,
     params = model.abstract_params()
     return TrainState(params=params, opt_state=opt.init(params, adamw),
                       step=torch.zeros((), dtype=torch.int32, device="meta"))
+
+
+def partition_specs(model: Model, mesh, rules: shd.Rules,
+                    zero: bool = True) -> TrainState:
+    """PartitionSpecs for TrainState: params by logical axes; moments with
+    ZeRO sharding over ``data``."""
+    axes = model.logical_axes()
+    specs = model.param_specs()
+    pspecs = shd.tree_partition_specs(axes, mesh, rules, specs)
+    return TrainState(
+        params=pspecs,
+        opt_state=opt.state_partition_specs(pspecs, specs, mesh, zero=zero),
+        step=shd.P(),
+    )

@@ -15,8 +15,19 @@
   leaves out (the causal half, the window) and the reference's XLA
   attention computes are added back by closed form.
 - ``launch/dryrun.run_cell`` completes at full width for seven cells; two
-  cells' outputs equal the reference's ``jax.eval_shape`` of the step.
+  cells' outputs equal the reference's ``jax.eval_shape`` of the step;
+  ``fits_one_card`` is the reference's per-device sum (arguments +
+  temporaries + outputs - aliases) within 80 GB, a train cell's
+  temporaries those of the reference's ``default_grad_accum`` microbatch.
+- ``hlo_cost``'s live bytes: exact on a hand-counted chain of matmuls, a
+  kernel call counted by its outputs, and the same peak on ``meta`` and on
+  the CPU for each family's reduced steps (head width 16 through the
+  plain routes); beside XLA's ``memory_analysis()`` of the
+  reference's compiled reduced steps the arguments agree and the
+  temporaries are printed (``-s``), not held (XLA fuses and reuses).
 """
+import types
+
 import json
 
 import jax
@@ -27,6 +38,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import reduced_config as jreduced
+from repro.launch import dryrun as jdryrun
 from repro.launch import hlo_cost as jcost
 from repro.models.common import canonical_flat as jflat
 from repro.models.registry import build_model as jbuild
@@ -172,6 +184,45 @@ def test_meta_route_returns_the_kernels_shapes():
         4 * (1 + 2 + 2 + 2)
 
 
+def test_live_bytes_of_a_matmul_chain_are_exact():
+    """Known live sets: b, then b and c (the peak, two 64 x 64 f32 tiles),
+    c and d, d and e; a view and an in-place op add nothing, and what the
+    function returns stays live until it is dropped."""
+    tile = 64 * 64 * 4
+    for dev in ("cpu", "meta"):
+        a = torch.ones(64, 64, device=dev)        # an argument: not counted
+
+        def chain():
+            b = a @ a
+            c = b @ a
+            del b
+            d = c @ a
+            d.t().add_(1.0)
+            del c
+            e = torch.relu(d)
+            del d
+            return e
+
+        with hlo_cost.Counter() as counter:
+            out = chain()
+        assert counter.stats()["peak_live_bytes"] == 2 * tile, dev
+        assert counter.memory.live == tile
+        del out
+        assert counter.memory.live == 0
+
+
+def test_live_bytes_count_a_kernel_call_by_its_outputs():
+    """The plain version's scores on the CPU are not counted, nor anything
+    on ``meta``: a K1 call adds its output, on either device."""
+    for dev in ("cpu", "meta"):
+        q = torch.ones(2, 40, 4, 16, dtype=torch.bfloat16, device=dev)
+        k = torch.ones(2, 40, 2, 16, dtype=torch.bfloat16, device=dev)
+        with hlo_cost.Counter() as counter:
+            out = kops.flash_attention(q, k, k)
+        assert counter.stats()["peak_live_bytes"] == q.numel() * 2, dev
+        del out
+
+
 def _steps(model, device):
     """(update_actor, prefill, decode) stats of one model on ``device``:
     seeded tensors on the CPU, ``meta`` tensors else."""
@@ -193,17 +244,22 @@ def _steps(model, device):
                               batches[1]),
              hlo_cost.analyze(grpo.make_decode(model), state.params, cache,
                               batches[2])]
-    return [{k: s[k] for k in ("flops", "traffic_bytes", "ops", "kernels")}
-            for s in stats]
+    return [{k: s[k] for k in ("flops", "traffic_bytes", "ops", "kernels",
+                               "peak_live_bytes")} for s in stats]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-moe-3b-a800m",
                                   "mamba2-2.7b", "zamba2-7b",
                                   "whisper-large-v3", "llama-3.2-vision-90b"])
 def test_each_family_counts_the_same_on_meta_and_cpu(arch):
+    """FLOPs, bytes, ops, kernel work and the peak of live bytes; K1 and K2
+    run their plain routes on the CPU at the reduced head width of 16,
+    counted by their outputs, as on the card."""
     model = build_model(reduced_config(arch))
+    assert model.cfg.resolved_head_dim == 16
     meta, cpu = _steps(model, "meta"), _steps(model, "cpu")
     assert meta == cpu
+    assert all(s["peak_live_bytes"] > 0 for s in meta)
     update, prefill, decode = meta
     layers = model.cfg.num_layers
     if model.cfg.family in ("dense", "moe"):
@@ -214,6 +270,42 @@ def test_each_family_counts_the_same_on_meta_and_cpu(arch):
     if model.cfg.family == "ssm":
         assert prefill["kernels"]["ssd"]["launches"] == layers
     assert all(s["flops"] > 0 and s["traffic_bytes"] > 0 for s in meta)
+
+
+def test_reduced_cells_memory_beside_the_reference_xla():
+    """qwen2-0.5b at ``reduced_config``: a prefill (B=2 S=64), an
+    update_actor (B=4 S=64) and a decode step (B=2 T=64). The arguments
+    agree with XLA's ``memory_analysis()`` (a decode's cache position is a
+    host int in the port, an int32 there); the temporaries are printed
+    beside XLA's, not held to them."""
+    arch = "qwen2-0.5b"
+    jm, tm = jbuild(jreduced(arch)), build_model(reduced_config(arch))
+    for kind, b in (("prefill", 2), ("train", 4), ("decode", 2)):
+        sh = ShapeSpec(kind, kind, 64, b)
+        jbatch = {k: v.sds for k, v in jm.input_specs(sh).items()}
+        if kind == "prefill":
+            jargs = (jm.abstract_params(), jbatch)
+            jfn, fn = jgrpo.make_prefill(jm), grpo.make_prefill(tm)
+            args = (tm.abstract_params(), tm.abstract_batch(sh))
+        elif kind == "train":
+            jargs = (jts.abstract(jm), jbatch)
+            jfn, fn = jgrpo.make_update_actor(jm), \
+                grpo.make_update_actor(tm)
+            args = (ts.abstract(tm), tm.abstract_batch(sh))
+        else:
+            jargs = (jm.abstract_params(), jm.abstract_cache(b, 64), jbatch)
+            jfn, fn = jgrpo.make_decode(jm), grpo.make_decode(tm)
+            args = (tm.abstract_params(), tm.abstract_cache(b, 64, pos=63),
+                    tm.abstract_batch(sh))
+        ma = jax.jit(jfn).lower(*jargs).compile().memory_analysis()
+        out, stats = dryrun._counted(fn, args)
+        mem = dryrun.memory_fields(args, out, stats["peak_live_bytes"])
+        assert 0 <= ma.argument_size_in_bytes - mem["argument_bytes"] <= 4
+        print(f"{arch} reduced {kind} B={b} 64: temp_bytes port "
+              f"{mem['temp_bytes']} XLA {ma.temp_size_in_bytes} (ratio "
+              f"{mem['temp_bytes'] / ma.temp_size_in_bytes:.4g}); outputs "
+              f"{mem['output_bytes']} / {ma.output_size_in_bytes}, aliases "
+              f"{mem['alias_bytes']} / {ma.alias_size_in_bytes}")
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b"])
@@ -286,7 +378,18 @@ def test_dryrun_cell_at_full_width(arch, shape_name):
     assert r["memory_term_s"] == r["traffic_bytes"] / mesh.HW["hbm_bw"]
     assert r["collective_bytes"] == 0
     assert 0 < r["useful_flops_ratio"] < 1.5
-    assert res["fits_one_card"] == (res["argument_bytes_total"] <= 80e9)
+    m = res["memory"]
+    assert m["per_device_bytes"] == m["argument_bytes"] + m["temp_bytes"] \
+        + m["output_bytes"] - m["alias_bytes"]
+    assert m["argument_bytes"] == res["argument_bytes_total"]
+    assert res["fits_one_card"] == (m["per_device_bytes"] <= 80e9)
+    one_device = types.SimpleNamespace(axis_names=(), shape={})
+    accum = jdryrun.default_grad_accum(arch, SHAPES[shape_name], one_device)
+    assert m["microbatch"] == {"grad_accum": accum,
+                               "batch": SHAPES[shape_name].global_batch
+                               // accum}
+    if SHAPES[shape_name].kind == "train":     # the in-place train state
+        assert m["alias_bytes"] > 0 and m["temp_bytes"] > 0
     k = {name: v["launches"] for name, v in res["kernels"].items()}
     kind = SHAPES[shape_name].kind
     if cfg.family in ("dense", "moe"):

@@ -402,7 +402,7 @@ def test_flash_attention_tensor_core_route_at_tile_edges(dev, s, d, h, kh,
 
 
 def test_launch_errors_raise(dev):
-    q = torch.randn(1, 4, 8, 32, device=dev)           # D = 32: no kernel
+    q = torch.randn(1, 4, 8, 144, device=dev)          # D > 128: no kernel
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError):
@@ -642,14 +642,18 @@ def test_moe_apply_on_the_card_matches_the_cpu(dev, arch):
 
 
 @pytest.mark.parametrize("arch,overrides", [
-    ("qwen2-0.5b", {"head_dim": 64}),            # K1 and K2 take D >= 64
+    ("qwen2-0.5b", {}),                          # head_dim 16: K1, K2 built
+    ("qwen2-0.5b", {"head_dim": 64}),
     ("mamba2-2.7b", {})])
 def test_cost_model_counts_the_same_on_the_card_and_on_meta(dev, arch,
                                                             overrides):
     """``launch/hlo_cost`` over a reduced config's prefill, one decode step
     and one update_actor: the FLOPs, bytes, ops and per-kernel launches
     and work counted on the card equal those counted on ``meta`` tensors,
-    and each kernel's counted launches equal the change in LAUNCHES."""
+    and each kernel's counted launches equal the change in LAUNCHES. The
+    peak of live bytes tracked on the card equals the one on ``meta``, and
+    lies within 10 % + 64 MiB of ``max_memory_allocated()`` above what was
+    allocated before the step."""
     from repro_torch.configs import ShapeSpec, reduced_config
     from repro_torch.launch import hlo_cost
     from repro_torch.models.registry import build_model
@@ -676,17 +680,155 @@ def test_cost_model_counts_the_same_on_the_card_and_on_meta(dev, arch,
     launched = []
     for (step, args), meta_args in zip(card, meta):
         ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         with hlo_cost.Counter() as counter:
             step(*args)
             torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated(dev) - before
         on_card = counter.stats()
         assert {k: v["launches"] for k, v in on_card["kernels"].items()} \
             == ops.LAUNCHES
         on_meta = hlo_cost.analyze(step, *meta_args)
         assert {k: on_card[k] for k in keys} == {k: on_meta[k] for k in keys}
+        assert on_card["peak_live_bytes"] == on_meta["peak_live_bytes"]
+        assert abs(on_meta["peak_live_bytes"] - card_peak) <= \
+            0.1 * card_peak + 64 * 2 ** 20
         launched.append(sum(ops.LAUNCHES.values()))
     # update_actor and the prefill launch K1 or K3; mamba2's decode step is
     # plain PyTorch (no kernel), a transformer's runs K2
     assert launched[0] > 0 and launched[1] > 0
     assert launched[2] == (0 if model.cfg.family == "ssm"
                            else model.cfg.num_layers)
+
+
+# ------------------------------------------ K1 with a query offset (cache)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 16, 128])
+@pytest.mark.parametrize("b,cache_pos,h,kh,d,window,softcap,scale", [
+    (4, 150, 14, 2, 64, 0, None, None),          # qwen2-0.5b, GQA 14:2
+    (1, 4120, 32, 16, 128, 4096, 50.0, 1 / 12),  # gemma2-27b: the window cuts
+    (2, 550, 32, 32, 112, 0, None, None),        # zamba2-7b, MHA, D = 112
+    (2, 301, 14, 2, 64, 100, None, None),        # a window cutting mid-tile
+], ids=["qwen2", "gemma2", "zamba2", "window_mid_tile"])
+def test_flash_attention_with_a_query_offset_reads_the_cache_in_place(
+        dev, b, cache_pos, h, kh, d, window, softcap, scale, s, dtype):
+    """A multi-token cache write: s queries at positions cache_pos.. over
+    the first cache_pos + s rows of a (B, T_cap, K, D) cache, passed as a
+    view (the kernel reads it through its batch stride: no copy), against
+    the plain version with the same offset; cache_pos sits mid-tile."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    gen = torch.Generator(device=dev).manual_seed(s)
+    t, t_cap = cache_pos + s, cache_pos + 200
+    q = 3 * _randn(gen, (b, s, h, d), dtype, dev)
+    kc = _randn(gen, (b, t_cap, kh, d), dtype, dev)
+    vc = _randn(gen, (b, t_cap, kh, d), dtype, dev)
+    k, v = kc[:, :t], vc[:, :t]
+    # a view of the cache (one sequence's is contiguous all the same)
+    assert (b == 1 or not k.is_contiguous()) and tfa._rows_in_place(k, v)
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, q_off=cache_pos, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    g = h // kh
+    expect = ref.ref_attention(q, k.repeat_interleave(g, 2),
+                               v.repeat_interleave(g, 2), q_off=cache_pos,
+                               **kw)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+
+
+def test_query_offset_zero_with_a_whole_cache_is_the_prefill(dev):
+    """q_off = 0 over a contiguous (B, T, K, D) tensor is the prefill
+    launch as before: bit for bit the same output through either call."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = _randn(gen, (4, 128, 14, 64), torch.bfloat16, dev)
+    k = _randn(gen, (4, 128, 2, 64), torch.bfloat16, dev)
+    assert torch.equal(ops.flash_attention(q, k, k),
+                       ops.flash_attention(q, k, k, q_off=0))
+
+
+def test_attn_apply_with_several_new_tokens_runs_k1_on_the_card(dev):
+    """The model's multi-token cache write launches K1 once and agrees
+    with the same layer on the CPU (the XLA branch), output and cache."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import common
+    from repro_torch.models import layers as tl
+
+    cfg = reduced_config("gemma2-27b")
+    gen = torch.Generator().manual_seed(3)
+    params = common.init_params(gen, tl.attn_param_specs(cfg))
+    x = torch.randn(2, 5, cfg.d_model, generator=gen).to(torch.bfloat16)
+    ck = torch.randn(2, 30, cfg.num_kv_heads, 16, generator=gen).to(
+        torch.bfloat16)
+    ck[:, 20:] = 0
+    pos = (20 + torch.arange(5))[None].expand(2, 5)
+    cpu = {"k": ck.clone(), "v": ck.clone()}
+    card = {n: t.to(dev) for n, t in cpu.items()}
+    want, _ = tl.attn_apply(params, cfg, x, positions=pos, window=8,
+                            cache=cpu, cache_pos=20)
+    ops.reset_launches()
+    got, _ = tl.attn_apply({k: t.to(dev) for k, t in params.items()}, cfg,
+                           x.to(dev), positions=pos.to(dev), window=8,
+                           cache=card, cache_pos=20)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"flash_attention": 1, "decode_attention": 0,
+                            "ssd": 0}
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               **TOL[torch.bfloat16])
+    for n in ("k", "v"):
+        torch.testing.assert_close(card[n].cpu().float(), cpu[n].float(),
+                                   **TOL[torch.bfloat16])
+
+
+# ------------------------------------------------- the examples' head widths
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 16, 32])
+@pytest.mark.parametrize("s,t,causal,window", [
+    (100, 100, True, 0), (100, 100, True, 37), (77, 131, False, 0)])
+def test_flash_attention_at_narrow_head_widths(dev, d, s, t, causal, window,
+                                               dtype):
+    """K1 built at D = 16 and 32, and D = 12 padded to 16 with zeros at the
+    true width's scale."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = 3 * _randn(gen, (2, s, 4, d), dtype, dev)
+    k = _randn(gen, (2, t, 2, d), dtype, dev)
+    v = _randn(gen, (2, t, 2, d), dtype, dev)
+    kw = dict(causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, **kw)
+    assert out.shape == q.shape and out.is_contiguous()
+    expect = ref.ref_attention(q, k.repeat_interleave(2, 2),
+                               v.repeat_interleave(2, 2), **kw)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 16, 32])
+@pytest.mark.parametrize("b,t,pos,window", [
+    (4, 40, 30, 0), (8, 18, 17, 0), (1, 4096, 4000, 0), (1, 4096, 4000, 1000),
+    (1, 4096, 2000, 77)])
+def test_decode_attention_at_narrow_head_widths(dev, d, b, t, pos, window,
+                                                dtype):
+    """K2 at D = 12 (padded), 16 and 32; at B=1 T=4096 the bf16 route runs
+    16 splits, more than D / 4, so each row's m and l reach several blocks
+    of the cluster."""
+    gen = torch.Generator(device=dev).manual_seed(d + t)
+    q = 3 * _randn(gen, (b, 4, d), dtype, dev)
+    kc = _randn(gen, (b, t, 2, d), dtype, dev)
+    vc = _randn(gen, (b, t, 2, d), dtype, dev)
+    out = ops.decode_attention(q, kc, vc, pos, window=window)
+    expect = ref.ref_decode_attention(q, kc, vc, pos, window=window)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+    if t == 4096 and dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tdec.splits_for(b, 2, t, sms) == 16 > 16 // 4
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_narrow_head_widths_keep_clusters_resident(dev, d):
+    assert tdec.max_active_clusters(d, 1) > 0
+    assert tdec.max_active_clusters(d, tdec.MAX_SPLITS) > 0
