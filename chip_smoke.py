@@ -223,7 +223,21 @@ Phases (any failure raises and the process exits non-zero):
     D=128, softcap 50, scale 1/12, cache_pos 4,120 where the 4,096-key
     window cuts) and zamba2-7b's (MHA 32:32, D=112) heads, s = 2, 16 and
     128 (timed at 2 and 128); then ``attn_apply`` with s new tokens on the card, one K1 launch
-    each, against the same full-width layer on the CPU.
+    each, against the same full-width layer on the CPU;
+32. node groups of several devices: the one card seen as four virtual
+    devices (``DevicePlane(devices=[cuda:0] * 4, slice_size=2)``), two
+    qwen2-0.5b GRPO jobs at full width and depth, one on each 2-device
+    group, two steps each through ``PlexCluster.run`` (B=16, prompt 128,
+    64 new), tensor-parallel: K1 and K2 on each device at its 7 local
+    query heads and 1 KV head (exactly 48 K1 and 48 x 64 K2 a generate,
+    96 K1 an update_actor), every op billed; K1 and K2 checked and timed
+    at those per-device shapes; prefill and decode logits of a seeded
+    model over 2 and over 4 devices (the head-dim-parallel decode) against
+    the same parameters on one device; job A migrated live to the other
+    slice (``cross_mesh`` True, every leaf bit-exact) and synced into a
+    rollout deployment on the first slice (bit-exact); one generate on a
+    4-device slice (96 K1, no K2: the head-dim-parallel decode); each
+    sub-step's seconds and the card's peak.
 
 Each phase prints its seconds, and its start to the standard error. The
 earlier paths' depth is cut where a phase's time would otherwise crowd the
@@ -428,6 +442,10 @@ MEM_TOL = 0.1e9            # remove_job's release, against the job's bytes
 # the per-launch work of PERF.md's bound column, (FLOPs, bytes), at
 # qwen2-0.5b's prefill (K1), last decode step (K2) and mamba2's prefill (K3)
 COST_SSM_LAYERS = 4
+# phase 32: the one card seen as TP_DEVICES virtual devices, carved into
+# groups of TP_SLICE; the jobs generate at the serving path's prompt
+TP_DEVICES, TP_SLICE = 4, 2
+TP_TRAIN = dict(TRAIN, prompt_len=P, seq_len=P + TRAIN["max_new_tokens"])
 PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
              "decode_attention": (11_010_048, 1_630_208),
              "ssd": (53_812_920_320, 216_531_264)}
@@ -3634,6 +3652,238 @@ def offset_phase(torch, dev, records):
     fa["max_abs_err"] = max([fa["max_abs_err"]] + errs)
 
 
+def tp_phase(torch, dev, records):
+    """Phase 32: node groups of several devices on the one card's virtual
+    devices. Two qwen2-0.5b GRPO jobs at full width and depth, one on each
+    group of TP_SLICE devices, through ``PlexCluster.run``: each op's
+    launches exactly TP_SLICE times the one-device path's (K1 and K2 run
+    on every device at its local heads), every op billed, every entry
+    ``Sharded`` over its group's slice. Then K1 and K2 at the per-device
+    shapes against their plain versions and timed, logits over 2 and 4
+    devices against one, a live cross-slice migration and a weight sync
+    (bit-exact), and one generate on a 4-device slice (the
+    head-dim-parallel decode: K1 on every device, no K2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.core.router import Router
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DevicePlane
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+
+    cfg = get_config(ARCH)
+    n_new = TP_TRAIN["max_new_tokens"]
+    steps = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        print(f"  {name}: {steps[name]} s")
+
+    print(f"phase 32: {ARCH} at full width and depth on {TP_DEVICES} "
+          f"virtual devices of {dev}, groups of {TP_SLICE}; GRPO jobs A "
+          f"(group 0) and B (group 1), {TP_TRAIN}")
+    plane = DevicePlane(devices=[dev] * TP_DEVICES, slice_size=TP_SLICE)
+    cluster = PlexCluster(n_groups=2, device_plane=plane)
+    router = cluster.router
+    ctls = {job: cluster.add_job(JobConfig(
+        job_id=job, model_name=ARCH, seed=g + 1, **TP_TRAIN), group_id=g)
+        for g, job in enumerate("AB")}
+    log = []
+    for job, c in ctls.items():
+        counted(c.dep.wpg, job, log)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    with step("two jobs' two steps"):
+        billing = cluster.run(interleave=True)
+    launches = dict(ops.LAUNCHES)
+    want = {op: {k: TP_SLICE * v for k, v in
+                 launches_per_op(cfg, op, n_new).items()}
+            for op in ("init", "generate", "update_actor")}
+    for job, op, sec, grew in log:
+        print(f"  job {job} {op}: {sec} s, launches {grew}")
+        if grew != want[op]:
+            fail(f"phase 32: job {job} {op} launched {grew}, want {want[op]}")
+    print(f"  launches {launches}; card peak "
+          f"{torch.cuda.max_memory_allocated(dev)} B")
+    for job, c in ctls.items():
+        wpg = c.dep.wpg
+        sl = wpg.mesh_slice
+        keys = wpg.sm.keys_for(wpg.job_prefix)
+        local_bytes = [0] * sl.n_devices
+        for k in keys:
+            ref = wpg.sm.entries[k].ref
+            if not isinstance(ref, shd.Sharded) or \
+                    ref.sharding.mesh != sl.mesh:
+                fail(f"phase 32: {k} is not laid out on its group's slice")
+            for i, t in enumerate(ref.locals):
+                local_bytes[i] += t.numel() * t.element_size()
+        print(f"  job {job}: group {router.group_of[c.dep.deployment_id]}, "
+              f"slice device ids {sl.device_ids()}, {len(keys)} entries, "
+              f"{wpg.sm.job_bytes(wpg.job_prefix)} B of state (global), "
+              f"each device's locals {local_bytes} B")
+        check_bill(cluster, billing[job], [wpg], 1 + 2 * TP_TRAIN["steps"],
+                   TP_TRAIN["steps"])
+        for i, m in enumerate(c.metrics_log):
+            print(f"  job {job} step {i}: loss {m['loss']}, grad_norm "
+                  f"{m['grad_norm']}, lr {m['lr']}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"phase 32: job {job} step {i}: {m}")
+    if plane.domains() != {0: 0, 1: 1}:
+        fail(f"phase 32: leases {plane.domains()}")
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    with step("K1 and K2 at the per-device shapes"):
+        h, kh = H // TP_SLICE, KH // TP_SLICE
+        fa, de = records["flash_attention"], records["decode_attention"]
+        fa["tp_prefill"] = flash_timing(torch, randn, B, P, h, kh, D)
+        de["tp_decode"] = decode_timing(torch, randn, B, P + n_new,
+                                        P + n_new - 1, 500, h, kh, D)
+        gens = sum(1 for _, op, _, _ in log if op == "generate")
+        fa["tp_prefill"].update(
+            launches=gens * want["generate"]["flash_attention"],
+            update_actor_launches=launches["flash_attention"]
+            - gens * want["generate"]["flash_attention"])
+        de["tp_decode"]["launches"] = launches["decode_attention"]
+        for rec, row in ((fa, "tp_prefill"), (de, "tp_decode")):
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     rec[row]["max_abs_err"])
+
+    # job A to group 1's slice, live, and a rollout deployment of it on
+    # group 0's slice synced from there
+    wa = ctls["A"].dep.wpg
+    before = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+              for k, v in common.canonical_flat(wa.params()).items()}
+    with step("migrate job A across slices"):
+        moved = cluster.reassign_job("A", 1)
+    mig = router.migrate_log[-1]
+    after = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+             for k, v in common.canonical_flat(wa.params()).items()}
+    print(f"  migration: {moved} B, {mig['seconds']} s, cross_mesh "
+          f"{mig['cross_mesh']}, now on slice {wa.mesh_slice.device_ids()}")
+    if not mig["cross_mesh"] or after != before or \
+            wa.mesh_slice.device_ids() != (2, 3):
+        fail("phase 32: the cross-slice migration was not bit-exact")
+    roll = router.deploy(api.DeploymentSpec(
+        deployment_id="A-roll", job_id="A", model_name=ARCH,
+        role="rollout"), group_id=0)
+    with step("SYNC_WEIGHTS into the other slice"):
+        fut = ctls["A"].dep.sync_weights(roll)
+        router.drain()
+        fut.result()
+    src = {k: digest(torch, shd.gather(v)) for k, v in
+           common.canonical_flat(wa.params()).items()}
+    dst = {k: digest(torch, shd.gather(v)) for k, v in
+           common.canonical_flat(roll.wpg.params()).items()}
+    print(f"  sync: {len(dst)} leaves onto slice "
+          f"{roll.wpg.mesh_slice.device_ids()}, bit-exact {src == dst}")
+    if src != dst or roll.wpg.mesh_slice.device_ids() != (0, 1):
+        fail("phase 32: the weight sync was not bit-exact")
+    del roll, wa, ctls, cluster, router
+    release(torch, dev, "phase 32's cluster")
+
+    with step("logits over 1, 2 and 4 devices"):
+        tp_parity(torch, dev)
+
+    with step("a generate on a 4-device slice"):
+        r4 = Router(device_plane=DevicePlane(devices=[dev] * TP_DEVICES,
+                                             slice_size=TP_DEVICES))
+        dep = r4.deploy(api.DeploymentSpec(
+            deployment_id="C-roll", job_id="C", model_name=ARCH,
+            role="rollout"), group_id=0)
+        dep.init(seed=3)
+        r4.drain()
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                               device=dev)
+        ops.reset_launches()
+        out = dep.generate(prompt, max_new_tokens=n_new)
+        r4.drain()
+        toks = out.result()["tokens"]
+        got = dict(ops.LAUNCHES)
+        want4 = {"flash_attention": TP_DEVICES * LAYERS,
+                 "decode_attention": 0, "ssd": 0}
+        print(f"  model={TP_DEVICES}: tokens {tuple(toks.shape)}, launches "
+              f"{got} (the decode is the head-dim-parallel branch)")
+        if got != want4 or tuple(toks.shape) != (B, n_new):
+            fail(f"phase 32: a 4-device generate launched {got}")
+    for d in dict.fromkeys([dev] * TP_DEVICES):
+        print(f"  {d} max_memory_allocated {torch.cuda.max_memory_allocated(d)}"
+              f" B (the {TP_DEVICES} virtual devices are this card)")
+    del dep, r4
+    release(torch, dev, "the 4-device router")
+    print(f"  phase 32 sub-steps: {steps}")
+
+
+def tp_parity(torch, dev):
+    """Prefill and teacher-forced decode logits of the seeded full-width,
+    full-depth model over 2 and over 4 virtual devices of the card,
+    against the same parameters on the card alone (phase 5's tolerance):
+    K1 and K2 at local heads over 2 devices, the head-dim-parallel decode
+    over 4, each run's launches exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.layers import make_ctx
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl.rollout import _pad_cache
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    prompt, forced = parity_prompt(torch, cfg, 2, 64, 8)
+    prompt, forced = prompt.to(dev), forced.to(dev)
+    rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
+
+    def run(prm, ctx):
+        with torch.inference_mode():
+            lg, _, cache = model.forward(prm, {"tokens": prompt},
+                                         return_cache=True, ctx=ctx)
+            out = [lg]
+            cache = _pad_cache(cache, forced.shape[1])
+            for i in range(forced.shape[1]):
+                lg, cache = model.decode_step(
+                    prm, cache, {"tokens": forced[:, i:i + 1]}, ctx=ctx)
+                out.append(lg)
+        return out
+
+    one = run(params, None)
+    for n in (TP_SLICE, TP_DEVICES):
+        ctx = make_ctx(make_local_mesh(1, n, devices=[dev] * n))
+        prm = shd.device_put(params, shd.tree_shardings(
+            model.logical_axes(), ctx.mesh, ctx.rules, model.param_specs()))
+        ops.reset_launches()
+        got = run(prm, ctx)
+        launched = dict(ops.LAUNCHES)
+        hd_par = cfg.num_kv_heads % n != 0
+        want = {"flash_attention": n * cfg.num_layers,
+                "decode_attention": 0 if hd_par
+                else n * cfg.num_layers * forced.shape[1], "ssd": 0}
+        worst = 0.0
+        for lg1, lgn in zip(one, got):
+            err = (lgn - lg1).abs().max().item()
+            tol = rel_tol * lg1.abs().max().item()
+            worst = max(worst, err / tol)
+            if not (torch.isfinite(lgn).all() and err <= tol):
+                fail(f"phase 32: logits over {n} devices: {err} > {tol}")
+        print(f"  model={n}: prefill and {forced.shape[1]} decode steps, "
+              f"worst |diff| / tolerance {worst} (tolerance {rel_tol} * "
+              f"max|logit|), launches {launched}")
+        if launched != want:
+            fail(f"phase 32: model={n} launched {launched}, want {want}")
+        del prm
+    del params
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -3854,6 +4104,8 @@ def main():
         with phase_seconds("phase 31"):
             offset_phase(torch, dev, records)
             release(torch, dev, "multi-token cache writes")
+        with phase_seconds("phase 32"):
+            tp_phase(torch, dev, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

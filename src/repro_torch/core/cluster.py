@@ -25,8 +25,10 @@ run in their own worker process (``launch/proc_plane.py``); there, as in
 the reference, :meth:`fail_node`, :meth:`checkpoint_all` and
 :meth:`restore_all` fail (checkpoints go through the deployments'
 ``save_checkpoint`` / ``load_checkpoint`` ops instead).
-``devices_per_group`` > 1 raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1: sharding).
+``devices_per_group`` sizes each group's device slice (the Router's
+``DevicePlane(slice_size=)``): a group of several devices runs its dense
+deployments tensor-parallel over its slice, and a migration across
+groups reshards onto the destination's slice.
 """
 from __future__ import annotations
 
@@ -42,7 +44,6 @@ from repro_torch.core.controller import (JobConfig, RLControllerGRPO,
                                          RLControllerPPO, _RLControllerBase)
 from repro_torch.core.router import Router
 from repro_torch.core.state_manager import Tier
-from repro_torch.core.worker import _not_ported
 from repro_torch.launch.mesh import DevicePlane
 
 CONTROLLER_TYPES = {"grpo": RLControllerGRPO, "ppo": RLControllerPPO}
@@ -67,14 +68,13 @@ class PlexCluster:
                  process_plane: bool = False,
                  proc_wpg_factory: Optional[str] = None,
                  device_plane: Optional[DevicePlane] = None):
-        """``device_plane`` leases each node group its device; the default
-        plane carves the CUDA devices (and raises without one).
-        ``process_plane`` and ``proc_wpg_factory`` go to the Router."""
-        if devices_per_group is not None and devices_per_group > 1:
-            raise _not_ported("node groups of more than one device",
-                              "item 5, sharding")
+        """``device_plane`` leases each node group its device slice; the
+        default plane carves the CUDA devices (and raises without one)
+        into slices of ``devices_per_group``. ``process_plane`` and
+        ``proc_wpg_factory`` go to the Router."""
         kwargs = {} if wpg_factory is None else {"wpg_factory": wpg_factory}
         self.router = Router(policy=policy, device_plane=device_plane,
+                             devices_per_group=devices_per_group,
                              process_plane=process_plane,
                              proc_wpg_factory=proc_wpg_factory, **kwargs)
         self.controllers: Dict[str, _RLControllerBase] = {}

@@ -27,8 +27,10 @@ dispatch threads at once on that device, as the reference does on one
 device. With ``process_plane=True`` each node group's WPGs live in their
 own spawned worker process (:mod:`repro_torch.launch.proc_plane`), which
 the Router supervises (:meth:`process_health`, :meth:`respawn_dead_groups`,
-:meth:`close_processes`). Multi-device slices are not ported (ROADMAP.md,
-Queue 1: sharding).
+:meth:`close_processes`). ``devices_per_group`` sizes the slices the
+plane leases (``DevicePlane(slice_size=)``); a group whose slice has
+several devices runs in this process (process mode over such a slice is
+queued: ROADMAP.md, Queue 1: item 5, part 4).
 
 Futures passed as operation arguments are dataflow edges (see
 :mod:`repro_torch.core.api`); an operation that raises resolves its future
@@ -51,6 +53,7 @@ from repro_torch.launch.mesh import (DevicePlane, device_for_slice,
                                      env_for_slice)
 from repro_torch.launch.proc_plane import (GroupProcess, StateManagerProxy,
                                            WPGProxy)
+from repro_torch.models.sharding import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -60,11 +63,14 @@ class Router:
                  policy: str = "hrrs",
                  wpg_factory: Callable[..., object] = WorkerProcessGroup,
                  device_plane: Optional[DevicePlane] = None,
+                 devices_per_group: Optional[int] = None,
                  process_plane: bool = False,
                  proc_wpg_factory: Optional[str] = None,
                  shm_transport: Optional[bool] = None):
         """``device_plane`` leases each node group its device slice; the
-        default plane carves the CUDA devices (and raises without one).
+        default plane carves the CUDA devices (and raises without one)
+        into slices of ``devices_per_group`` devices. Given with a plane
+        that has no slice size yet, ``devices_per_group`` sets it.
 
         ``process_plane=True`` hosts each node group's WPGs in a spawned
         OS process bound to the group's slice: dispatch crosses a pipe, and
@@ -82,7 +88,17 @@ class Router:
         self.deployments: Dict[str, api.DeploymentSpec] = {}
         self.group_of: Dict[str, int] = {}       # deployment -> node group
         self.state_managers: Dict[int, StateManager] = {}
-        self.device_plane = device_plane or DevicePlane()
+        if device_plane is None:
+            device_plane = DevicePlane(slice_size=devices_per_group)
+        elif devices_per_group is not None:
+            if device_plane.slice_size is None and \
+                    device_plane.domains() == {}:
+                device_plane.slice_size = devices_per_group
+            elif device_plane.slice_size != devices_per_group:
+                raise ValueError(
+                    f"devices_per_group {devices_per_group} against the "
+                    f"plane's slice_size {device_plane.slice_size}")
+        self.device_plane = device_plane
         # realized migration costs, drained by the PlacementDirector to
         # calibrate its migration-cost floor
         self.migrate_log: List[dict] = []
@@ -123,6 +139,10 @@ class Router:
         sm = self.state_managers.get(group_id)
         if sm is None:
             sl = self.device_plane.slice_for_group(group_id)
+            if self.process_plane and sl.n_devices > 1:
+                self.device_plane.release(group_id)
+                raise not_ported("a process-mode group of several devices",
+                                 4)
             if self.process_plane:
                 sm = self._spawn_group_process(group_id, sl)
             else:

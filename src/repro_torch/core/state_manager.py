@@ -23,10 +23,20 @@ deployment (its parameters and f32 AdamW moments) again at its next
 offload. An entry that goes to DISK gives up its pinned buffer: freeing
 host memory is what the tier is for.
 
+A group whose slice has several devices keeps a DEVICE entry as a
+``Sharded`` value (``models/sharding.py``: one local tensor per device)
+and records its layout (``Entry.sharding``): an offload moves each local
+tensor into its own pinned buffer, a prefetch brings each back to its own
+device in that layout, and a DISK spill holds the global tensor, laid out
+again on its way back.
+
 Migration (:meth:`migrate`) hands a job's entries to another group's
-manager. Between groups that lease the same device (every group on one
-H100) a DEVICE entry changes owner without a copy; across devices it is
-copied to the destination's device. Between processes (the process plane)
+manager. Between groups that lease the same slice (every group on one
+H100's single slice) a DEVICE entry changes owner without a copy
+(``cross_mesh`` False); across slices it is resharded onto the
+destination's mesh in its recorded spec (replicated where the spec does
+not fit there), each local copied to its device: between virtual devices
+of one card the copy is the hand-over itself. Between processes (the process plane)
 :meth:`export_state` stages a job's entries to the host and
 :meth:`import_state` adopts them in the other process. A checkpoint is
 materialised from the managed state, whichever tier holds it
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import common
+from repro_torch.models import sharding as shd
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -61,20 +72,27 @@ class Tier(enum.IntEnum):
 class Entry:
     key: str                         # canonical logical key (job-scoped)
     tier: Tier
-    nbytes: int
-    ref: Optional[torch.Tensor]      # on the device (DEVICE), the CPU
-    #                                  (HOST), None (DISK)
+    nbytes: int                      # the global tensor's bytes
+    ref: Any                         # a tensor or ``Sharded`` on the device
+    #                                  (DEVICE), the CPU (HOST); None (DISK)
     refcount: int = 1                # dedup count across logical replicas
-    host: Optional[torch.Tensor] = None   # pinned buffer kept for reuse
+    host: Any = None                 # pinned buffer(s) kept for reuse
     path: Optional[str] = None       # DISK spill file
     is_bf16: bool = False            # the spill file holds bf16 as uint16
     last_touch: int = 0              # LRU eviction order
     version: int = 0                 # host optimizer steps applied
+    sharding: Any = None             # the layout over a slice of several
+    #                                  devices (a ``NamedSharding``), else None
+
+
+def _global_cpu(t) -> torch.Tensor:
+    """A leaf as one CPU tensor: a ``Sharded`` one gathered."""
+    return shd.gather(t, "cpu") if isinstance(t, shd.Sharded) else t
 
 
 def _spill(path: str, t: torch.Tensor) -> bool:
     """Write ``t`` to an ``.npy`` file; returns whether it was bf16."""
-    arr, dtype = ckpt.to_numpy(t)
+    arr, dtype = ckpt.to_numpy(_global_cpu(t))
     np.save(path, arr)
     return dtype == "bfloat16"
 
@@ -118,12 +136,22 @@ class StateManager:
 
     @property
     def device(self) -> torch.device:
+        """The slice's first device (the CPU without a slice)."""
         return self.mesh_slice.device if self.mesh_slice is not None \
             else torch.device("cpu")
 
+    @property
+    def multi(self) -> bool:
+        """Whether the slice has several devices (entries are
+        ``Sharded``)."""
+        return self.mesh_slice is not None and self.mesh_slice.n_devices > 1
+
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = self.mesh_slice.devices if self.mesh_slice is not None \
+            else (self.device,)
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _record(self, direction: str, nbytes: int, dt: float):
         self.bytes_moved[direction] += nbytes
@@ -143,17 +171,53 @@ class StateManager:
         return {t.name: self._tier_bytes(t) for t in Tier}
 
     @staticmethod
+    def _pinned(buf, t):
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    @staticmethod
     def _to_host(e: Entry):
         """Point a device entry at a host copy, in its pinned buffer (made at
-        the first offload, reused after). The copy is asynchronous: sync
-        before the host reads it."""
+        the first offload, reused after; one per local tensor of a
+        ``Sharded`` entry). The copy is asynchronous: sync before the host
+        reads it."""
         t = e.ref
-        if t.device.type != "cpu":
-            if e.host is None or e.host.shape != t.shape \
-                    or e.host.dtype != t.dtype:
-                e.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            e.host.copy_(t, non_blocking=True)
+        if isinstance(t, shd.Sharded):
+            if t.device.type != "cpu":
+                old = e.host if isinstance(e.host, list) \
+                    else [None] * len(t.locals)
+                e.host = [StateManager._pinned(b, loc)
+                          for b, loc in zip(old, t.locals)]
+                e.ref = shd.Sharded(e.host, t.sharding)
+        elif t.device.type != "cpu":
+            e.host = StateManager._pinned(e.host, t)
             e.ref = e.host
+
+    def _on_device(self, e: Entry):
+        """A HOST (or unspilled) entry's value back on the slice: each
+        local to its own device in the recorded layout, or the global
+        tensor laid out by it, or a plain tensor to the device."""
+        t = e.ref
+        if isinstance(t, shd.Sharded):
+            return shd.Sharded([loc.to(d, non_blocking=True) for loc, d in
+                                zip(t.locals, e.sharding.devices)],
+                               e.sharding)
+        if e.sharding is not None:
+            return shd.shard(t, e.sharding)
+        return t.to(self.device, non_blocking=True)
+
+    def _layout_here(self, sharding, shape):
+        """The layout an entry takes on this manager's slice: its spec on
+        this slice's mesh where it fits, else replicated; None over one
+        device."""
+        if not self.multi:
+            return None
+        spec = sharding.spec if sharding is not None else shd.P()
+        sh = shd.NamedSharding(self.mesh_slice.mesh, spec)
+        return sh if sh.fits(shape) else shd.NamedSharding(
+            self.mesh_slice.mesh, shd.P())
 
     # ----------------------------------------------------------- register
     def register(self, job_id: str, tree, tier: Tier = Tier.DEVICE,
@@ -169,15 +233,17 @@ class StateManager:
                 self.entries[key] = Entry(
                     key=key, tier=tier,
                     nbytes=leaf.numel() * leaf.element_size(), ref=leaf,
-                    last_touch=self._touch())
+                    last_touch=self._touch(),
+                    sharding=getattr(leaf, "sharding", None))
             keys.append(key)
         self._evict_if_needed()
         return keys
 
     def write(self, job_id: str, tree, prefix: str = "params") -> None:
         """Copy ``tree``'s values into the job's registered tensors, in
-        place, wherever they are (device or host). Each key must be
-        registered, not on DISK and of the same shape and dtype."""
+        place, wherever they are (device or host), resharded into a
+        ``Sharded`` entry's layout. Each key must be registered, not on
+        DISK and of the same shape and dtype."""
         for sub, leaf in common.canonical_flat(tree).items():
             e = self.entries[f"{job_id}/{prefix}/{sub}"]
             if e.tier == Tier.DISK or e.ref.shape != leaf.shape \
@@ -185,6 +251,9 @@ class StateManager:
                 raise ValueError(
                     f"{e.key}: cannot write {tuple(leaf.shape)} {leaf.dtype} "
                     f"into {e.tier.name} {tuple(e.ref.shape)} {e.ref.dtype}")
+            if isinstance(leaf, shd.Sharded) and \
+                    not isinstance(e.ref, shd.Sharded):
+                leaf = shd.gather(leaf, e.ref.device)
             e.ref.copy_(leaf)
 
     def keys_for(self, job_id: str, prefix: Optional[str] = None) -> List[str]:
@@ -247,7 +316,7 @@ class StateManager:
                 e.ref = _unspill(e)
                 os.unlink(e.path)
                 e.path = None
-            e.ref = e.ref.to(self.device, non_blocking=True)
+            e.ref = self._on_device(e)
             e.tier = Tier.DEVICE
             e.last_touch = self._touch()
             moved += e.nbytes
@@ -274,15 +343,20 @@ class StateManager:
         """Cross-group migration (§4.5.3): hand the job's entries to
         ``dst`` and drop them here. Returns the bytes moved.
 
-        A DEVICE entry whose destination has the same device changes owner
-        as it is (``cross_mesh`` False: a round trip through the host would
-        buy nothing); across devices it is copied to ``dst``'s device, and
-        the clock is read after a sync. A HOST entry moves with its pinned
-        buffer. A DISK entry is read from its spill file and lands on HOST,
-        as the reference has it. Transactional: nothing is dropped here until every entry
-        has landed on ``dst``; a failure in the middle rolls ``dst`` back
-        and leaves this manager as it was."""
-        cross_mesh = dst.device != self.device
+        Within one slice (``cross_mesh`` False: the same devices and ids)
+        a DEVICE entry changes owner as it is: a round trip through the
+        host would buy nothing. Across slices it is resharded onto
+        ``dst``'s mesh (:meth:`_reshard`) and the clock is read after a
+        sync. A HOST entry moves with its pinned buffers, its layout
+        re-targeted to ``dst``'s mesh. A DISK entry is read from its spill
+        file and lands on HOST, as the reference has it. Transactional:
+        nothing is dropped here until every entry has landed on ``dst``; a
+        failure in the middle rolls ``dst`` back and leaves this manager
+        as it was."""
+        src_sl, dst_sl = self.mesh_slice, dst.mesh_slice
+        cross_mesh = dst.device != self.device if src_sl is None or \
+            dst_sl is None else (src_sl.devices, src_sl.device_ids()) != \
+            (dst_sl.devices, dst_sl.device_ids())
         self._sync()
         t0 = self.clock()
         keys = list(self.keys_for(job_id))
@@ -293,15 +367,15 @@ class StateManager:
                 e = self.entries[k]
                 if e.tier == Tier.DISK:
                     # read the spill file: ``unregister`` below deletes it
+                    t = _unspill(e)
                     dst.entries[k] = dataclasses.replace(
-                        e, tier=Tier.HOST, ref=_unspill(e), refcount=1,
-                        path=None, is_bf16=False, host=None)
+                        e, tier=Tier.HOST, ref=t, refcount=1, path=None,
+                        is_bf16=False, host=None,
+                        sharding=dst._layout_here(e.sharding, t.shape))
+                elif not cross_mesh:
+                    dst.entries[k] = dataclasses.replace(e, refcount=1)
                 else:
-                    ref = e.ref
-                    if e.tier == Tier.DEVICE and cross_mesh:
-                        ref = ref.to(dst.device, non_blocking=True)
-                    dst.entries[k] = dataclasses.replace(e, ref=ref,
-                                                         refcount=1)
+                    dst.entries[k] = dst._reshard(e)
                 staged.append(k)
                 moved += e.nbytes
             dst._sync()
@@ -317,6 +391,37 @@ class StateManager:
         self.last_migrate = {"bytes": moved, "seconds": dt,
                              "cross_mesh": cross_mesh, "keys": len(keys)}
         return moved
+
+    def _reshard(self, e: Entry) -> Entry:
+        """Another slice's DEVICE or HOST entry in this slice's layout: a
+        DEVICE one on this slice's devices (each local copied to its
+        counterpart where the layouts match, else gathered and laid out
+        again), a HOST one kept on the host in a layout this slice's
+        prefetch restores."""
+        ref, sh = e.ref, self._layout_here(e.sharding, e.ref.shape)
+        same = isinstance(ref, shd.Sharded) and sh is not None and \
+            tuple(ref.sharding.spec) == tuple(sh.spec) and \
+            ref.sharding.mesh.shape == sh.mesh.shape
+        if e.tier == Tier.HOST:
+            if same:
+                ref = shd.Sharded(ref.locals, sh)
+            elif isinstance(ref, shd.Sharded):
+                ref = _global_cpu(ref)
+            return dataclasses.replace(
+                e, ref=ref, refcount=1, sharding=sh,
+                host=e.host if same or not isinstance(e.ref, shd.Sharded)
+                else None)
+        if sh is None:
+            ref = shd.gather(ref, self.device) \
+                if isinstance(ref, shd.Sharded) \
+                else ref.to(self.device, non_blocking=True)
+        elif same:
+            ref = shd.Sharded([t.to(d, non_blocking=True) for t, d in
+                               zip(ref.locals, sh.devices)], sh)
+        else:
+            ref = shd.shard(shd.gather(ref) if isinstance(ref, shd.Sharded)
+                            else ref, sh)
+        return dataclasses.replace(e, ref=ref, refcount=1, sharding=sh)
 
     # ------------------------------------ cross-PROCESS migration halves
     def export_state(self, job_id: str, max_inline_bytes: int = 64 << 20
@@ -345,7 +450,7 @@ class StateManager:
             if e.tier == Tier.DISK:
                 arr, is_bf16 = np.load(e.path), e.is_bf16
             else:
-                arr, dtype = ckpt.to_numpy(e.ref)
+                arr, dtype = ckpt.to_numpy(_global_cpu(e.ref))
                 is_bf16 = dtype == "bfloat16"
             ent = {"key": k, "nbytes": e.nbytes, "version": e.version,
                    "tier": int(e.tier), "is_bf16": is_bf16, "spec": None,
@@ -436,9 +541,22 @@ class StateManager:
                                step: int = 0, prefix: str = "params") -> str:
         """Checkpoint = materialisation from managed state (§4.5.3): works
         whichever tier holds the state; no user-triggered export path."""
-        tree = self.gather(job_id, template, prefix)
+        tree = common.tree_map(_global_cpu,
+                               self.gather(job_id, template, prefix))
         return ckpt.save(path, tree, step=step,
                          extra_meta={"job_id": job_id, "node": self.node_id})
+
+    def sync_weights(self, job_id: str, template, target_shardings=None,
+                     prefix: str = "params"):
+        """Weight synchronisation (``repro/core/state_manager.py:290-
+        300``): the job's parameters laid out in ``target_shardings`` (a
+        tree of ``NamedSharding``, the target deployment's), each leaf a
+        copy made from the blocks in hand, or, without targets, the tree
+        as it is (the caller copies it where it lands)."""
+        tree = self.gather(job_id, template, prefix)
+        if target_shardings is None:
+            return tree
+        return shd.device_put(tree, target_shardings)
 
     # ------------------------------------------- §4.5.4 host optimizer
     def host_optimizer_step(self, job_id: str, grads_tree, template,
@@ -467,6 +585,10 @@ class StateManager:
         c1 = 1.0 - b1 ** step
         c2 = 1.0 - b2 ** step
         gflat = common.canonical_flat(grads_tree)
+        if any(isinstance(self.entries[pre + sub].ref, shd.Sharded)
+               for sub in gflat):
+            raise shd.not_ported(
+                "the host optimizer step over a slice of several devices", 7)
         for sub in gflat:
             e = self.entries[pre + sub]
             if e.tier == Tier.DEVICE:

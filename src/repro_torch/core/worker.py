@@ -1,9 +1,14 @@
 """Worker-process group (WPG): one logical deployment's execution backend.
 
 A WPG executes admitted operations SERIALLY (the per-WPG ordering
-guarantee of §4.2/§5.1) on its node group's device, read off the group's
-StateManager slice. Parameters live under the StateManager as canonical
-entries, so context switching (offload/load) never touches worker code.
+guarantee of §4.2/§5.1) on its node group's mesh slice, read off the
+group's StateManager (so a migration that swaps the StateManager rebinds
+the WPG). Parameters live under the StateManager as canonical entries, so
+context switching (offload/load) never touches worker code. On a slice of
+several devices the WPG lays its state out by the model's ``"tp"`` rules
+(:meth:`state_shardings`, cached per slice), runs every op tensor-parallel
+over the slice (``models/layers.py``'s ``Ctx``) and syncs weights into the
+target deployment's own layout; only the dense family runs there yet.
 
 It runs every op of the service API: ``INIT``, ``GENERATE``, ``FORWARD``
 (logprobs, or a critic's values), ``FORWARD_BACKWARD`` (the GRPO, PPO or
@@ -29,12 +34,15 @@ from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.core.state_manager import StateManager, Tier
 from repro_torch.models import common
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import make_ctx
 from repro_torch.models.registry import Model, build_model
 from repro_torch.rl import grpo
 from repro_torch.rl import ppo as ppo_lib
 from repro_torch.rl import rollout as rollout_lib
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
+from repro_torch.train import train_state as tstate
 from repro_torch.train.train_state import TrainState
 
 
@@ -88,11 +96,6 @@ def _value_readout(logits):
     return torch.tanh(v / (logits.shape[-1] * 1.0) ** 0.5)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})")
-
-
 class WorkerProcessGroup:
     def __init__(self, spec: api.DeploymentSpec, state_manager: StateManager,
                  rng_seed: int = 0, grpo_cfg: Optional[grpo.GRPOConfig] = None,
@@ -112,6 +115,8 @@ class WorkerProcessGroup:
         self._logprob = grpo.make_compute_log_prob(self.model)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.exec_log = ExecLog()
+        # (mesh, TrainState of shardings), rebuilt when the slice changes
+        self._shard_cache: Optional[tuple] = None
 
     # -------------------------------------------------------------- state
     @property
@@ -120,8 +125,47 @@ class WorkerProcessGroup:
 
     @property
     def device(self) -> torch.device:
-        """The node group's device, read off the group's StateManager."""
+        """The node group's (first) device, read off the group's
+        StateManager."""
         return self.sm.device
+
+    @property
+    def mesh_slice(self):
+        """The node group's MeshSlice, read off the group's StateManager."""
+        return getattr(self.sm, "mesh_slice", None)
+
+    def ctx(self):
+        """The sharding context of a slice of several devices, else None
+        (the one-device path)."""
+        sl = self.mesh_slice
+        return None if sl is None else make_ctx(sl.mesh)
+
+    def state_shardings(self) -> Optional[TrainState]:
+        """The shardings of (params, opt_state, step) on this group's
+        slice under the ``"tp"`` rules, cached per slice; None over one
+        device."""
+        sl = self.mesh_slice
+        if sl is None or sl.n_devices == 1:
+            return None
+        if self._shard_cache is None or self._shard_cache[0] != sl.mesh:
+            err = shd.tp_unsupported(self.cfg)
+            if err is not None:
+                raise err
+            self._shard_cache = (sl.mesh, tstate.shardings(
+                self.model, sl.mesh, shd.named_rules("tp")))
+        return self._shard_cache[1]
+
+    def param_shardings(self):
+        st = self.state_shardings()
+        return None if st is None else st.params
+
+    def _place(self, tree, shardings):
+        """A copy of ``tree`` on the group's slice: in ``shardings`` over
+        several devices, else on the device."""
+        if shardings is None:
+            return common.tree_map(lambda t: shd.gather(t).to(
+                self.device, copy=True), tree)
+        return shd.device_put(tree, shardings)
 
     def params(self):
         return self.sm.gather(self.job_prefix, self.model.param_specs(),
@@ -130,7 +174,8 @@ class WorkerProcessGroup:
     def host_params(self):
         """The parameters as host tensors: the process plane's export for a
         weight sync into another process."""
-        return common.tree_map(lambda t: t.detach().cpu(), self.params())
+        return common.tree_map(lambda t: shd.gather(t, "cpu").detach(),
+                               self.params())
 
     def opt_state(self) -> opt.AdamWState:
         specs = self.model.param_specs()
@@ -152,8 +197,8 @@ class WorkerProcessGroup:
         if self.sm.keys_for(self.job_prefix, "params"):
             self.sm.write(self.job_prefix, tree, "params")
         else:
-            self._register("params", common.tree_map(
-                lambda t: t.to(self.device, copy=True), tree))
+            self._register("params", self._place(tree,
+                                                 self.param_shardings()))
 
     def _batch(self, batch):
         """A train batch (numpy or CPU tensors) on the group's device."""
@@ -195,8 +240,7 @@ class WorkerProcessGroup:
         }[qop.op]
         t0 = time.monotonic()
         result = handler(*qop.args, **qop.kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.sm._sync()
         self.exec_log.append((qop.op.value, time.monotonic() - t0))
         return result
 
@@ -206,17 +250,31 @@ class WorkerProcessGroup:
         """Seeded init on the group's device, or deploy a copy of ``params``
         (a param tree, e.g. converted from the JAX package by
         models/convert.py). Train and critic deployments also get zero
-        AdamW moments."""
+        AdamW moments. On a slice of several devices the state is laid
+        out in :meth:`state_shardings` (the seeded init drawn whole on the
+        first device first, so every slice size holds the same
+        values)."""
+        st = self.state_shardings()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init_params(gen, self.device)
+            if st is not None:
+                params = shd.device_put(params, st.params)
         else:
             # a copy: updates write into the stored tensors in place
-            params = common.tree_map(
-                lambda t: t.to(self.device, copy=True), params)
+            params = self._place(params, None if st is None else st.params)
         self._register("params", params)
         if self.spec.role in ("train", "critic"):
-            self._register("opt", opt.init(params, self.adamw_cfg)._asdict())
+            state = opt.init(params, self.adamw_cfg)
+            if st is not None:
+                # the moments in ZeRO's specs (the parameters' blocks: the
+                # data axis of a slice is 1)
+                mom = st.opt_state
+                state = opt.AdamWState(
+                    shd.shard(state.step, mom.step),
+                    shd.relayout(state.mu, mom.mu),
+                    shd.relayout(state.nu, mom.nu))
+            self._register("opt", state._asdict())
         return {"params": self.model.param_count()}
 
     def _op_generate(self, prompt_tokens, max_new_tokens: int = 32,
@@ -234,7 +292,7 @@ class WorkerProcessGroup:
                 self.model, self.params(), tokens, self._gen,
                 rollout_lib.RolloutConfig(max_new_tokens=max_new_tokens,
                                           temperature=temperature),
-                extra_inputs=extra)
+                extra_inputs=extra, ctx=self.ctx())
         return {"tokens": toks, "logprobs": logps, "alive": alive}
 
     def _op_forward(self, batch, output: str = "logprobs"):
@@ -246,25 +304,28 @@ class WorkerProcessGroup:
         with torch.no_grad():
             if output == "values":
                 logits, _ = self.model.forward(self.params(),
-                                               self._batch(batch))[:2]
+                                               self._batch(batch),
+                                               ctx=self.ctx())[:2]
                 return _value_readout(logits)
-            return self._logprob(self.params(), self._batch(batch))
+            return self._logprob(self.params(), self._batch(batch),
+                                 self.ctx())
 
     def _op_forward_backward(self, batch, objective: str = "grpo"):
         """Split-phase gradient computation. ``objective`` selects the loss:
         "grpo" (default), "ppo" (rl/ppo.py's clipped surrogate) or "value"
         (the clipped critic loss of a role="critic" deployment)."""
-        params, batch = self.params(), self._batch(batch)
+        params, batch, ctx = self.params(), self._batch(batch), self.ctx()
         if objective == "grpo":
             grads, metrics = grpo.compute_grads(params, self.model, batch,
-                                                self.grpo_cfg)
+                                                self.grpo_cfg, ctx=ctx)
             return {"grads": grads, "metrics": metrics}
         if objective == "ppo":
             def loss_fn(p):
-                return ppo_lib.ppo_loss(p, self.model, batch, self.ppo_cfg)
+                return ppo_lib.ppo_loss(p, self.model, batch, self.ppo_cfg,
+                                        ctx)
         elif objective == "value":
             def loss_fn(p):
-                logits, aux = self.model.forward(p, batch)[:2]
+                logits, aux = self.model.forward(p, batch, ctx=ctx)[:2]
                 vl = ppo_lib.value_loss(
                     _value_readout(logits), batch["value_targets"],
                     batch["old_values"], batch["loss_mask"], self.ppo_cfg)
@@ -285,25 +346,30 @@ class WorkerProcessGroup:
             return {"step": step, "host": True}
         state = self.opt_state()
         metrics = opt.update_(grads, state, self.params(), self.adamw_cfg)
-        return {"step": int(state.step),
+        return {"step": int(shd.local_tensors(state.step)[0]),
                 **{k: float(v) for k, v in metrics.items()}}
 
     def _op_update_actor(self, batch):
         state = TrainState(self.params(), self.opt_state(),
                            torch.zeros((), dtype=torch.int32))
-        _, metrics = self._update_actor(state, self._batch(batch))
+        _, metrics = self._update_actor(state, self._batch(batch),
+                                        self.ctx())
         return {k: float(v) for k, v in metrics.items()}
 
     def _op_sync_weights(self, target_wpg: "WorkerProcessGroup",
                          target_shardings=None):
         """Give the deployment ``target_wpg`` this deployment's parameters
-        on its device: written into the tensors it holds, or a copy
-        registered. Later in-place updates here leave its weights as they
-        were synced."""
-        if target_shardings is not None:
-            raise _not_ported("SYNC_WEIGHTS into target shardings",
-                              "sharding")
-        target_wpg._store_params(self.params())
+        in its layout (``repro/core/worker.py:322-331``): by default the
+        target's own shardings on its slice (a copy on its device over one
+        device), or ``target_shardings``; written into the tensors it
+        holds, or registered. Later in-place updates here leave its
+        weights as they were synced."""
+        if target_shardings is None and hasattr(target_wpg,
+                                                "param_shardings"):
+            target_shardings = target_wpg.param_shardings()
+        tree = self.sm.sync_weights(self.job_prefix, self.model.param_specs(),
+                                    target_shardings)
+        target_wpg._store_params(tree)
         return {"synced_bytes": self.sm.job_bytes(self.job_prefix)}
 
     def _op_save_checkpoint(self, path: str, step: int = 0):

@@ -65,6 +65,7 @@ from repro_torch.configs import shape_applicable
 from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import HW
 from repro_torch.models.registry import build_model
+from repro_torch.models.sharding import not_ported
 from repro_torch.rl import grpo
 from repro_torch.train import train_state as ts
 
@@ -77,9 +78,7 @@ HOST_OPTIM = {"arctic-480b", "paper-qwen3-235b-a22b"}
 
 
 def _not_ported(flag: str):
-    return NotImplementedError(
-        f"{flag} needs sharding, which is not ported yet (ROADMAP.md, "
-        f"Queue 1: item 5, sharding)")
+    return not_ported(f"the dry run's {flag} (per-device counts on meta)", 5)
 
 
 def tree_bytes(tree) -> int:

@@ -888,9 +888,9 @@ class WPGProxy:
             target = args[0]
             if target.gp is not self.gp:
                 if qop.kwargs.get("target_shardings") is not None:
-                    from repro_torch.core.worker import _not_ported
-                    raise _not_ported("SYNC_WEIGHTS into target shardings",
-                                      "sharding")
+                    from repro_torch.models.sharding import not_ported
+                    raise not_ported("SYNC_WEIGHTS into target shardings "
+                                     "across processes", 4)
                 return self._sync_cross_process(target)
             args = (("__dep__", target.spec.deployment_id),) + args[1:]
         payload = {"dep": qop.deployment_id, "req_id": qop.req_id,

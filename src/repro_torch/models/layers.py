@@ -7,7 +7,18 @@ and the layer-group rematerialisation of ``cfg.remat``.
 
 Plain functions on tensors; parameters are nested dicts built from the
 ``*_param_specs`` declarations, with the JAX package's layouts and
-canonical keys. Dtypes follow ``repro.models.layers``: activations stay in
+canonical keys. With a :class:`Ctx` (a slice's mesh of several devices
+and the sharding rules) :func:`embed_apply`, :func:`attn_apply`,
+:func:`mlp_apply` and :func:`unembed_apply` run tensor-parallel over the
+slice: the parameters are ``models/sharding.py``'s ``Sharded`` leaves,
+an activation is a list of per-device tensors, and each device computes
+with its local tensors (Megatron's layout, which the reference's GSPMD
+derives from the same specs): column-parallel Q/K/V and MLP input
+projections, K1 and K2 at each device's local heads, row-parallel
+output projections summed by an all-reduce, and the tied embedding split
+over the vocabulary. Where the KV heads do not split over the slice, the
+cache is split over head_dim and a decode step takes the reference's
+head-dim-parallel branch (:func:`_hd_parallel_decode_attention`). Dtypes follow ``repro.models.layers``: activations stay in
 the parameters' dtype (bf16), norms and RoPE compute in f32, logits are a
 bf16 product cast to f32. Attention goes through
 :mod:`repro_torch.kernels.ops`: plain version on the CPU, the hand-written
@@ -16,7 +27,7 @@ kernels on the card.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +36,49 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import xla_attention
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import spec
+
+
+class Ctx(NamedTuple):
+    """Sharding context threaded through model code
+    (``repro/models/layers.py:19-29``): a slice's mesh of several devices
+    and the sharding rules. ``None`` is the one-device path, unchanged."""
+
+    mesh: object
+    rules: shd.Rules
+
+    @property
+    def n(self) -> int:
+        """The slice's model-axis size."""
+        return self.mesh.shape["model"]
+
+    @property
+    def devices(self):
+        return self.mesh.flat_devices()
+
+
+def make_ctx(mesh, rules: str = "tp") -> Optional[Ctx]:
+    """The context of a slice's mesh: ``None`` over one device. The
+    collectives run over the model axis, so a data axis above 1 raises."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if mesh.shape.get("data", 1) != 1:
+        raise NotImplementedError(
+            "a data axis inside a slice: a slice is a (1, n) mesh")
+    return Ctx(mesh, shd.named_rules(rules))
+
+
+def constrain(ctx: Optional[Ctx], x, axes):
+    if ctx is None:
+        return x
+    return shd.constrain(x, ctx.mesh, ctx.rules, axes)
+
+
+def _split(leaf, dim: int) -> bool:
+    """Whether a ``Sharded`` leaf's ``dim`` is split over the model axis."""
+    ents = list(leaf.sharding.spec) + [None] * leaf.dim()
+    return "model" in shd._mesh_axes_tuple(ents[dim])
 
 # ------------------------------------------------------------------- norms
 
@@ -137,9 +190,32 @@ def attention_core(q, k, v, *, causal: bool, window: int,
                                 softcap=softcap, scale=scale, q_chunk=q_chunk)
 
 
+def _cached_attention(cfg: ModelConfig, q, ck, cv, *, positions, causal,
+                      window, softcap, scale, cache_pos: int):
+    """The ``s`` new queries at ``cache_pos ..`` over a cache already
+    written: one query to K2; several to K1 with that query offset on the
+    card, to the port of the reference's XLA branch on the CPU."""
+    s = q.shape[1]
+    if s == 1:
+        return kops.decode_attention(q[:, 0], ck, cv, cache_pos, scale=scale,
+                                     window=window, softcap=softcap)[:, None]
+    if q.is_cuda:
+        # K1 with the queries at cache_pos.., over the cache's first
+        # cache_pos + s rows, read in place
+        t = cache_pos + s
+        return kops.flash_attention(q, ck[:, :t], cv[:, :t], causal=causal,
+                                    window=window, softcap=softcap,
+                                    scale=scale, q_chunk=cfg.attn_q_chunk,
+                                    q_off=cache_pos)
+    kv_mask = torch.arange(ck.shape[1], device=q.device) <= cache_pos + s - 1
+    return xla_attention(q, ck, cv, q_positions=positions, kv_mask=kv_mask,
+                         causal=causal, window=window, softcap=softcap,
+                         scale=scale, q_chunk=cfg.attn_q_chunk)
+
+
 def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
                kv_x=None, cache=None, cache_pos: Optional[int] = None,
-               use_rope=True):
+               use_rope=True, ctx: Optional[Ctx] = None):
     """Project, rope, (cache update), attend, out-project.
 
     q comes from ``x``; k and v from ``kv_x`` when it is given
@@ -152,8 +228,13 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
     offset on the card and to the port of the reference's XLA branch on
     the CPU. Returns ``(out, kv)``: the cache dict when one was given, else
     the freshly projected (post-rope) {"k", "v"} the prefill uses to build
-    one.
+    one. With ``ctx``, tensor-parallel self-attention over the slice
+    (:func:`_attn_apply_tp`).
     """
+    if ctx is not None:
+        return _attn_apply_tp(p, cfg, x, positions=positions, causal=causal,
+                              window=window, cache=cache,
+                              cache_pos=cache_pos, ctx=ctx)
     q, k, v = _project_qkv(p, cfg, x, x if kv_x is None else kv_x)
     scale = cfg.attn_scale if cfg.attn_scale is not None \
         else cfg.resolved_head_dim ** -0.5
@@ -168,26 +249,10 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
         kv_out = cache
-        if s == 1:
-            out = kops.decode_attention(q[:, 0], ck, cv, cache_pos,
-                                        scale=scale, window=window,
-                                        softcap=softcap)[:, None]
-        elif x.is_cuda:
-            # K1 with the queries at cache_pos.., over the cache's first
-            # cache_pos + s rows, read in place
-            t = cache_pos + s
-            out = kops.flash_attention(q, ck[:, :t], cv[:, :t],
-                                       causal=causal, window=window,
-                                       softcap=softcap, scale=scale,
-                                       q_chunk=cfg.attn_q_chunk,
-                                       q_off=cache_pos)
-        else:
-            kv_mask = torch.arange(ck.shape[1], device=x.device) \
-                <= cache_pos + s - 1
-            out = xla_attention(q, ck, cv, q_positions=positions,
-                                kv_mask=kv_mask, causal=causal,
-                                window=window, softcap=softcap, scale=scale,
-                                q_chunk=cfg.attn_q_chunk)
+        out = _cached_attention(cfg, q, ck, cv, positions=positions,
+                                causal=causal, window=window,
+                                softcap=softcap, scale=scale,
+                                cache_pos=cache_pos)
     else:
         kv_out = {"k": k, "v": v}
         out = attention_core(q, k, v, causal=causal, window=window,
@@ -195,6 +260,190 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
                              q_chunk=cfg.attn_q_chunk)
     proj = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return proj, kv_out
+
+
+# ------------------------------------------------- attention over a slice
+
+def _kv_for_heads(t, r: int, hl: int, g: int):
+    """The KV heads (axis 2 of (B, T, K, D)) that device ``r``'s query
+    heads ``r*hl .. (r+1)*hl - 1`` attend, where the query heads split
+    over the slice and the KV heads do not (reduced configs: 4 heads, 2
+    KV heads over 4 devices). A copy: K1 and K2 take no strided view of
+    the heads axis, so the slice is made contiguous here."""
+    h0 = r * hl
+    if hl % g == 0:
+        return t[:, :, h0 // g:(h0 + hl) // g].contiguous()
+    if g % hl == 0:
+        return t[:, :, h0 // g:h0 // g + 1].contiguous()
+    return t.repeat_interleave(g, dim=2)[:, :, h0:h0 + hl].contiguous()
+
+
+def hd_parallel(cfg: ModelConfig, ctx: Optional[Ctx]) -> bool:
+    """The reference's condition for the head-dim-parallel decode
+    (``repro/models/layers.py:279-283``): the KV heads do not split over
+    the model axis and head_dim does; the cache is then split over
+    head_dim (``cache_hd``)."""
+    return ctx is not None and cfg.num_kv_heads % ctx.n != 0 \
+        and cfg.resolved_head_dim % ctx.n == 0
+
+
+def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
+                   positions, causal, window, cache, cache_pos, ctx: Ctx):
+    """:func:`attn_apply` over the slice. ``xs``: the input on every
+    device; ``p``: ``Sharded`` leaves. Each device projects its local
+    query and KV heads (column-parallel, biases split alike) and attends
+    with K1 (prefill) or K2 (decode) at its local heads; its output
+    projection by its rows of ``wo`` is a partial sum, and an all-reduce
+    gives every device the whole. Where the query heads split and the KV
+    heads do not, each device attends with the KV heads its query heads
+    map to; where neither splits, every device attends in full and ``wo``
+    is whole on each. ``cache``: {"k", "v": per-device lists of the
+    layer's local (B, T, K_local, D_local)}. Returns the per-device
+    outputs and {"k", "v": per-device lists}: the cache, or the local
+    blocks of the new keys and values in the cache's layout."""
+    devs = ctx.devices
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    g = h // cfg.num_kv_heads
+    q_split, kv_split = _split(p["wq"], 1), _split(p["wk"], 1)
+    hl = h // ctx.n if q_split else h
+    mixed = q_split and not kv_split
+    hd_cache = hd_parallel(cfg, ctx)
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    softcap = cfg.attn_logit_softcap
+    s = xs[0].shape[1]
+    outs, qs, new_k, new_v = [], [], [], []
+    for r, dev in enumerate(devs):
+        pr = shd.local_tree(p, r)
+        pos_r = positions.to(dev)
+        q, k, v = _project_qkv(pr, cfg, xs[r], xs[r])
+        if cfg.rope_theta > 0:
+            q = rope(q, pos_r, cfg.rope_theta)
+            k = rope(k, pos_r, cfg.rope_theta)
+        new_k.append(k)
+        new_v.append(v)
+        if cache is None:
+            kk, vv = (_kv_for_heads(k, r, hl, g), _kv_for_heads(v, r, hl, g)) \
+                if mixed else (k, v)
+            out = attention_core(q, kk, vv, causal=causal, window=window,
+                                 softcap=softcap, scale=scale,
+                                 q_chunk=cfg.attn_q_chunk)
+            outs.append(torch.einsum("bshk,hkd->bsd", out, pr["wo"]))
+        else:
+            qs.append(q)
+    if hd_cache:
+        # the cache keeps each device's head_dim block of every KV head
+        new_k = constrain(ctx, new_k, ("cache_batch", "cache_seq",
+                                       "kv_heads", "cache_hd"))
+        new_v = constrain(ctx, new_v, ("cache_batch", "cache_seq",
+                                       "kv_heads", "cache_hd"))
+    if cache is None:
+        kv_out = {"k": new_k, "v": new_v}
+    else:
+        for ck, cv, k, v in zip(cache["k"], cache["v"], new_k, new_v):
+            ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
+        kv_out = cache
+        if hd_cache:
+            outs = _hd_decode_tp(p, cfg, qs, cache, positions=positions,
+                                 window=window, softcap=softcap, scale=scale,
+                                 cache_pos=cache_pos, q_split=q_split, hl=hl,
+                                 ctx=ctx)
+            return shd.all_reduce(outs, devs), kv_out
+        for r, q in enumerate(qs):
+            ck, cv = cache["k"][r], cache["v"][r]
+            if mixed:
+                # the replicated cache's KV heads for this device's queries
+                # (head_dim does not split either): a copy a step
+                ck, cv = _kv_for_heads(ck, r, hl, g), _kv_for_heads(cv, r, hl, g)
+            out = _cached_attention(cfg, q, ck, cv,
+                                    positions=positions.to(q.device),
+                                    causal=causal, window=window,
+                                    softcap=softcap, scale=scale,
+                                    cache_pos=cache_pos)
+            outs.append(torch.einsum("bshk,hkd->bsd", out,
+                                     p["wo"].locals[r]))
+    return (shd.all_reduce(outs, devs) if q_split else outs), kv_out
+
+
+def _hd_decode_tp(p, cfg: ModelConfig, qs, cache, *, positions, window,
+                  softcap, scale, cache_pos, q_split, hl, ctx: Ctx):
+    """A decode step's attention where the cache is split over head_dim:
+    every device takes all query heads (gathered where they split) at
+    its head_dim block, :func:`_hd_parallel_decode_attention` sums the
+    partial scores, and each device projects its block of the output:
+    by its rows of a whole ``wo``, or, where ``wo`` splits over heads, by
+    its heads of the gathered output. Returns the partial projections."""
+    devs = ctx.devices
+    s = qs[0].shape[1]
+    q_full = shd.all_gather(qs, devs, dim=2) if q_split else qs
+    q_hd = constrain(ctx, q_full, ("cache_batch", None, None, "cache_hd"))
+    kv_mask = torch.arange(cache["k"][0].shape[1],
+                           device=positions.device) <= cache_pos + s - 1
+    out = _hd_parallel_decode_attention(
+        q_hd, cache["k"], cache["v"], q_positions=positions,
+        kv_mask=kv_mask, window=window, softcap=softcap, scale=scale,
+        ctx=ctx)
+    dl = out[0].shape[-1]
+    if q_split:
+        full = shd.all_gather(out, devs, dim=3)
+        return [torch.einsum("bshk,hkd->bsd", o[:, :, r * hl:(r + 1) * hl],
+                             p["wo"].locals[r]) for r, o in enumerate(full)]
+    return [torch.einsum("bshk,hkd->bsd", o,
+                         p["wo"].locals[r][:, r * dl:(r + 1) * dl])
+            for r, o in enumerate(out)]
+
+
+def _hd_scores(q, k):
+    """QK^T over the head_dim (block) in hand, bf16 products summed in f32,
+    in the grouped (kh, g) form: (B, KH, G, S, T)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, s, kh, h // kh, d)
+    return torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+
+
+def _hd_softmax_pv(scores, v, *, q_positions, kv_mask, window, softcap,
+                   scale):
+    """Scale, cap, mask (causal, window, the live slots) and softmax the
+    whole scores, then PV with the V (block) in hand: (B, S, H, D_v)."""
+    scores = scores * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    b, kh, g, s, t = scores.shape
+    dev = scores.device
+    qp = q_positions.to(dev)
+    qp = qp if qp.ndim == 2 else qp[None, :]
+    kp = torch.arange(t, device=dev)
+    mask = kp[None, None, :] <= qp[:, :, None]
+    if window:
+        mask &= kp[None, None, :] > (qp[:, :, None] - window)
+    km = kv_mask.to(dev)
+    km = km if km.ndim == 2 else km[None, :]
+    mask = mask & km[:, None, :]
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(-1e30, device=dev))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, kh * g, v.shape[-1])
+
+
+def _hd_parallel_decode_attention(q, k, v, *, q_positions, kv_mask, window,
+                                  softcap, scale, ctx: Optional[Ctx] = None):
+    """GQA decode attention with the head_dim contraction split over the
+    slice (``repro/models/layers.py:183-213``). q: (B, S, H, D); k, v:
+    (B, T, KH, D). With ``ctx``, q, k and v are per-device lists of their
+    head_dim blocks: each device computes its partial scores, an
+    all-reduce sums them (f32), every device applies the softmax to the
+    whole scores and PV with its block of V, and the per-device output
+    blocks (B, S, H, D / n) come back. Plain PyTorch, as the reference's
+    is XLA; with ``ctx=None`` the whole computation on one device."""
+    opts = dict(q_positions=q_positions, kv_mask=kv_mask, window=window,
+                softcap=softcap, scale=scale)
+    if ctx is None:
+        return _hd_softmax_pv(_hd_scores(q, k), v, **opts)
+    parts = [_hd_scores(qr, kr) for qr, kr in zip(q, k)]
+    scores = shd.all_reduce(parts, ctx.devices)
+    return [_hd_softmax_pv(sc, vr, **opts) for sc, vr in zip(scores, v)]
 
 
 def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
@@ -239,10 +488,18 @@ def _act(cfg: ModelConfig, x):
     return F.silu(x)
 
 
-def mlp_apply(p, cfg: ModelConfig, x):
+def mlp_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     """Gated MLP: act(x W_gate) * (x W_up), then W_o; or, with ``wi``,
     whisper's plain one: act(x W_i + b_i) W_o + b_o, each bias added to
-    the bf16 product as the reference adds it."""
+    the bf16 product as the reference adds it. With ``ctx`` (the gated
+    MLP), ``x`` is per device: column-parallel W_gate / W_up, row-parallel
+    W_o summed by an all-reduce (or whole on every device where ``mlp``
+    does not split)."""
+    if ctx is not None:
+        outs = [mlp_apply(shd.local_tree(p, r), cfg, xr)
+                for r, xr in enumerate(x)]
+        return shd.all_reduce(outs, ctx.devices) if _split(p["wo"], 0) \
+            else outs
     if "wi" in p:
         return _act(cfg, x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
     return (_act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
@@ -258,7 +515,13 @@ def embed_param_specs(cfg: ModelConfig):
     return p
 
 
-def embed_apply(p, cfg: ModelConfig, tokens):
+def embed_apply(p, cfg: ModelConfig, tokens, ctx: Optional[Ctx] = None):
+    """The bf16 embedding of ``tokens``. With ``ctx``, the input on every
+    device: where the vocabulary splits, each device looks up the tokens
+    in its rows (zero elsewhere) and an all-reduce sums them, which adds
+    only zeros to each row."""
+    if ctx is not None:
+        return _embed_tp(p, cfg, tokens, ctx)
     x = p["embedding"].to(torch.bfloat16)[tokens]
     if cfg.family == "dense" and cfg.post_norms:
         # gemma scales by sqrt(d_model), the constant first rounded to x's
@@ -268,13 +531,48 @@ def embed_apply(p, cfg: ModelConfig, tokens):
     return x
 
 
-def unembed_apply(p, cfg: ModelConfig, x):
-    """bf16 product, then f32 (as the JAX einsum then astype), then the
-    final logit softcap where the config has one."""
+def _embed_tp(p, cfg: ModelConfig, tokens, ctx: Ctx):
+    emb, devs = p["embedding"], ctx.devices
+    if not _split(emb, 0):
+        return [embed_apply(shd.local_tree(p, r), cfg, tokens.to(d))
+                for r, d in enumerate(devs)]
+    parts = []
+    for r, d in enumerate(devs):
+        vl = emb.locals[r].shape[0]
+        t = tokens.to(d) - emb.sharding.block(r, 2)[0] * vl
+        hit = (t >= 0) & (t < vl)
+        x = embed_apply(shd.local_tree(p, r), cfg, t.clamp(0, vl - 1))
+        parts.append(torch.where(hit[..., None], x, torch.zeros(
+            (), dtype=x.dtype, device=d)))
+    return shd.all_reduce(parts, devs)
+
+
+def _unembed_product(p, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
-        logits = (x @ p["embedding"].t()).float()
+        return (x @ p["embedding"].t()).float()
+    return (x @ p["unembed"]).float()
+
+
+def unembed_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
+    """bf16 product, then f32 (as the JAX einsum then astype), then the
+    final logit softcap where the config has one. With ``ctx``, ``x`` is
+    per device and the logits come back whole on the slice's first
+    device: each device's block of the vocabulary gathered there (the
+    sampling and the loss read them there), or the first device's own
+    product where the vocabulary does not split."""
+    if ctx is not None:
+        w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
+        vdim = 0 if cfg.tie_embeddings else 1
+        if _split(w, vdim):
+            parts = [_unembed_product(shd.local_tree(p, r), cfg, xr)
+                     for r, xr in enumerate(x)]
+            spec = shd.P(None, None, w.sharding.spec[vdim])
+            logits = shd.gather(shd.Sharded(
+                parts, shd.NamedSharding(ctx.mesh, spec)))
+        else:
+            logits = _unembed_product(shd.local_tree(p, 0), cfg, x[0])
     else:
-        logits = (x @ p["unembed"]).float()
+        logits = _unembed_product(p, cfg, x)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -296,7 +594,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _wants_grad(tree) -> bool:
-    if torch.is_tensor(tree):
+    if torch.is_tensor(tree) or isinstance(tree, shd.Sharded):
         return tree.requires_grad
     if isinstance(tree, dict):
         return any(_wants_grad(v) for v in tree.values())

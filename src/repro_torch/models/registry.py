@@ -2,8 +2,8 @@
 ``ssm`` (mamba2), ``hybrid`` (zamba2), ``audio`` (whisper) and ``vlm``
 (llama-3.2-vision) families: every family of the JAX package.
 
-    model.forward(params, batch, return_cache=False)
-    model.decode_step(params, cache, batch)
+    model.forward(params, batch, return_cache=False, ctx=None)
+    model.decode_step(params, cache, batch, ctx=None)
     model.param_specs() / init_params(generator, device) / param_count()
     model.abstract_params() / active_param_count()
     model.cache_specs(batch, max_len) / abstract_cache / init_cache
@@ -13,7 +13,10 @@
 for vlm, as in ``repro.models.registry``; an RLVR train batch also
 carries ``behavior_logprobs``, ``advantages`` and ``loss_mask``. A cache is
 its specs' tensors and ``pos``, a host int (the reference's int32 leaf).
-``abstract_*`` give ``meta`` tensors: the dry run's inputs.
+``abstract_*`` give ``meta`` tensors: the dry run's inputs. ``ctx`` (a
+slice of several devices, ``layers.Ctx``) runs the dense family
+tensor-parallel; the other families raise ``NotImplementedError`` naming
+their queued part of ROADMAP.md's Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig, ShapeSpec
-from repro_torch.models import (common, hybrid, mamba2, transformer, vision,
-                                whisper)
+from repro_torch.models import (common, hybrid, mamba2, sharding,
+                                transformer, vision, whisper)
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
                    "hybrid": hybrid, "audio": whisper, "vlm": vision}
@@ -86,14 +89,24 @@ class Model:
             return (batch["vision"],)
         return ()
 
+    def _ctx_kwargs(self, ctx) -> Dict[str, Any]:
+        if ctx is None:
+            return {}
+        err = sharding.tp_unsupported(self.cfg)
+        if err is not None:
+            raise err
+        return {"ctx": ctx}
+
     def forward(self, params, batch: Dict[str, Any],
-                return_cache: bool = False):
+                return_cache: bool = False, ctx=None):
         return self.mod.forward(params, self.cfg, batch["tokens"],
                                 *self._extras(batch),
-                                return_cache=return_cache)
+                                return_cache=return_cache,
+                                **self._ctx_kwargs(ctx))
 
-    def decode_step(self, params, cache, batch: Dict[str, Any]):
-        return self.mod.decode_step(params, self.cfg, cache, batch["tokens"])
+    def decode_step(self, params, cache, batch: Dict[str, Any], ctx=None):
+        return self.mod.decode_step(params, self.cfg, cache, batch["tokens"],
+                                    **self._ctx_kwargs(ctx))
 
     def cache_specs(self, batch: int, max_len: int):
         return self.mod.cache_specs(self.cfg, batch, max_len)

@@ -14,18 +14,31 @@ Two rule sets ship by default:
 :class:`PartitionSpec`, dropping any assignment whose dim is not divisible
 by the mesh axes and any mesh axis already used by an earlier dim.
 
-Everything here is logic over shapes: a mesh is anything with a ``shape``
-dict and ``axis_names`` (:class:`MeshShape` stands in for the production
-meshes of 256 and 512 devices), and a :class:`PartitionSpec` is a tuple of
-mesh-axis entries, equal as a tuple to the reference's. Placing tensors by
-these specs (the reference's ``tree_shardings`` and ``constrain``) needs a
-multi-device runtime, which is not ported (ROADMAP.md, Queue 1: item 5,
-sharding).
+The rest places tensors by these specs on a slice's mesh
+(``launch/mesh.py``), with one process driving every device of the slice
+as JAX's single controller does: :class:`NamedSharding` (a mesh and a
+spec), :class:`Sharded` (a global tensor as one local tensor per device),
+:func:`shard` / :func:`device_put` / :func:`gather`, the explicit
+collectives :func:`all_reduce` and :func:`all_gather` (copies between
+devices, ``Tensor.to``, and sums in one fixed device order, so a
+replicated result is the same bits on every device; autograd runs through
+them as through any op), :func:`constrain` and :func:`tree_shardings`.
+A layout over one device is a plain tensor on it: the one-device path is
+the port's path before sharding.
+
+A shape-only mesh is anything with a ``shape`` dict and ``axis_names``
+(:class:`MeshShape` stands in for the production meshes of 256 and 512
+devices, whose placement is queued: :func:`not_ported`), and a
+:class:`PartitionSpec` is a tuple of mesh-axis entries, equal as a tuple
+to the reference's.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
 
 from repro_torch.models import common
 
@@ -185,3 +198,372 @@ def tree_partition_specs(axes_tree, mesh, rules: Rules, shapes_tree=None):
     return common.canonical_unflatten(axes_tree, {
         k: resolve(a, mesh, rules, shape=shapes[k].shape)
         for k, a in common.canonical_flat(axes_tree).items()})
+
+
+# ----------------------------------------------------------- not ported
+
+# the queued parts of ROADMAP.md's Queue 1 item 5 (multi-device execution)
+PARTS = {
+    1: "the MoE family over experts",
+    2: "the vlm family, gemma2 and whisper",
+    3: "mamba2 and zamba2 over ssm_heads",
+    4: "process-mode groups of several devices",
+    5: "the dry run's meshes of many devices",
+    6: "mesh_bench.py",
+    7: "the host optimizer step over a slice of several devices",
+}
+
+
+def not_ported(what: str, part: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: item 5, sharding, "
+        f"part {part}: {PARTS[part]})")
+
+
+def tp_unsupported(cfg) -> Optional[NotImplementedError]:
+    """The error for a config whose family does not run over a slice of
+    several devices yet, or None for the dense family."""
+    if cfg.family == "moe":
+        return not_ported(f"{cfg.name} on a group of several devices", 1)
+    if cfg.family in ("vlm", "audio") or cfg.post_norms:
+        return not_ported(f"{cfg.name} on a group of several devices", 2)
+    if cfg.family in ("ssm", "hybrid"):
+        return not_ported(f"{cfg.name} on a group of several devices", 3)
+    return None
+
+
+# ------------------------------------------------------------- placement
+
+class NamedSharding:
+    """A layout: a mesh (``launch/mesh.py``'s ``Mesh``) and a spec."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*spec)
+
+    def __eq__(self, other):
+        return isinstance(other, NamedSharding) and \
+            self.mesh == other.mesh and tuple(self.spec) == tuple(other.spec)
+
+    def __hash__(self):
+        return hash((self.mesh, tuple(self.spec)))
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return self.mesh.flat_devices()
+
+    def parts(self, ndim: int) -> Tuple[int, ...]:
+        """The number of blocks along each of ``ndim`` dims."""
+        ents = list(self.spec) + [None] * (ndim - len(self.spec))
+        return tuple(math.prod(self.mesh.shape[a]
+                               for a in _mesh_axes_tuple(e)) for e in ents)
+
+    def block(self, pos: int, ndim: int) -> Tuple[int, ...]:
+        """The block index along each dim of the device at flat position
+        ``pos``: the mixed-radix number of its coordinates on the dim's
+        mesh axes, the first axis most significant (as JAX lays it out)."""
+        coords = dict(zip(self.mesh.axis_names,
+                          np.unravel_index(pos, self.mesh.devices.shape)))
+        ents = list(self.spec) + [None] * (ndim - len(self.spec))
+        out = []
+        for e in ents:
+            idx = 0
+            for a in _mesh_axes_tuple(e):
+                idx = idx * self.mesh.shape[a] + int(coords[a])
+            out.append(idx)
+        return tuple(out)
+
+    def slices(self, pos: int, shape) -> Tuple[slice, ...]:
+        """The index of device ``pos``'s block of a global ``shape``."""
+        parts = self.parts(len(shape))
+        for d, (n, p) in enumerate(zip(shape, parts)):
+            if n % p:
+                raise ValueError(f"{self.spec} splits dim {d} of "
+                                 f"{tuple(shape)} into {p} parts")
+        return tuple(slice(b * (n // p), (b + 1) * (n // p))
+                     for b, n, p in zip(self.block(pos, len(shape)), shape,
+                                        parts))
+
+    def fits(self, shape) -> bool:
+        """Whether the spec divides ``shape`` on this mesh."""
+        if len(self.spec) > len(shape):
+            return False
+        for e in self.spec:
+            if any(a not in self.mesh.shape for a in _mesh_axes_tuple(e)):
+                return False
+        return all(n % p == 0 for n, p in zip(shape, self.parts(len(shape))))
+
+
+class Sharded:
+    """A global tensor laid out on a mesh: one local tensor per device of
+    the mesh (row-major), each on its device (or, offloaded, on the host;
+    the sharding still names where it belongs). Replicas of a block are
+    distinct tensors, so an in-place update of one never writes
+    another."""
+
+    __slots__ = ("locals", "sharding", "shape", "dtype")
+
+    def __init__(self, locals_: Sequence[torch.Tensor],
+                 sharding: NamedSharding):
+        self.locals = list(locals_)
+        self.sharding = sharding
+        loc = self.locals[0]
+        self.shape = torch.Size(
+            n * p for n, p in zip(loc.shape, sharding.parts(loc.dim())))
+        self.dtype = loc.dtype
+
+    def __repr__(self):
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
+                f"{self.sharding.spec!r}, {len(self.locals)} locals)")
+
+    @property
+    def device(self) -> torch.device:
+        return self.locals[0].device
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def element_size(self) -> int:
+        return self.locals[0].element_size()
+
+    @property
+    def requires_grad(self) -> bool:
+        return any(t.requires_grad for t in self.locals)
+
+    def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
+        """``fn`` over the locals (and those of ``others``, position by
+        position), in this layout."""
+        return Sharded([fn(*ts) for ts in zip(
+            self.locals, *(o.locals for o in others))], self.sharding)
+
+    def first_of_blocks(self) -> List[int]:
+        """The first position holding each block: the locals a sum over
+        the global tensor reads once."""
+        seen, out = set(), []
+        for pos in range(len(self.locals)):
+            b = self.sharding.block(pos, self.dim())
+            if b not in seen:
+                seen.add(b)
+                out.append(pos)
+        return out
+
+    def copy_(self, src) -> "Sharded":
+        """Write ``src`` (a global tensor, or a :class:`Sharded` of any
+        layout) into the locals, in place."""
+        if isinstance(src, Sharded) and src.sharding == self.sharding:
+            for dst, s in zip(self.locals, src.locals):
+                dst.copy_(s)
+            return self
+        if isinstance(src, Sharded):
+            src = gather(src, self.locals[0].device)
+        if tuple(src.shape) != tuple(self.shape):
+            raise ValueError(f"copy_ of {tuple(src.shape)} into "
+                             f"{tuple(self.shape)}")
+        for pos, dst in enumerate(self.locals):
+            dst.copy_(src[self.sharding.slices(pos, self.shape)])
+        return self
+
+
+def local_tensors(x) -> List[torch.Tensor]:
+    """A leaf's tensors: a :class:`Sharded`'s locals, else the tensor."""
+    return x.locals if isinstance(x, Sharded) else [x]
+
+
+def leafwise(fn: Callable, x, *others):
+    """``fn`` over a leaf's local tensors position by position: a
+    :class:`Sharded` in ``x``'s layout, else ``fn(x, *others)``."""
+    if isinstance(x, Sharded):
+        return x.map(fn, *others)
+    return fn(x, *others)
+
+
+def local_tree(tree, pos: int):
+    """Device ``pos``'s local tensors of a tree of :class:`Sharded`
+    leaves."""
+    return common.tree_map(
+        lambda x: x.locals[pos] if isinstance(x, Sharded) else x, tree)
+
+
+def unstack(tree) -> list:
+    """The per-layer trees of a stacked tree of :class:`Sharded` leaves
+    (a leading unsplit ``layers`` axis), as views: each local unbound once,
+    so the backward stacks the layers' gradients in one op
+    (``common.unstack``)."""
+    flat = common.canonical_flat(tree)
+    parts = {k: [torch.unbind(t) for t in v.locals] for k, v in flat.items()}
+    shs = {k: NamedSharding(v.sharding.mesh,
+                            PartitionSpec(*v.sharding.spec[1:]))
+           for k, v in flat.items()}
+    n = len(next(iter(parts.values()))[0])
+    return [common.canonical_unflatten(tree, {
+        k: Sharded([loc[i] for loc in p], shs[k]) for k, p in parts.items()})
+        for i in range(n)]
+
+
+def shard(t: torch.Tensor, sharding: NamedSharding):
+    """Lay a global tensor out: each device's block copied onto it (a
+    copy even where it is already there). Over one device, a plain copy
+    on it."""
+    devs = sharding.devices
+    if len(devs) == 1:
+        return t.to(devs[0], copy=True)
+    return Sharded([t[sharding.slices(pos, t.shape)].to(d, copy=True)
+                    .contiguous() for pos, d in enumerate(devs)], sharding)
+
+
+def gather(x, device=None) -> torch.Tensor:
+    """The global tensor of a :class:`Sharded` on ``device`` (default: its
+    first device), each block read from the first position holding it and
+    joined by ``torch.cat`` (differentiable). A plain tensor goes to
+    ``device`` as it is."""
+    if not isinstance(x, Sharded):
+        return x if device is None else x.to(device)
+    dev = x.locals[0].device if device is None else torch.device(device)
+    nd = x.dim()
+    parts = x.sharding.parts(nd)
+    blocks = {}
+    for pos in x.first_of_blocks():
+        blocks[x.sharding.block(pos, nd)] = x.locals[pos]
+    split = [d for d in range(nd) if parts[d] > 1]
+
+    def join(prefix: Dict[int, int], depth: int):
+        if depth == len(split):
+            key = tuple(prefix.get(d, 0) for d in range(nd))
+            return blocks[key].to(dev)
+        d = split[depth]
+        return torch.cat([join({**prefix, d: j}, depth + 1)
+                          for j in range(parts[d])], dim=d)
+
+    return join({}, 0)
+
+
+def same_blocks(a: NamedSharding, b: NamedSharding, ndim: int) -> bool:
+    """Whether two layouts put the same block on each device (a spec that
+    names an axis of size 1, as ZeRO's ``data`` in a slice, changes no
+    block)."""
+    return a.mesh == b.mesh and all(
+        a.block(pos, ndim) == b.block(pos, ndim) and
+        a.parts(ndim) == b.parts(ndim) for pos in range(a.mesh.size))
+
+
+def relayout(tree, shardings):
+    """Each :class:`Sharded` leaf of ``tree`` in its sharding from
+    ``shardings`` (a tree like it): the same local tensors where the new
+    layout puts the same blocks on the same devices, else a copy laid out
+    again."""
+    flat = common.canonical_flat(shardings)
+
+    def one(k, x):
+        sh = flat[k]
+        if same_blocks(x.sharding, sh, x.dim()):
+            return Sharded(x.locals, sh)
+        return shard(gather(x), sh)
+
+    return common.canonical_unflatten(tree, {
+        k: one(k, x) for k, x in common.canonical_flat(tree).items()})
+
+
+def _to_layout(leaf, sharding: NamedSharding):
+    if isinstance(leaf, Sharded):
+        if leaf.sharding == sharding:
+            return leaf.map(lambda t: t.clone())
+        leaf = gather(leaf)
+    return shard(leaf, sharding)
+
+
+def device_put(tree, shardings):
+    """Each leaf of ``tree`` (tensors or :class:`Sharded`) copied into the
+    layout of ``shardings`` (a tree of :class:`NamedSharding` like it, or
+    one for every leaf)."""
+    if isinstance(shardings, NamedSharding):
+        return common.tree_map(lambda t: _to_layout(t, shardings), tree)
+    flat = common.canonical_flat(shardings)
+    return common.canonical_unflatten(tree, {
+        k: _to_layout(t, flat[k])
+        for k, t in common.canonical_flat(tree).items()})
+
+
+def tree_shardings(axes_tree, mesh, rules: Rules, shapes_tree=None):
+    """:func:`tree_partition_specs` as :class:`NamedSharding`\\ s on
+    ``mesh``."""
+    specs = tree_partition_specs(axes_tree, mesh, rules, shapes_tree)
+    return common.tree_map(lambda p: NamedSharding(mesh, p), specs,
+                           is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+# ------------------------------------------------------------ collectives
+
+def all_reduce(parts: Sequence[torch.Tensor],
+               devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The sum of ``parts`` (one partial per position) on every position's
+    device: each partial copied there and added in position order, so
+    every device holds the same bits. Positions on one device (virtual
+    devices) share one sum."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev not in done:
+            acc = parts[0].to(dev)
+            for p in parts[1:]:
+                acc = acc + p.to(dev)
+            done[dev] = acc
+        out.append(done[dev])
+    return out
+
+
+def all_gather(parts: Sequence[torch.Tensor], devices: Sequence[torch.device],
+               dim: int) -> List[torch.Tensor]:
+    """``parts`` joined along ``dim`` on every position's device."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev not in done:
+            done[dev] = torch.cat([p.to(dev) for p in parts], dim=dim)
+        out.append(done[dev])
+    return out
+
+
+def sum_replica_grads(g: Sharded) -> Sharded:
+    """The gradient of a leaf whose blocks have replicas: each replica's
+    tensor received the gradient of its own device's uses, and the
+    block's gradient is their sum (the all-reduce GSPMD inserts for a
+    replicated parameter), added in position order and given to every
+    replica."""
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for pos in range(len(g.locals)):
+        groups.setdefault(g.sharding.block(pos, g.dim()), []).append(pos)
+    out = list(g.locals)
+    for members in groups.values():
+        if len(members) > 1:
+            sums = all_reduce([g.locals[p] for p in members],
+                              [g.locals[p].device for p in members])
+            for p, s in zip(members, sums):
+                out[p] = s
+    return Sharded(out, g.sharding)
+
+
+def constrain(x, mesh, rules: Rules, axes: Sequence[Optional[str]]):
+    """Bring an activation to the layout its logical ``axes`` resolve to on
+    ``mesh`` (where the reference calls ``with_sharding_constraint``): a
+    list of per-device tensors holding the whole value (replicated) is
+    sliced where it lies; a :class:`Sharded` is gathered first. Returns
+    the per-device tensors of the new layout; outside a mesh of several
+    devices, ``x`` as it is."""
+    if mesh is None or mesh.size == 1 or torch.is_tensor(x):
+        return x
+    if isinstance(x, Sharded):
+        shape, glob = x.shape, gather(x)
+        src = [glob.to(d) for d in mesh.flat_devices()]
+    else:
+        src, shape = list(x), x[0].shape
+    sh = NamedSharding(mesh, resolve(axes, mesh, rules, shape=shape))
+    return [t[sh.slices(pos, shape)] for pos, t in enumerate(src)]

@@ -12,15 +12,27 @@ Layers run in groups of ``local_global_period`` (one layer but for
 gemma2, whose groups are a local layer with a sliding window, then a
 global one), as the reference scans them; the training forward
 rematerialises each group under ``cfg.remat`` (``layers.remat``).
+
+With a ``ctx`` (``layers.Ctx``: a slice of several devices) the dense
+family runs tensor-parallel: the parameters are ``Sharded`` leaves, the
+residual stream is one tensor per device, and the cache's k and v are
+``Sharded`` in the layout of :func:`cache_specs`' logical axes under the
+rules (split over KV heads, else over head_dim, ``cache_hd``). The
+logits come back whole on the slice's first device. ``ctx=None`` is the
+one-device path.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
+    Ctx,
     apply_norm,
     attn_apply,
     attn_param_specs,
@@ -91,10 +103,32 @@ def _ffn(p, cfg: ModelConfig, x):
     return mlp_apply(p["mlp"], cfg, x), None
 
 
+def _norm_tp(p, xs, cfg: ModelConfig):
+    """A norm of a replicated activation: on every device, by its copy of
+    the (replicated) scale."""
+    return [apply_norm(shd.local_tree(p, r), x, cfg) for r, x in
+            enumerate(xs)]
+
+
+def _layer_apply_tp(p, cfg: ModelConfig, xs, *, positions, window, cache,
+                    cache_pos, ctx: Ctx):
+    h = _norm_tp(p["ln1"], xs, cfg)
+    a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
+                       window=window, cache=cache, cache_pos=cache_pos,
+                       ctx=ctx)
+    xs = [x + ar for x, ar in zip(xs, a)]
+    m = mlp_apply(p["mlp"], cfg, _norm_tp(p["ln2"], xs, cfg), ctx)
+    return [x + mr for x, mr in zip(xs, m)], None, kv
+
+
 def layer_apply(p, cfg: ModelConfig, x, *, positions, window: int = 0,
-                cache=None, cache_pos=None):
+                cache=None, cache_pos=None, ctx: Optional[Ctx] = None):
     """One decoder layer. Returns (x, aux, kv); aux is None without
-    experts."""
+    experts. With ``ctx``, ``x`` and the cache's k and v are per-device
+    lists (the dense family)."""
+    if ctx is not None:
+        return _layer_apply_tp(p, cfg, x, positions=positions, window=window,
+                               cache=cache, cache_pos=cache_pos, ctx=ctx)
     h = apply_norm(p["ln1"], x, cfg)
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
                        window=window, cache=cache, cache_pos=cache_pos)
@@ -108,14 +142,15 @@ def layer_apply(p, cfg: ModelConfig, x, *, positions, window: int = 0,
     return x + m, aux, kv
 
 
-def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool):
+def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool,
+                ctx: Optional[Ctx] = None):
     """One group of layers (``group``: their parameter trees). Returns
     (x, the layers' MoE losses stacked or None[, their fresh k/v])."""
     period = len(group)
     auxs, kvs = [], []
     for j, layer in enumerate(group):
         x, aux, kv = layer_apply(layer, cfg, x, positions=positions,
-                                 window=_sub_window(cfg, j, period))
+                                 window=_sub_window(cfg, j, period), ctx=ctx)
         if aux is not None:
             auxs.append(aux)
         if with_kv:
@@ -124,11 +159,55 @@ def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool):
     return (x, aux, kvs) if with_kv else (x, aux)
 
 
-def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
+def _cache_sharding(cfg: ModelConfig, ctx: Ctx, b: int, t: int):
+    """The layout of the cache's k and v on the slice: its logical axes
+    resolved under the rules."""
+    sp = cache_specs(cfg, b, t)["k"]
+    return shd.NamedSharding(ctx.mesh, shd.resolve(sp.axes, ctx.mesh,
+                                                   ctx.rules, shape=sp.shape))
+
+
+def _forward_tp(params, cfg: ModelConfig, tokens, return_cache: bool,
+                ctx: Ctx):
+    b, s = tokens.shape
+    devs = ctx.devices
+    xs = embed_apply(params["embed"], cfg, tokens, ctx)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    _, period = _group_layout(cfg)
+    layers = shd.unstack(params["layers"])
+    ks, vs = [[] for _ in devs], [[] for _ in devs]
+    for g in range(0, cfg.num_layers, period):
+        group = layers[g:g + period]
+        if return_cache:
+            xs, _, kvs = group_apply(group, cfg, xs, positions, True, ctx)
+            for kv in kvs:
+                for r in range(len(devs)):
+                    ks[r].append(kv["k"][r])
+                    vs[r].append(kv["v"][r])
+        else:
+            xs, _ = remat(cfg, group_apply, group, cfg, xs, positions, False,
+                          ctx)
+    logits = unembed_apply(params["embed"], cfg,
+                           _norm_tp(params["ln_f"], xs, cfg), ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if return_cache:
+        sh = _cache_sharding(cfg, ctx, b, s)
+        cache = {"k": shd.Sharded([torch.stack(k) for k in ks], sh),
+                 "v": shd.Sharded([torch.stack(v) for v in vs], sh),
+                 "pos": s}
+        return logits, aux, cache
+    return logits, aux
+
+
+def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
+            ctx: Optional[Ctx] = None):
     """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]);
     aux is the MoE loss's mean over the layers (0 without experts). Without
     a cache each group of layers runs under ``remat``; the prefill that
-    builds a cache never needs a gradient and runs directly."""
+    builds a cache never needs a gradient and runs directly. With ``ctx``,
+    tensor-parallel over the slice."""
+    if ctx is not None:
+        return _forward_tp(params, cfg, tokens, return_cache, ctx)
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -165,9 +244,33 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     return {"k": kv, "v": kv}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens):
+def _decode_step_tp(params, cfg: ModelConfig, cache, tokens, ctx: Ctx):
+    b = tokens.shape[0]
+    pos = int(cache["pos"])
+    xs = embed_apply(params["embed"], cfg, tokens, ctx)
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=tokens.device)
+    _, period = _group_layout(cfg)
+    for i, layer in enumerate(shd.unstack(params["layers"])):
+        xs, _, _ = layer_apply(
+            layer, cfg, xs, positions=positions,
+            window=_sub_window(cfg, i % period, period),
+            cache={"k": [t[i] for t in cache["k"].locals],
+                   "v": [t[i] for t in cache["v"].locals]},
+            cache_pos=pos, ctx=ctx)
+    logits = unembed_apply(params["embed"], cfg,
+                           _norm_tp(params["ln_f"], xs, cfg), ctx)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                ctx: Optional[Ctx] = None):
     """One decode step. tokens: (B, 1); cache k/v: (L, B, T, K, D) written
-    in place at ``cache["pos"]``. Returns (logits, cache with pos + 1)."""
+    in place at ``cache["pos"]``. Returns (logits, cache with pos + 1).
+    With ``ctx``, tensor-parallel over the slice, the cache's locals
+    written in place."""
+    if ctx is not None:
+        return _decode_step_tp(params, cfg, cache, tokens, ctx)
     b = tokens.shape[0]
     pos = int(cache["pos"])
     x = embed_apply(params["embed"], cfg, tokens)

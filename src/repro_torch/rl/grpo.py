@@ -6,6 +6,14 @@ The port of ``repro.rl.grpo``: the ``compute_log_prob`` (forward) and
 come from ``torch.autograd.grad`` over detached copies of the leaves that
 require grad, so the stored tensors never join a graph; attention's
 gradient is the JAX package's XLA autodiff (``kernels/ops.py``).
+
+Over a slice of several devices (a ``ctx``) the parameters are
+``Sharded`` leaves and the model runs tensor-parallel; the logits are
+gathered to the slice's first device, and the loss is computed there.
+Autograd runs through the collectives' copies and sums, so each local
+tensor gets its gradient; a replicated leaf's copies each get the
+gradient of their own device's uses, and :func:`value_and_grad` sums them
+(``sharding.sum_replica_grads``), the all-reduce GSPMD inserts.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import common
+from repro_torch.models import sharding as shd
 from repro_torch.models.registry import Model
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_state import TrainState
@@ -48,13 +57,14 @@ def group_relative_advantages(rewards, group_size: int, eps: float = 1e-6):
     return ((g - mean) / (std + eps)).reshape(b)
 
 
-def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig):
+def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig,
+              ctx=None):
     """Clipped importance-sampling surrogate with group-relative advantages.
 
     batch: tokens (B,S), behavior_logprobs (B,S), advantages (B,),
     loss_mask (B,S); the mask selects response tokens.
     """
-    logits, aux = model.forward(params, batch)[:2]
+    logits, aux = model.forward(params, batch, ctx=ctx)[:2]
     logp = token_logprobs(logits, batch["tokens"])           # (B, S-1)
     del logits
     behave = batch["behavior_logprobs"][:, 1:]
@@ -87,20 +97,28 @@ def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig):
 def value_and_grad(loss_fn, params):
     """Flat {key: grad} of ``loss_fn(params) -> (loss, metrics)`` (zeros for
     an unused leaf, as ``jax.grad``) and the metrics with the loss, all
-    detached."""
-    leaves = {k: p.detach().requires_grad_()
+    detached. A ``Sharded`` leaf's gradient is ``Sharded`` in its layout,
+    its replicas' gradients summed."""
+    leaves = {k: shd.leafwise(lambda t: t.detach().requires_grad_(), p)
               for k, p in common.canonical_flat(params).items()}
+    tensors = [t for p in leaves.values() for t in shd.local_tensors(p)]
     loss, metrics = loss_fn(common.canonical_unflatten(params, leaves))
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(leaves.items(), grads)}
+    got = iter(torch.autograd.grad(loss, tensors, allow_unused=True))
+
+    def grad_of(t):
+        g = next(got)
+        return torch.zeros_like(t) if g is None else g
+
+    grads = {}
+    for k, p in leaves.items():
+        grads[k] = shd.sum_replica_grads(p.map(grad_of)) \
+            if isinstance(p, shd.Sharded) else grad_of(p)
     metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
     return grads, metrics
 
 
 def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
-                  grad_accum: int = 1):
+                  grad_accum: int = 1, ctx=None):
     """Grads of grpo_loss (a tree like ``params``, in its dtypes) and the
     metrics. With ``grad_accum`` > 1 the batch is split into that many
     equal microbatches along the batch axis (``ValueError`` unless
@@ -108,7 +126,7 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
     averaged, and so are the metrics."""
     if grad_accum <= 1:
         grads, metrics = value_and_grad(
-            lambda p: grpo_loss(p, model, batch, grpo_cfg), params)
+            lambda p: grpo_loss(p, model, batch, grpo_cfg, ctx), params)
         return common.canonical_unflatten(params, grads), metrics
     n = next(iter(batch.values())).shape[0]
     if n % grad_accum:
@@ -121,15 +139,18 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
     for i in range(grad_accum):
         mb = {k: v[i] for k, v in micro.items()}
         grads, m = value_and_grad(
-            lambda p: grpo_loss(p, model, mb, grpo_cfg), params)
+            lambda p: grpo_loss(p, model, mb, grpo_cfg, ctx), params)
         if acc is None:
-            acc = {k: g.float() for k, g in grads.items()}
+            acc = {k: shd.leafwise(lambda t: t.float(), g)
+                   for k, g in grads.items()}
         else:
             for k, g in grads.items():
-                acc[k] += g.float()
+                acc[k] = shd.leafwise(lambda a, t: a.add_(t.float()),
+                                      acc[k], g)
         metrics.append(m)
     flat = common.canonical_flat(params)
-    grads = {k: (acc[k] / grad_accum).to(p.dtype) for k, p in flat.items()}
+    grads = {k: shd.leafwise(lambda a: (a / grad_accum).to(p.dtype), acc[k])
+             for k, p in flat.items()}
     return (common.canonical_unflatten(params, grads),
             {k: torch.stack([m[k] for m in metrics]).mean()
              for k in metrics[0]})
@@ -139,12 +160,12 @@ def make_update_actor(model: Model, grpo: GRPOConfig = GRPOConfig(),
                       adamw: opt.AdamWConfig = opt.AdamWConfig(),
                       grad_accum: int = 1):
     """``update_actor`` primitive: forward, backward and AdamW.
-    (state, batch) -> (state, metrics); the new parameters and moments are
-    written into ``state``'s tensors (``optimizer.update_``)."""
+    (state, batch, ctx=None) -> (state, metrics); the new parameters and
+    moments are written into ``state``'s tensors (``optimizer.update_``)."""
 
-    def step(state: TrainState, batch):
+    def step(state: TrainState, batch, ctx=None):
         grads, metrics = compute_grads(state.params, model, batch, grpo,
-                                       grad_accum)
+                                       grad_accum, ctx)
         opt_metrics = opt.update_(grads, state.opt_state, state.params,
                                   adamw)
         del grads
@@ -159,8 +180,8 @@ def make_compute_log_prob(model: Model):
     """``compute_log_prob`` primitive (paper Tab. 2): forward-only
     logprobs."""
 
-    def step(params, batch):
-        logits, _ = model.forward(params, batch)[:2]
+    def step(params, batch, ctx=None):
+        logits, _ = model.forward(params, batch, ctx=ctx)[:2]
         return token_logprobs(logits, batch["tokens"])
 
     return step
@@ -170,8 +191,9 @@ def make_prefill(model: Model):
     """The serving prefill (``repro/rl/grpo.py:139``): (params, batch) ->
     (the last position's logits (B, 1, V), the cache)."""
 
-    def step(params, batch):
-        logits, _, cache = model.forward(params, batch, return_cache=True)
+    def step(params, batch, ctx=None):
+        logits, _, cache = model.forward(params, batch, return_cache=True,
+                                         ctx=ctx)
         return logits[:, -1:], cache
 
     return step
@@ -182,7 +204,7 @@ def make_decode(model: Model):
     -> (logits (B, 1, V), the cache with ``pos`` + 1), the cache written
     in place."""
 
-    def step(params, cache, batch):
-        return model.decode_step(params, cache, batch)
+    def step(params, cache, batch, ctx=None):
+        return model.decode_step(params, cache, batch, ctx=ctx)
 
     return step

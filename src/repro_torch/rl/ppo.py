@@ -44,10 +44,11 @@ def gae_advantages(rewards, values, mask, cfg: PPOConfig):
     return adv
 
 
-def ppo_loss(params, model: Model, batch: Dict[str, Any], cfg: PPOConfig):
+def ppo_loss(params, model: Model, batch: Dict[str, Any], cfg: PPOConfig,
+             ctx=None):
     """batch: tokens, behavior_logprobs, advantages (B, S) token-level (or
     (B,) per sequence), loss_mask. Returns (loss, {"pg_loss"})."""
-    logits, aux = model.forward(params, batch)[:2]
+    logits, aux = model.forward(params, batch, ctx=ctx)[:2]
     logp = token_logprobs(logits, batch["tokens"])
     behave = batch["behavior_logprobs"][:, 1:]
     mask = batch["loss_mask"][:, 1:]

@@ -5,6 +5,11 @@ explicit ``torch.Generator`` (on the logits' device), greedy when
 ``greedy`` is set or ``temperature <= 0``; behavior logprobs are returned
 for importance-sampled objectives. The loop runs on the host with ``pos`` a host int, and nothing
 in it reads a device value back, so the card runs ahead of Python.
+
+Over a slice of several devices (``ctx``) the model runs tensor-parallel
+and its logits come back whole on the slice's first device, where the
+sampling reads them (the reference samples the logits GSPMD lays out
+over the slice).
 """
 from __future__ import annotations
 
@@ -13,6 +18,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import Ctx
 from repro_torch.models.registry import Model
 
 
@@ -28,13 +35,20 @@ def _pad_cache(cache, extra: int):
     """Grow the self-attention caches' T axis (axis ndim-3 of
     (..., B, T, K, D): the dense family's and whisper's ``k``/``v``, the
     hybrid's ``attn_k``/``attn_v``) by ``extra`` zero slots; whisper's
-    ``cross_k``/``cross_v`` keep the encoder's length."""
+    ``cross_k``/``cross_v`` keep the encoder's length. A ``Sharded`` cache
+    (over a slice) grows each local tensor."""
+
+    def pad(v):
+        shape = list(v.shape)
+        shape[v.ndim - 3] = extra
+        return torch.cat([v, v.new_zeros(shape)], dim=v.ndim - 3)
+
     out = {}
     for k, v in cache.items():
-        if k in ("k", "v", "attn_k", "attn_v") and torch.is_tensor(v) and v.ndim >= 4:
-            shape = list(v.shape)
-            shape[v.ndim - 3] = extra
-            out[k] = torch.cat([v, v.new_zeros(shape)], dim=v.ndim - 3)
+        if k in ("k", "v", "attn_k", "attn_v") and (
+                torch.is_tensor(v) or isinstance(v, shd.Sharded)) \
+                and v.dim() >= 4:
+            out[k] = shd.leafwise(pad, v)
         else:
             out[k] = v
     return out
@@ -42,15 +56,18 @@ def _pad_cache(cache, extra: int):
 
 def rollout(model: Model, params, prompt_tokens, gen: torch.Generator,
             cfg: RolloutConfig = RolloutConfig(),
-            extra_inputs: Optional[Dict[str, Any]] = None
+            extra_inputs: Optional[Dict[str, Any]] = None,
+            ctx: Optional[Ctx] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Generate completions. prompt_tokens: (B, P) integer tensor;
-    ``extra_inputs`` join the prefill's batch only (whisper's ``frames``).
+    """Generate completions. prompt_tokens: (B, P) integer tensor (on the
+    slice's first device); ``extra_inputs`` join the prefill's batch only
+    (whisper's ``frames``).
 
     Returns (completions (B, N), logprobs (B, N), alive mask (B, N)).
     """
     batch = {"tokens": prompt_tokens, **(extra_inputs or {})}
-    logits, _, cache = model.forward(params, batch, return_cache=True)
+    logits, _, cache = model.forward(params, batch, return_cache=True,
+                                     ctx=ctx)
     logits = logits[:, -1]
     cache = _pad_cache(cache, cfg.max_new_tokens)
 
@@ -72,7 +89,8 @@ def rollout(model: Model, params, prompt_tokens, gen: torch.Generator,
         tok, logp = sample(logits)
         tok = torch.where(alive, tok.to(prompt_tokens.dtype), eos)
         new_logits, cache = model.decode_step(params, cache,
-                                              {"tokens": tok[:, None]})
+                                              {"tokens": tok[:, None]},
+                                              ctx=ctx)
         alive = alive & (tok != cfg.eos_id)
         logits = new_logits[:, -1]
         toks.append(tok)

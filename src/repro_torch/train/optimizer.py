@@ -15,6 +15,11 @@ tensors it is given, leaf by leaf and, within a leaf, in slices along the
 leading (layer) axis, so the f32 temporaries are those of one slice. New
 trees would hold a second copy of the whole train state: 27 GB at
 mamba2-2.7b. A caller that wants the inputs kept clones them first.
+
+Over a slice of several devices the leaves are ``Sharded``: the step runs
+per local tensor, position by position (the moments' layout is the
+parameters' with ZeRO's ``data`` axis, 1 in a slice), and the global
+norm reads each block once.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import common
+from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import PartitionSpec as P
 
 
@@ -47,11 +53,14 @@ class AdamWState(NamedTuple):
 
 
 def init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
+    """Zero moments beside each parameter (``Sharded`` ones in its layout)
+    and the step on the first parameter's device."""
     flat = common.canonical_flat(params)
     device = next(iter(flat.values())).device
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return shd.leafwise(lambda t: torch.zeros(
+            t.shape, dtype=cfg.moment_dtype, device=t.device), p)
 
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
@@ -78,8 +87,16 @@ def _square_sum(g):
 
 
 def global_norm(tree):
-    leaves = [_square_sum(g) for g in common.canonical_flat(tree).values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The f32 norm of every leaf together: a ``Sharded`` leaf's blocks
+    each read once, the sums on the first leaf's device."""
+    leaves = []
+    for g in common.canonical_flat(tree).values():
+        if isinstance(g, shd.Sharded):
+            leaves += [_square_sum(g.locals[i]) for i in g.first_of_blocks()]
+        else:
+            leaves.append(_square_sum(g))
+    dev = leaves[0].device
+    return torch.sqrt(torch.sum(torch.stack([t.to(dev) for t in leaves])))
 
 
 def update_(grads, state: AdamWState, params,
@@ -90,12 +107,22 @@ def update_(grads, state: AdamWState, params,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
-    step = state.step + 1
-    lr = _schedule(cfg, state.step)
+    step_t = shd.local_tensors(state.step)
+    step = step_t[0] + 1
+    lr = _schedule(cfg, step_t[0])
     c1 = 1.0 - cfg.b1 ** step.float()
     c2 = 1.0 - cfg.b2 ** step.float()
+    on_dev = {}
+
+    def scalars(dev):
+        """scale, lr, c1 and c2 on ``dev`` (once each)."""
+        if dev not in on_dev:
+            on_dev[dev] = [x.to(dev) if torch.is_tensor(x) else x
+                           for x in (scale, lr, c1, c2)]
+        return on_dev[dev]
 
     def upd(g, m, v, p):
+        scale, lr, c1, c2 = scalars(p.device)
         g = g.float() * scale
         m32, v32 = m.float(), v.float()
         m_new = cfg.b1 * m32 + (1 - cfg.b1) * g
@@ -110,19 +137,21 @@ def update_(grads, state: AdamWState, params,
 
     flat = [common.canonical_flat(t)
             for t in (grads, state.mu, state.nu, params)]
-    for k, p in flat[3].items():
-        leaf = [f[k] for f in flat]
-        if p.dim() == 0:
-            slices = [leaf]
-        else:
-            rows = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
-            slices = zip(*(t.split(rows) for t in leaf))
-        for g, m, v, pp in slices:
-            p_new, m_new, v_new = upd(g, m, v, pp)
-            pp.copy_(p_new)
-            m.copy_(m_new)
-            v.copy_(v_new)
-    state.step.copy_(step)
+    for k in flat[3]:
+        for leaf in zip(*(shd.local_tensors(f[k]) for f in flat)):
+            p = leaf[3]
+            if p.dim() == 0:
+                slices = [leaf]
+            else:
+                rows = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
+                slices = zip(*(t.split(rows) for t in leaf))
+            for g, m, v, pp in slices:
+                p_new, m_new, v_new = upd(g, m, v, pp)
+                pp.copy_(p_new)
+                m.copy_(m_new)
+                v.copy_(v_new)
+    for t in step_t:
+        t.copy_(step)
     return {"grad_norm": gnorm, "lr": lr}
 
 

@@ -1,13 +1,13 @@
 """TrainState: parameters, AdamW state and step (port of
-``repro.train.train_state``), and its partition specs by the sharding
-rules; the shardings that place it on a mesh need a multi-device runtime,
-which is not ported (ROADMAP.md, Queue 1: item 5, sharding)."""
+``repro.train.train_state``), its partition specs by the sharding rules
+and the shardings that place it on a slice's mesh."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import common
 from repro_torch.models import sharding as shd
 from repro_torch.models.registry import Model
 from repro_torch.train import optimizer as opt
@@ -50,3 +50,20 @@ def partition_specs(model: Model, mesh, rules: shd.Rules,
         opt_state=opt.state_partition_specs(pspecs, specs, mesh, zero=zero),
         step=shd.P(),
     )
+
+
+def shardings(model: Model, mesh, rules: shd.Rules,
+              zero: bool = True) -> TrainState:
+    """:func:`partition_specs` as ``NamedSharding``\\ s on ``mesh``."""
+    specs = partition_specs(model, mesh, rules, zero)
+    is_p = dict(is_leaf=lambda x: isinstance(x, shd.PartitionSpec))
+
+    def on(tree):
+        return common.tree_map(lambda p: shd.NamedSharding(mesh, p), tree,
+                               **is_p)
+
+    o = specs.opt_state
+    return TrainState(params=on(specs.params),
+                      opt_state=opt.AdamWState(step=on(o.step), mu=on(o.mu),
+                                               nu=on(o.nu)),
+                      step=on(specs.step))

@@ -511,11 +511,12 @@ def test_teardown_of_running_best_effort_bills_and_spares_guaranteed():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
-    """Sharding still raises, naming its Queue 1 item; a PPO job (an actor
-    and a critic deployment) attaches."""
+    """A process-mode group of several devices still raises, naming its
+    Queue 1 item; a PPO job (an actor and a critic deployment) attaches."""
     P = _Pkg("repro_torch")
     with pytest.raises(NotImplementedError, match="item 5, sharding"):
-        PlexCluster(device_plane=cpu_plane(), devices_per_group=2)
+        PlexCluster(device_plane=DevicePlane(devices=[CPU] * 2),
+                    devices_per_group=2, process_plane=True)
     c = PlexCluster(device_plane=cpu_plane(), wpg_factory=SleepWPG)
     ctl = c.add_job(_tiny(P, "p", 1), algo="ppo")
     assert type(ctl).__name__ == "RLControllerPPO"

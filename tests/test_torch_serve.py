@@ -208,8 +208,14 @@ def test_device_plane_leases_lowest_free_then_least_loaded():
 
 def test_unported_ops_raise_naming_the_roadmap(tmp_path):
     """Every op of the service API runs on the port now (the PPO readouts,
-    the host optimizer step, the checkpoint ops); what stays unported, a
-    weight sync into target shardings, raises naming its Queue 1 item."""
+    the host optimizer step, the checkpoint ops, a weight sync into target
+    shardings, here a 2-device layout written back into the one-device
+    target bit-exact); what stays unported, a process-mode group of
+    several devices, raises naming its Queue 1 item."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+
     router = Router(device_plane=DevicePlane(devices=[torch.device("cpu")]))
     dep = router.deploy(_spec(api, "A"), group_id=0)
     other = router.deploy(_spec(api, "B"), group_id=0)
@@ -219,13 +225,23 @@ def test_unported_ops_raise_naming_the_roadmap(tmp_path):
     path = str(tmp_path / "ckpt")
     ran = [dep.forward(batch, output="values"), dep.save_checkpoint(path, 3),
            dep.load_checkpoint(path)]
-    fut = dep.sync_weights(other, target_shardings={})
+    model = dep.wpg.model
+    mesh = make_local_mesh(1, 2, devices=[torch.device("cpu")] * 2)
+    fut = dep.sync_weights(other, target_shardings=shd.tree_shardings(
+        model.logical_axes(), mesh, shd.named_rules("tp"),
+        model.param_specs()))
     router.drain()
     values, saved, meta = (f.result() for f in ran)
     assert tuple(values.shape) == (2, 12) and bool(values.abs().le(1).all())
     assert saved == path and meta["step"] == 3
+    assert fut.result()["synced_bytes"] > 0
+    got = common.canonical_flat(other.wpg.params())
+    for k, v in common.canonical_flat(dep.wpg.params()).items():
+        assert torch.equal(got[k], v), k
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*sharding"):
-        fut.wait(timeout=1)
+        Router(device_plane=DevicePlane(devices=["cpu", "cpu"],
+                                        slice_size=2),
+               process_plane=True).ensure_group(0)
 
 
 def test_port_imports_and_serves_without_jax_or_reference_package():
