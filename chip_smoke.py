@@ -57,7 +57,7 @@ Phases (any failure raises and the process exits non-zero):
 5. whole-path parity for qwen2-0.5b: prefill and teacher-forced decode
    logits on the card against the same parameters through the plain
    versions on the CPU;
-6. the serving path at full mamba2-2.7b width, its depth cut to 16 of 64
+6. the serving path at full mamba2-2.7b width, its depth cut to 8 of 64
    layers, as phase 4, on a new Router once the qwen2 one is released;
 7. whole-path parity for mamba2-2.7b, as phase 5, at full width cut to
    16 of its 64 layers;
@@ -80,15 +80,15 @@ Phases (any failure raises and the process exits non-zero):
    embedding scaled by 1/64, so the random policy is not one-hot), and
    K1's autograd Function against plain autograd through the XLA-branch
    attention at the training shape;
-10. the serving path at full zamba2-7b width, its depth cut to 29 of 81
-    blocks (K3 in each of the 25 Mamba2 blocks' prefill, K1 in each of the
-    4 applications of the shared attention block, K2 in each
+10. the serving path at full zamba2-7b width, its depth cut to 8 of 81
+    blocks (K3 in each of the 7 Mamba2 blocks' prefill, K1 in the one
+    application of the shared attention block, K2 in each
     application's decode), as phase 6, once every earlier router and the
     pinned host buffers they held are released;
 11. whole-path parity for zamba2-7b, as phase 5, at full width cut to 15
     blocks (2 applications, 1 trailing block) for the CPU side;
 12. the training entry point: ``python -m repro_torch.launch.train`` at
-    full qwen2-0.5b width, 6 of its 24 layers (two jobs, two steps each), in a child
+    full qwen2-0.5b width, 2 of its 24 layers (two jobs, two steps each), in a child
     process on its default device, the card, with the kernels' launch
     counts set to 0 before it and printed after, and ``--ckpt-dir`` under a
     temporary directory: what it wrote after the run is listed;
@@ -99,22 +99,22 @@ Phases (any failure raises and the process exits non-zero):
     retires the profiling group and spawns one for a third job; every job
     completes, its bill equals its exec logs, and ``remove_job`` returns
     the third job's bytes to the card;
-14. phase 8 for mamba2-2.7b at full width, its depth cut to 16 of 64
+14. phase 8 for mamba2-2.7b at full width, its depth cut to 8 of 64
     layers (K3 under its autograd Function in every update_actor's
-    forward: 16 launches a generate and 32 an update under remat, none of
+    forward: 8 launches a generate and 16 an update under remat, none of
     K1 or K2), once the host's ``MemTotal`` and ``MemAvailable`` are
     printed and shown to hold both jobs' pinned train state (which every
     switch moves);
 15. training parity for the ssm and hybrid families: one update_actor on
-    the card against the CPU's plain path at B=2, mamba2-2.7b at 4 layers
-    and zamba2-7b at 8 blocks over 64 tokens (one application of the
+    the card against the CPU's plain path at B=2, mamba2-2.7b at 2 layers
+    and zamba2-7b at 8 blocks over 32 tokens (one application of the
     shared block between Mamba2 blocks), full width, the CPU side without
     remat; then
     K3's Function against plain autograd
     through ``ssd_chunked`` at the training shape (B=16 S=128 H=80 P=64
     N=128) and K3's timing there (the record's ``training`` row);
 16. PPO: a PPO job (actor and critic) and a GRPO job of qwen2-0.5b at full
-    width on group 0, two steps each, through ``PlexCluster.run``, with
+    width cut to 6 of 24 layers on group 0, two steps each, through ``PlexCluster.run``, with
     launch counts, both bills and the critic's divergence from the actor
     after SYNC_WEIGHTS and a value step; a seeded PPO actor step with
     token-level advantages (a non-zero gradient that moves the moments);
@@ -126,7 +126,7 @@ Phases (any failure raises and the process exits non-zero):
     state to DISK and back, one ``host_capacity`` eviction to DISK, then
     ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
     on the card; the temporary files are removed at the end;
-18. the process plane: phase 8's two jobs, cut to 8 of the 24 layers,
+18. the process plane: phase 8's two jobs, cut to 6 of the 24 layers,
     on two groups through
     ``PlexCluster.run(concurrent=True)``, first in thread mode (one step
     each, exact launches and bills), then with
@@ -143,9 +143,9 @@ Phases (any failure raises and the process exits non-zero):
     restores the checkpoint it saved through the op path and takes one
     more step; ``close_processes`` leaves no child and no segment;
 19. the MoE serving path: one Qwen3-30B-A3B job at full width, its
-    depth cut to 24 of 48 layers, through Router -> WPG -> rollout, INIT
+    depth cut to 12 of 48 layers, through Router -> WPG -> rollout, INIT
     then two generates (B=16, prompt 256, 64 new, the last under the
-    profiler), each with exactly 24 K1 and 1,536 K2 launches and a peak
+    profiler), each with exactly 12 K1 and 768 K2 launches and a peak
     under 80 GB, the prefill's capacity drops counted;
 20. whole-path parity for Qwen3-30B-A3B at full width cut to 2 layers,
     as phase 5 at B=16, with the routing recorded on both sides: every
@@ -160,11 +160,11 @@ Phases (any failure raises and the process exits non-zero):
 22. training parity for granite at full width, 4 layers and B=2, as phase 9,
     the MoE aux loss included;
 23. the gemma2 serving path: one gemma2-27b job at full width, its depth
-    cut to 24 of 46 layers (12 local/global pairs), through Router -> WPG
+    cut to 12 of 46 layers (6 local/global pairs), through Router -> WPG
     -> rollout, INIT then two generates at B=16 prompt 128 (the last
     under the profiler) and one at B=1 prompt 4352, where the local
     layers' 4096-key window cuts in K1's prefill and in every K2 step;
-    each with exactly 24 K1 and 1,536 K2 launches and a peak under 80 GB;
+    each with exactly 12 K1 and 768 K2 launches and a peak under 80 GB;
 24. whole-path parity for gemma2-27b at full width cut to 2 layers (one
     local, one global), as phase 5 at B=2 prompt 128, then at B=1 prompt
     4352: on the CPU where the first check's CPU side predicts it within
@@ -172,26 +172,27 @@ Phases (any failure raises and the process exits non-zero):
     in place of K1 and K2; the logits are held before the final softcap,
     where they are a bf16 product, as phase 5 holds every other model's;
 25. the audio serving path, as phase 4: two whisper-large-v3 jobs at
-    full width, their depth cut to 16 of 32 encoder and 16 of 32 decoder
+    full width, their depth cut to 8 of 32 encoder and 8 of 32 decoder
     layers, each ``generate`` given bf16 frames (B=16, 1500, 1280) through
-    ``extra_inputs`` (B=16, prompt 128, 64 new): each with exactly 48 K1
-    (encoder, decoder self- and cross-attention prefill) and 2,048 K2
+    ``extra_inputs`` (B=16, prompt 128, 64 new): each with exactly 24 K1
+    (encoder, decoder self- and cross-attention prefill) and 1,024 K2
     (self- and cross-attention decode) launches and a peak under 80 GB;
 26. whole-path parity for whisper-large-v3 at full width cut to 2
     encoder and 2 decoder layers, as phase 5 over frames at the real
     encoder_seq of 1500, the bound counting both stacks' layers;
 27. the vlm serving path, as phase 4 with one job: llama-3.2-vision-90b
-    at full width, its depth cut to 20 of 100 layers (4 groups of 4
+    at full width, its depth cut to 10 of 100 layers (2 groups of 4
     self-attention layers and a gated cross-attention layer), both gates of every cross layer written
     to 1.0 after INIT through ``StateManager.write`` (zero at init, they
     hide the cross path), then three generates (B=16, prompt 128 of seeded
     ids, 64 new, the last under the profiler), each given its own bf16
     patch embeddings (16, 1601, 8192) at the reference's ``dummy_batch``
-    scale through ``extra_inputs``: each with exactly 20 K1 (16 self, 4
-    cross prefill) and 1,280 K2 (1,024 self, 256 cross decode) launches
+    scale through ``extra_inputs``: each with exactly 10 K1 (8 self, 2
+    cross prefill) and 640 K2 (512 self, 128 cross decode) launches
     and a peak under 80 GB;
 28. whole-path parity for llama-3.2-vision-90b at full width cut to one
-    group (4 self layers and the cross layer, gates 1.0), as phase 5 over
+    group (4 self layers and the cross layer, gates 1.0), as phase 5 but
+    with 4 teacher-forced decode steps, over
     unit-scale patch embeddings at the real vision_seq of 1601 (each
     row's sharing a component), after a check on the card that the cross
     path moves the logits;
@@ -226,18 +227,44 @@ Phases (any failure raises and the process exits non-zero):
     each, against the same full-width layer on the CPU;
 32. node groups of several devices: the one card seen as four virtual
     devices (``DevicePlane(devices=[cuda:0] * 4, slice_size=2)``), two
-    qwen2-0.5b GRPO jobs at full width and depth, one on each 2-device
-    group, two steps each through ``PlexCluster.run`` (B=16, prompt 128,
-    64 new), tensor-parallel: K1 and K2 on each device at its 7 local
-    query heads and 1 KV head (exactly 48 K1 and 48 x 64 K2 a generate,
-    96 K1 an update_actor), every op billed; K1 and K2 checked and timed
-    at those per-device shapes; prefill and decode logits of a seeded
-    model over 2 and over 4 devices (the head-dim-parallel decode) against
-    the same parameters on one device; job A migrated live to the other
-    slice (``cross_mesh`` True, every leaf bit-exact) and synced into a
-    rollout deployment on the first slice (bit-exact); one generate on a
-    4-device slice (96 K1, no K2: the head-dim-parallel decode); each
-    sub-step's seconds and the card's peak.
+    qwen2-0.5b GRPO jobs at full width cut to 6 of 24 layers, one on
+    each 2-device group, two steps each through ``PlexCluster.run`` (B=16,
+    prompt 128, 64 new), tensor-parallel: K1 and K2 on each device at its
+    7 local query heads and 1 KV head (exactly 12 K1 and 12 x 64 K2 a
+    generate, 24 K1 an update_actor), every op billed; K1 and K2 checked
+    and timed at those per-device shapes; prefill and decode logits of the
+    seeded model at full depth over 2 and over 4 devices (the
+    head-dim-parallel decode) against the same parameters on one device;
+    job A migrated live to the other slice (``cross_mesh`` True, every
+    leaf bit-exact) and synced into a rollout deployment on the first
+    slice (bit-exact); one generate on a 4-device slice at 6 layers (24
+    K1, no K2: the head-dim-parallel decode); each sub-step's seconds and
+    the card's peak;
+33. the MoE family over a slice (expert parallelism), the card again seen
+    as virtual devices: Qwen3-30B-A3B at full width cut to 12 of 48
+    layers served as one job on a 2-device group (16 query heads, 2 KV
+    heads and 64 of the 128 experts a device: exactly 24 K1 and 1,536 K2
+    a generate) and, cut to 6 layers, once on a 4-device group (24 K1,
+    1,536 K2); logits of
+    2 layers over 2 and 4 devices against one device, which replays the
+    slice's expert ids (the flips near-ties, at most 0.25 %); two granite
+    GRPO jobs at full width cut to 8 of 32 layers on two 2-device groups
+    (20 experts a device; the 49,155-row vocabulary does not split, so
+    the tied embedding is replicated), two steps each, billed, every
+    entry on its slice, then job A migrated live to the other slice,
+    bit-exact; granite's update_actor on a slice against one device; K1
+    and K2 at the per-device shapes against their plain versions and
+    timed;
+34. mamba2 and zamba2 over a slice (SSD heads split): mamba2-2.7b at full
+    width cut to 16 of 64 layers served on a 2-device group (K3 at 40
+    heads a device: exactly 32 K3 a generate) and, cut to 8 layers, on a
+    4-device group (32 K3); one mamba2 GRPO job on a 2-device group at
+    phase 14's shapes (8 layers: 16 K3 a generate, 32 an update_actor);
+    logits over 2 and 4 devices against one; update_actor on a slice
+    against one device; zamba2-7b at full width cut to 15 of 81 blocks
+    served on a 2-device group (the shared block at 16 heads a device:
+    exactly 4 K1, 256 K2 and 26 K3); K3 at 40 and 56 heads and K1 and K2
+    at zamba2's 16 heads a device against their plain versions and timed.
 
 Each phase prints its seconds, and its start to the standard error. The
 earlier paths' depth is cut where a phase's time would otherwise crowd the
@@ -290,36 +317,36 @@ Q_SCALE = 3.0
 
 # the mamba2 serving path's shapes (batch 16, prompt 512, 64 new): 80 SSD
 # heads of width 64, state 128, chunk 256, 64 layers. Phase 6 serves it at
-# full width cut to 16 of them, phase 14 trains it cut to 16
+# full width cut to 8 of them, phase 14 trains it cut to 8
 SSM_ARCH = "mamba2-2.7b"
 SSM_P = 512
 SSM_H, SSM_HD, SSM_N, SSM_CHUNK = 80, 64, 128, 256
-SSM_LAYERS = 16             # phase 6's depth, a quarter of the model's
+SSM_LAYERS = 8              # phase 6's depth, an eighth of the model's
 SSM_PARITY_LAYERS = 16      # phase 7's depth
-SSM_TRAIN_LAYERS = 16       # phase 14's depth, a quarter of the model's
+SSM_TRAIN_LAYERS = 8        # phase 14's depth, an eighth of the model's
 
 # the zamba2 serving path's shapes (batch 16, prompt 512, 64 new): 81 blocks,
 # 11 applications of the shared attention block (32 heads of width 112,
 # MHA) and 70 Mamba2 blocks (112 SSD heads of width 64, state 64, chunk 256).
-# Phase 10 serves it at full width cut to 29 blocks (4 applications, 25
-# Mamba2 blocks, 1 trailing); its parity phase cuts depth to
-# 15 blocks (2 applications, 1 trailing block)
+# Phase 10 serves it at full width cut to 8 blocks (1 application, 7
+# Mamba2 blocks, 1 of them trailing); its parity phase at 15 (2
+# applications, 13 Mamba2 blocks, 1 trailing)
 HYB_ARCH = "zamba2-7b"
 HYB_P = 512
 HYB_H, HYB_D = 32, 112
 HYB_SSM_H, HYB_SSM_N = 112, 64
-HYB_LAYERS = 29
+HYB_LAYERS = 8
 HYB_PARITY_LAYERS = 15
 
 
 # the MoE serving path (phase 19): Qwen3-30B-A3B at full width, its depth
-# cut to 24 of 48 layers, one job (batch 16, prompt 256, 64 new): 32 query
+# cut to 12 of 48 layers, one job (batch 16, prompt 256, 64 new): 32 query
 # heads and 4 KV heads of width 128, 128 experts top-8; its parity phase
 # (20) cuts depth to 2 layers
 MOE_ARCH = "paper-qwen3-30b-a3b"
 MOE_P = 256
 MOE_H, MOE_KH, MOE_D = 32, 4, 128
-MOE_LAYERS = 24
+MOE_LAYERS = 12
 MOE_ROUNDS = 2
 MOE_PARITY_LAYERS = 2
 MOE_PARITY_B = 16
@@ -338,7 +365,7 @@ GRANITE_H, GRANITE_KH, GRANITE_D = 24, 8, 64
 GRANITE_LAYERS = 8
 
 # the gemma2 serving path (phase 23): gemma2-27b at full width, its depth
-# cut to 24 of 46 layers, one job: pairs of a local layer (a 4096-key
+# cut to 12 of 46 layers, one job: pairs of a local layer (a 4096-key
 # window) and a global one, 32 query heads and 16 KV heads of width 128, the attention
 # softcap 50 and scale (4608 / 32)^-1/2 = 1/12; rounds at B=16 prompt 128,
 # then one at B=1 prompt 4352 (T = 4416), where the window cuts in K1's
@@ -346,7 +373,7 @@ GRANITE_LAYERS = 8
 # pair, at B=2 prompt 128, and once more at B=1 prompt 4352
 GEMMA_ARCH = "gemma2-27b"
 GEMMA_H, GEMMA_KH, GEMMA_D = 32, 16, 128
-GEMMA_LAYERS = 24
+GEMMA_LAYERS = 12
 GEMMA_WINDOW, GEMMA_CAP, GEMMA_SCALE = 4096, 50.0, 1 / 12
 GEMMA_P, GEMMA_ROUNDS, GEMMA_LONG_P = 128, 2, 4352
 GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 2
@@ -356,30 +383,30 @@ GEMMA_PARITY_LAYERS, GEMMA_PARITY_B = 2, 2
 GEMMA_CPU_LONG_S = 120.0
 
 # the whisper serving path (phase 25): whisper-large-v3 at full width, its
-# depth cut to 16 of its 32 encoder layers (over 1,500 frames) and 16 of its
+# depth cut to 8 of its 32 encoder layers (over 1,500 frames) and 8 of its
 # 32 decoder layers, two jobs on one group: 20 heads of width 64 (MHA),
-# prompt 128, 64 new; 48 K1 (16 each of the encoder, the decoder's
-# self-attention and its cross-attention prefill) and 2 x 16 x 64 K2 (self
+# prompt 128, 64 new; 24 K1 (8 each of the encoder, the decoder's
+# self-attention and its cross-attention prefill) and 2 x 8 x 64 K2 (self
 # and cross) a generate. The full model holds 3,070,438,400 B of bf16
 # parameters; a switch moves the cut one's. Its parity phase (26) cuts
 # depth to 2 encoder and 2 decoder layers
 WHISPER_ARCH = "whisper-large-v3"
 WHISPER_H, WHISPER_D, WHISPER_T = 20, 64, 1500
-WHISPER_LAYERS, WHISPER_P = 16, 128
+WHISPER_LAYERS, WHISPER_P = 8, 128
 WHISPER_BYTES = 3_070_438_400
 WHISPER_FRAME_SCALE = 0.02      # the reference's dummy_batch
 WHISPER_PARITY_LAYERS = 2
 
 # the vlm serving path (phase 27): llama-3.2-vision-90b at full width, its
-# depth cut to 20 of 100 layers (a multiple of the cross_attn_period of 5;
-# the full model's parameters would not fit the 80 GB), one job: 4 groups
+# depth cut to 10 of 100 layers (a multiple of the cross_attn_period of 5;
+# the full model's parameters would not fit the 80 GB), one job: 2 groups
 # of 4 self layers and a gated cross layer, 64 query heads and 8 KV heads
 # of width 128, the cross layers over 1,601 patch embeddings; prompt 128,
-# 64 new; 20 K1 and 20 x 64 K2 a generate. Its parity phase (28) cuts
+# 64 new; 10 K1 and 10 x 64 K2 a generate. Its parity phase (28) cuts
 # depth to one group
 VISION_ARCH = "llama-3.2-vision-90b"
 VISION_H, VISION_KH, VISION_D, VISION_T = 64, 8, 128, 1601
-VISION_LAYERS, VISION_PERIOD, VISION_P = 20, 5, 128
+VISION_LAYERS, VISION_PERIOD, VISION_P = 10, 5, 128
 VISION_SCALE = 0.02             # the reference's dummy_batch
 VISION_GATE = 1.0
 
@@ -410,23 +437,26 @@ OFFSET_TIMED = (2, 128)     # the s whose K1 calls are timed
 TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
              seq_len=128, steps=2)
 TRAIN_OVERRIDES = ()
-# phase 18's jobs: phase 8's at full width, cut to 8 of the 24 layers (a
+PPO_LAYERS = 6              # phase 16's jobs, a quarter of qwen2-0.5b's depth
+# phase 18's jobs: phase 8's at full width, cut to 6 of the 24 layers (a
 # generate still lasts long enough to be caught and killed mid-way)
-PROC_OVERRIDES = (("num_layers", 8),)
+PROC_OVERRIDES = (("num_layers", 6),)
 # the training parity phases (9, 15, 22) at B=2: their CPU sides are the
 # script's slowest (zamba2's 38–42 s at B=4, the others 12–13 s)
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 128
+SSM_TRAIN_PARITY_LAYERS = 2     # phase 15's mamba2
 # phase 15's zamba2 parity: the fewest blocks (period 7) that hold one
 # application of the shared block with Mamba2 blocks on both sides, over
-# 64 tokens (its CPU side, 28–30 s at 128, is the script's slowest)
+# 32 tokens (its CPU side, 28–30 s at 128 and 20–25 s at 64, is the
+# script's slowest)
 HYB_TRAIN_PARITY_LAYERS = 8
-HYB_TRAIN_PARITY_S = 64
+HYB_TRAIN_PARITY_S = 32
 TRAIN_LR = dict(lr=1e-3, warmup_steps=1)   # a step above a bf16 ulp
 
 # phase 12: the training entry point at full width (0 keeps the config's
-# own width and vocab), its depth cut to a quarter of the config's 24
-# layers, phase 8's shapes
-TRAIN_CLI_LAYERS = 6
+# own width and vocab), its depth cut to 2 of the config's 24 layers,
+# phase 8's shapes
+TRAIN_CLI_LAYERS = 2
 TRAIN_CLI = ["--arch", ARCH, "--jobs", "2", "--steps", "2", "--batch-size",
              "16", "--group-size", "4", "--max-new-tokens", "64",
              "--seq-len", "128", "--layers", str(TRAIN_CLI_LAYERS),
@@ -445,7 +475,21 @@ COST_SSM_LAYERS = 4
 # phase 32: the one card seen as TP_DEVICES virtual devices, carved into
 # groups of TP_SLICE; the jobs generate at the serving path's prompt
 TP_DEVICES, TP_SLICE = 4, 2
+TP_LAYERS = 6               # phase 32's depth, a quarter of qwen2-0.5b's
 TP_TRAIN = dict(TRAIN, prompt_len=P, seq_len=P + TRAIN["max_new_tokens"])
+# phases 33-34: the MoE, ssm and hybrid families over groups of TP_SLICE
+# (and one generate over TP_DEVICES) virtual devices. Qwen3-30B-A3B served
+# at full width cut to EP_LAYERS of 48 layers (1.25 GB of weights a
+# layer), EP_ROUNDS generates over 2 devices; granite's two GRPO jobs at
+# GRANITE_LAYERS; mamba2 at SSM_TP_LAYERS (serving), SSM_TRAIN_LAYERS
+# (phase 14's training) and SSM_TP_PARITY_LAYERS (logits over 2 and 4
+# devices); zamba2 served at HYB_TP_LAYERS blocks (2 applications of the
+# shared block)
+EP_LAYERS, EP_ROUNDS = 12, 1
+EP4_LAYERS, SSM_TP4_LAYERS = 6, 8       # the generates over 4 devices
+SSM_TP_LAYERS = 16
+SSM_TP_PARITY_LAYERS = 16
+HYB_TP_LAYERS = 15
 PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
              "decode_attention": (11_010_048, 1_630_208),
              "ssd": (53_812_920_320, 216_531_264)}
@@ -1823,7 +1867,7 @@ def ssm_parity_phase(torch, dev, records):
     from repro_torch.models.mamba2 import ssd_chunked
 
     update_parity(torch, dev, 15, SSM_ARCH,
-                  (("num_layers", PARITY_LAYERS),))
+                  (("num_layers", SSM_TRAIN_PARITY_LAYERS),))
     release(torch, dev, "mamba2 parity WPGs")
     update_parity(torch, dev, 15, HYB_ARCH,
                   (("num_layers", HYB_TRAIN_PARITY_LAYERS),),
@@ -1888,12 +1932,14 @@ def ppo_phase(torch, dev, records):
 
     n_new, steps = TRAIN["max_new_tokens"], TRAIN["steps"]
     print(f"phase 16: PPO (actor and critic) and GRPO jobs of {ARCH} at "
-          f"full width on group 0 ({TRAIN}) through PlexCluster.run")
+          f"full width cut to {PPO_LAYERS} layers on group 0 ({TRAIN}) "
+          f"through PlexCluster.run")
     cluster = PlexCluster(n_groups=1)
+    cut = (("num_layers", PPO_LAYERS),)
     ppo = cluster.add_job(JobConfig(job_id="ppo", model_name=ARCH, seed=1,
-                                    **TRAIN), algo="ppo")
+                                    overrides=cut, **TRAIN), algo="ppo")
     grpo = cluster.add_job(JobConfig(job_id="grpo", model_name=ARCH, seed=2,
-                                     **TRAIN))
+                                     overrides=cut, **TRAIN))
     log = []
     for dep in (ppo.dep, ppo.critic, grpo.dep):
         counted(dep.wpg, dep.deployment_id, log)
@@ -2870,20 +2916,117 @@ def moe_serve_phase(torch, dev, records):
     return router
 
 
+class RouteReplay:
+    """The MoE routing of one run replayed by another (phase 20: the card's
+    by the CPU; phase 33: a slice's by one device): :meth:`recording`
+    wraps ``moe.route`` to keep each call's f32 router logits and expert
+    ids; :meth:`replaying` has the next run's calls, in the same order,
+    take the recorded ids with gates from their own logits, so both runs
+    compute one function. :meth:`check` fails unless every flip (the
+    replaying run's own choice against the recorded one) is a near-tie of
+    the router's logits and, where ``share`` is given, they stay under
+    that share of the choices; where ``logit_tol`` is given, unless the two
+    runs' router logits agree within ``logit_tol`` * max|logit| (a routing
+    fault moves them by the logits' own scale, and would make every flip
+    look like a near-tie)."""
+
+    def __init__(self, phase, label):
+        self.phase, self.label = phase, label
+        self.calls, self.own = [], []
+
+    @contextlib.contextmanager
+    def _wrapped(self, fn):
+        from repro_torch.models import moe
+
+        route = moe.route
+        moe.route = functools.partial(fn, route)
+        try:
+            yield
+        finally:
+            moe.route = route
+
+    def recording(self, n=1):
+        """Records the calls of a run on ``n`` devices: each of them
+        routes every MoE call alike, in device order, so the first
+        device's call stands for the slice's."""
+        seen = [0]
+
+        def rec(route, router, cfg, x, logits=None):
+            out = route(router, cfg, x, logits)
+            seen[0] += 1
+            if (seen[0] - 1) % n == 0:
+                self.calls.append((logits if logits is not None
+                                   else x.float() @ router, out[1]))
+            return out
+
+        return self._wrapped(rec)
+
+    def replaying(self):
+        import torch
+
+        def rep(route, router, cfg, x, logits=None):
+            _, ids, aux = route(router, cfg, x, logits)
+            lg = x.float() @ router
+            self.own.append((lg.detach(), ids))
+            i = len(self.own) - 1
+            if i >= len(self.calls) or self.calls[i][1].shape != ids.shape:
+                fail(f"phase {self.phase}: {self.label}: the replaying "
+                     f"run's MoE calls differ from the recorded run's")
+            ids = self.calls[i][1].to(ids.device)
+            gate_w = torch.gather(torch.softmax(lg, dim=-1), -1, ids)
+            gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                          min=1e-9)
+            return gate_w, ids, aux
+
+        return self._wrapped(rep)
+
+    def check(self, k, share=MOE_FLIP_SHARE, logit_tol=None):
+        import torch
+
+        flips = choices = 0
+        gaps = []
+        diff = top_abs = 0.0
+        for (ls, ids_s), (lo, ids_o) in zip(self.calls, self.own):
+            ls, ids_s = ls.detach().to(lo.device), ids_s.to(lo.device)
+            diff = max(diff, (ls - lo).abs().max().item())
+            top_abs = max(top_abs, lo.abs().max().item())
+            lost = ~(ids_s[..., :, None] == ids_o[..., None, :]).any(-1)
+            flips += int(lost.sum())
+            choices += lost.numel()
+            tok = lost.any(-1)
+            top = torch.sort(lo, -1, descending=True)[0]
+            gap = (top[..., k - 1] - top[..., k])[tok]
+            noise = (ls - lo).abs().amax(-1)[tok]
+            gaps += list(zip(gap.tolist(), (2 * noise).tolist()))
+        print(f"  {self.label}: routing flips: {flips} "
+              f"of {choices} choices in {len(self.calls)} MoE calls (limit "
+              f"{share} of them); (gap, 2 x router-logit "
+              f"difference) at each {gaps}")
+        print(f"  {self.label}: router logits: max|diff| {diff}, max|logit| "
+              f"{top_abs} (limit {logit_tol} of it)")
+        if len(self.own) != len(self.calls) or \
+                (share is not None and flips > share * choices) or \
+                any(g > t for g, t in gaps):
+            fail(f"phase {self.phase}: {self.label}: {flips} routing flips "
+                 f"of {choices}, or one not at a near-tie")
+        if logit_tol is not None and not diff <= logit_tol * top_abs:
+            fail(f"phase {self.phase}: {self.label}: router logits apart by "
+                 f"{diff}, over {logit_tol} * {top_abs}")
+
+
 def moe_parity_phase(torch, dev):
     """Phase 20: card vs CPU for Qwen3-30B-A3B at full width cut to
     MOE_PARITY_LAYERS layers, as phase 5 (MathDataset prompts, teacher-
     forced decode). Each MoE layer's router logits and choices are
-    recorded on both sides, and the CPU side then replays the card's
-    expert ids, with its own gates over them, so both compute one function
-    and every position's logits are held within phase 5's tolerance. The
-    two sides may choose differently where the f32 router's k-th and
-    (k+1)-th logits nearly tie: fails unless every such (token, layer,
-    slot) flip is one (the CPU's gap within twice the token's card-vs-CPU
-    router-logit difference) and the flips stay under MOE_FLIP_SHARE of
-    the choices."""
+    recorded on the card, and the CPU side then replays the card's expert
+    ids, with its own gates over them (:class:`RouteReplay`), so both
+    compute one function and every position's logits are held within
+    phase 5's tolerance. The two sides may choose differently where the
+    f32 router's k-th and (k+1)-th logits nearly tie: fails unless every
+    such (token, layer, slot) flip is one (the CPU's gap within twice the
+    token's card-vs-CPU router-logit difference) and the flips stay under
+    MOE_FLIP_SHARE of the choices."""
     from repro_torch.configs import get_config
-    from repro_torch.models import moe
     from repro_torch.models.registry import build_model
 
     cfg = get_config(MOE_ARCH).replace(num_layers=MOE_PARITY_LAYERS)
@@ -2897,38 +3040,13 @@ def moe_parity_phase(torch, dev):
           f"cut to {cfg.num_layers} layers, B={b} P={p}, {n} teacher-forced "
           f"decode steps, the CPU replaying the card's expert ids "
           f"(tolerance {rel_tol} * max|logit|)")
-    card, cpu_own, logits = [], [], {}
-    route = moe.route
-
-    def recording(router, cfg_, x):
-        out = route(router, cfg_, x)
-        card.append(((x.float() @ router).cpu(), out[1].cpu()))
-        return out
-
-    def replaying(router, cfg_, x):
-        _, ids, aux = route(router, cfg_, x)
-        lg = x.float() @ router
-        cpu_own.append((lg, ids))
-        if len(cpu_own) > len(card) or \
-                card[len(cpu_own) - 1][1].shape != ids.shape:
-            fail("the CPU side's MoE calls differ from the card side's")
-        ids = card[len(cpu_own) - 1][1]
-        gate_w = torch.gather(torch.softmax(lg, dim=-1), -1, ids)
-        gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
-                                      min=1e-9)
-        return gate_w, ids, aux
-
-    try:
-        for where, d, wrap in (("card", dev, recording),
-                               ("cpu", torch.device("cpu"), replaying)):
-            moe.route = wrap
+    replay, logits = RouteReplay(20, "card vs CPU"), {}
+    for where, d, wrap in (("card", dev, replay.recording),
+                           ("cpu", torch.device("cpu"), replay.replaying)):
+        with wrap():
             logits[where] = side_logits(torch, model, params, d, prompt,
                                         forced, where)[0]
-    finally:
-        moe.route = route
     del params
-    if len(cpu_own) != len(card):
-        fail(f"{len(card)} MoE calls on the card, {len(cpu_own)} on the CPU")
     for i, (gpu, cpu) in enumerate(zip(logits["card"], logits["cpu"])):
         err = (gpu - cpu).abs().max().item()
         tol = rel_tol * cpu.abs().max().item()
@@ -2938,24 +3056,7 @@ def moe_parity_phase(torch, dev):
               f"agreement {agree}")
         if not (torch.isfinite(gpu).all() and err <= tol):
             fail(f"parity {label}: {err} > {tol}")
-    k = cfg.experts_per_token
-    flips = choices = 0
-    gaps = []                            # (CPU gap, 2 * noise) per flip
-    for (lg, ig), (lc, ic) in zip(card, cpu_own):
-        lost = ~(ig[..., :, None] == ic[..., None, :]).any(-1)
-        flips += int(lost.sum())
-        choices += lost.numel()
-        tok = lost.any(-1)
-        top = torch.sort(lc, -1, descending=True)[0]
-        gap = (top[..., k - 1] - top[..., k])[tok]
-        noise = (lg - lc).abs().amax(-1)[tok]
-        gaps += list(zip(gap.tolist(), (2 * noise).tolist()))
-    print(f"  routing flips card vs CPU: {flips} of {choices} (token, "
-          f"layer, slot) choices, limit {MOE_FLIP_SHARE} of them; (CPU "
-          f"gap, 2 x router-logit difference) at each flipped token {gaps}")
-    if flips > MOE_FLIP_SHARE * choices or any(g > t for g, t in gaps):
-        fail(f"{flips} routing flips of {choices} choices, or a flip not "
-             f"at a near-tie")
+    replay.check(cfg.experts_per_token)
 
 
 # ------------------------------------------ phases 23, 24: gemma2
@@ -3246,8 +3347,8 @@ def vision_serve_phase(torch, dev, records):
 def vision_parity_phase(torch, dev):
     """Phase 28: card vs CPU for llama-3.2-vision-90b at full width cut to
     one group (VISION_PERIOD layers: 4 self layers and the gated cross
-    layer), both gates at VISION_GATE, as phase 5 (B=2, prompt 64, 8
-    teacher-forced decode steps) over patch embeddings at the real
+    layer), both gates at VISION_GATE, as phase 5 (B=2, prompt 64) but
+    with 4 teacher-forced decode steps, over patch embeddings at the real
     vision_seq of 1,601. First, on the card, the prefill's logits must
     move by more than the parity tolerance when the patch embeddings are
     negated: the cross path reaches the logits. At the seeded init the
@@ -3281,7 +3382,8 @@ def vision_parity_phase(torch, dev):
     if not moved > tol:
         fail(f"the cross path moves the logits by {moved}, within {tol}")
     del logits
-    parity_phase(torch, model, params, dev, 28, extra={"vision": vision})
+    parity_phase(torch, model, params, dev, 28, n=4,
+                 extra={"vision": vision})
 
 
 # ------------------------------------------ phases 29, 30: cost, examples
@@ -3654,10 +3756,10 @@ def offset_phase(torch, dev, records):
 
 def tp_phase(torch, dev, records):
     """Phase 32: node groups of several devices on the one card's virtual
-    devices. Two qwen2-0.5b GRPO jobs at full width and depth, one on each
-    group of TP_SLICE devices, through ``PlexCluster.run``: each op's
-    launches exactly TP_SLICE times the one-device path's (K1 and K2 run
-    on every device at its local heads), every op billed, every entry
+    devices. Two qwen2-0.5b GRPO jobs at full width cut to TP_LAYERS, one
+    on each group of TP_SLICE devices, through ``PlexCluster.run``: each
+    op's launches exactly TP_SLICE times the one-device path's (K1 and K2
+    run on every device at its local heads), every op billed, every entry
     ``Sharded`` over its group's slice. Then K1 and K2 at the per-device
     shapes against their plain versions and timed, logits over 2 and 4
     devices against one, a live cross-slice migration and a weight sync
@@ -3665,15 +3767,13 @@ def tp_phase(torch, dev, records):
     head-dim-parallel decode: K1 on every device, no K2)."""
     from repro_torch.configs import get_config
     from repro_torch.core import api
-    from repro_torch.core.cluster import PlexCluster
-    from repro_torch.core.controller import JobConfig
     from repro_torch.core.router import Router
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import DevicePlane
     from repro_torch.models import common
     from repro_torch.models import sharding as shd
 
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=TP_LAYERS)
     n_new = TP_TRAIN["max_new_tokens"]
     steps = {}
 
@@ -3684,57 +3784,15 @@ def tp_phase(torch, dev, records):
         steps[name] = time.perf_counter() - t0
         print(f"  {name}: {steps[name]} s")
 
-    print(f"phase 32: {ARCH} at full width and depth on {TP_DEVICES} "
-          f"virtual devices of {dev}, groups of {TP_SLICE}; GRPO jobs A "
-          f"(group 0) and B (group 1), {TP_TRAIN}")
-    plane = DevicePlane(devices=[dev] * TP_DEVICES, slice_size=TP_SLICE)
-    cluster = PlexCluster(n_groups=2, device_plane=plane)
-    router = cluster.router
-    ctls = {job: cluster.add_job(JobConfig(
-        job_id=job, model_name=ARCH, seed=g + 1, **TP_TRAIN), group_id=g)
-        for g, job in enumerate("AB")}
-    log = []
-    for job, c in ctls.items():
-        counted(c.dep.wpg, job, log)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
     with step("two jobs' two steps"):
-        billing = cluster.run(interleave=True)
-    launches = dict(ops.LAUNCHES)
-    want = {op: {k: TP_SLICE * v for k, v in
-                 launches_per_op(cfg, op, n_new).items()}
+        cluster, ctls, launches = slice_train(
+            torch, dev, 32, ARCH, (("num_layers", TP_LAYERS),), "AB",
+            train=TP_TRAIN)
+    router = cluster.router
+    want = {op: slice_launches(cfg, op, n_new, TP_SLICE)
             for op in ("init", "generate", "update_actor")}
-    for job, op, sec, grew in log:
-        print(f"  job {job} {op}: {sec} s, launches {grew}")
-        if grew != want[op]:
-            fail(f"phase 32: job {job} {op} launched {grew}, want {want[op]}")
-    print(f"  launches {launches}; card peak "
-          f"{torch.cuda.max_memory_allocated(dev)} B")
-    for job, c in ctls.items():
-        wpg = c.dep.wpg
-        sl = wpg.mesh_slice
-        keys = wpg.sm.keys_for(wpg.job_prefix)
-        local_bytes = [0] * sl.n_devices
-        for k in keys:
-            ref = wpg.sm.entries[k].ref
-            if not isinstance(ref, shd.Sharded) or \
-                    ref.sharding.mesh != sl.mesh:
-                fail(f"phase 32: {k} is not laid out on its group's slice")
-            for i, t in enumerate(ref.locals):
-                local_bytes[i] += t.numel() * t.element_size()
-        print(f"  job {job}: group {router.group_of[c.dep.deployment_id]}, "
-              f"slice device ids {sl.device_ids()}, {len(keys)} entries, "
-              f"{wpg.sm.job_bytes(wpg.job_prefix)} B of state (global), "
-              f"each device's locals {local_bytes} B")
-        check_bill(cluster, billing[job], [wpg], 1 + 2 * TP_TRAIN["steps"],
-                   TP_TRAIN["steps"])
-        for i, m in enumerate(c.metrics_log):
-            print(f"  job {job} step {i}: loss {m['loss']}, grad_norm "
-                  f"{m['grad_norm']}, lr {m['lr']}")
-            if not all(math.isfinite(v) for v in m.values()):
-                fail(f"phase 32: job {job} step {i}: {m}")
-    if plane.domains() != {0: 0, 1: 1}:
-        fail(f"phase 32: leases {plane.domains()}")
+    if router.device_plane.domains() != {0: 0, 1: 1}:
+        fail(f"phase 32: leases {router.device_plane.domains()}")
 
     gen = torch.Generator(device=dev).manual_seed(32)
 
@@ -3747,7 +3805,7 @@ def tp_phase(torch, dev, records):
         fa["tp_prefill"] = flash_timing(torch, randn, B, P, h, kh, D)
         de["tp_decode"] = decode_timing(torch, randn, B, P + n_new,
                                         P + n_new - 1, 500, h, kh, D)
-        gens = sum(1 for _, op, _, _ in log if op == "generate")
+        gens = 2 * TP_TRAIN["steps"]
         fa["tp_prefill"].update(
             launches=gens * want["generate"]["flash_attention"],
             update_actor_launches=launches["flash_attention"]
@@ -3798,7 +3856,8 @@ def tp_phase(torch, dev, records):
                                              slice_size=TP_DEVICES))
         dep = r4.deploy(api.DeploymentSpec(
             deployment_id="C-roll", job_id="C", model_name=ARCH,
-            role="rollout"), group_id=0)
+            role="rollout", overrides=(("num_layers", TP_LAYERS),)),
+            group_id=0)
         dep.init(seed=3)
         r4.drain()
         prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
@@ -3808,7 +3867,7 @@ def tp_phase(torch, dev, records):
         r4.drain()
         toks = out.result()["tokens"]
         got = dict(ops.LAUNCHES)
-        want4 = {"flash_attention": TP_DEVICES * LAYERS,
+        want4 = {"flash_attention": TP_DEVICES * TP_LAYERS,
                  "decode_attention": 0, "ssd": 0}
         print(f"  model={TP_DEVICES}: tokens {tuple(toks.shape)}, launches "
               f"{got} (the decode is the head-dim-parallel branch)")
@@ -3882,6 +3941,522 @@ def tp_parity(torch, dev):
             fail(f"phase 32: model={n} launched {launched}, want {want}")
         del prm
     del params
+
+
+# --------------------------- phases 33, 34: MoE and ssm over a slice
+
+def slice_plane(dev, n, groups=1):
+    """The card as ``n * groups`` virtual devices, carved into groups of
+    ``n``."""
+    from repro_torch.launch.mesh import DevicePlane
+    return DevicePlane(devices=[dev] * (n * groups), slice_size=n)
+
+
+def slice_launches(cfg, op, n_new, n):
+    """An op's launches on a group of ``n`` devices: ``n`` times the one
+    device's (each device runs K1, K2 and K3 at its local heads), but no
+    K2 where the KV heads do not split over the slice and head_dim does
+    (the head-dim-parallel decode, plain PyTorch as the reference's
+    XLA)."""
+    out = {k: n * v for k, v in launches_per_op(cfg, op, n_new).items()}
+    if cfg.num_kv_heads and cfg.num_kv_heads % n and \
+            cfg.resolved_head_dim % n == 0:
+        out["decode_attention"] = 0
+    return out
+
+
+def slice_layout(torch, phase, label, wpg, want_bytes=None):
+    """Fail unless every entry of the deployment is ``Sharded`` on its
+    group's slice (and, with ``want_bytes``, the parameters hold them);
+    print the bytes each device's locals hold. Returns those bytes."""
+    from repro_torch.models import sharding as shd
+
+    sl = wpg.mesh_slice
+    keys = wpg.sm.keys_for(wpg.job_prefix)
+    local = [0] * sl.n_devices
+    split = 0
+    for k in keys:
+        ref = wpg.sm.entries[k].ref
+        if not isinstance(ref, shd.Sharded) or ref.sharding.mesh != sl.mesh:
+            fail(f"phase {phase}: {k} is not laid out on its group's slice")
+        split += "model" in str(ref.sharding.spec)
+        for i, t in enumerate(ref.locals):
+            local[i] += t.numel() * t.element_size()
+    total = wpg.sm.job_bytes(wpg.job_prefix)
+    print(f"  {label}: slice device ids {sl.device_ids()}, {len(keys)} "
+          f"entries ({split} split over the slice), {total} B of state "
+          f"(global), each device's locals {local} B")
+    if want_bytes is not None and total != want_bytes:
+        fail(f"phase {phase}: {label} holds {total} B, not {want_bytes}")
+    return local
+
+
+def slice_serve(torch, dev, phase, arch, layers, n, prompt_len, rounds=1):
+    """One rollout deployment of ``arch`` at full width cut to ``layers``,
+    on one group of ``n`` virtual devices of the card: INIT (the seeded
+    init laid out on the slice), then ``rounds`` generates (B, prompt
+    ``prompt_len`` of seeded ids, N_NEW new), each with exactly ``n``
+    times the one-device launches (the counts set to 0 before each) and a
+    peak under 80 GB. Returns the router, the deployment, each round's
+    launches and the per-device bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.router import Router
+    from repro_torch.kernels import ops
+    from repro_torch.rl import data as data_lib
+
+    overrides = (("num_layers", layers),)
+    cfg = get_config(arch).replace(**dict(overrides))
+    want = slice_launches(cfg, "generate", N_NEW, n)
+    print(f"phase {phase}: serving {arch} at full width cut to {layers} "
+          f"layers on a group of {n} virtual devices of {dev} (B={B}, "
+          f"prompt {prompt_len}, {N_NEW} new; {spec_bytes(cfg)} B of "
+          f"parameters); want {want} a generate")
+    router = Router(device_plane=slice_plane(dev, n))
+    dep = router.deploy(api.DeploymentSpec(
+        deployment_id=f"slice-{n}", job_id="S", model_name=arch,
+        role="rollout", overrides=overrides), group_id=0)
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    with router:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dep.init(seed=1).wait(timeout=900)
+        print(f"  INIT: {time.perf_counter() - t0} s; peak card memory "
+              f"{torch.cuda.max_memory_allocated(dev)} B")
+        local = slice_layout(torch, phase, "rollout", dep.wpg,
+                             spec_bytes(cfg))
+        rounds_launched = []
+        for r in range(rounds):
+            prompt = torch.randint(data_lib.EOS + 1, cfg.vocab_size,
+                                   (B, prompt_len), generator=gen,
+                                   device=dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = dep.generate(prompt, max_new_tokens=N_NEW,
+                               temperature=0.7).wait(timeout=600)
+            wall = time.perf_counter() - t0
+            got = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev)
+            toks, logps = out["tokens"], out["logprobs"]
+            print(f"  generate {r}: wall {wall} s, {B * N_NEW / wall} tok/s, "
+                  f"launches {got}, peak card memory {peak} B")
+            if got != want:
+                fail(f"phase {phase}: a generate over {n} devices launched "
+                     f"{got}, want {want}")
+            if tuple(toks.shape) != (B, N_NEW) or not bool(
+                    ((toks >= 0) & (toks < cfg.vocab_size)).all()) or \
+                    not bool(torch.isfinite(logps).all()) or peak >= 80e9:
+                fail(f"phase {phase}: round {r}: tokens "
+                     f"{tuple(toks.shape)}, logprobs or peak {peak} B")
+            rounds_launched.append(got)
+        print(f"  exec_log: {list(dep.wpg.exec_log)}")
+    return router, dep, rounds_launched, local
+
+
+def slice_logits(torch, model, params, ctx, prompt, forced):
+    """The prefill's logits, then each teacher-forced decode step's, over
+    ``ctx``'s slice (or one device)."""
+    from repro_torch.rl.rollout import _pad_cache
+
+    with torch.inference_mode():
+        lg, _, cache = model.forward(params, {"tokens": prompt},
+                                     return_cache=True, ctx=ctx)
+        out = [lg]
+        cache = _pad_cache(cache, forced.shape[1])
+        for i in range(forced.shape[1]):
+            lg, cache = model.decode_step(
+                params, cache, {"tokens": forced[:, i:i + 1]}, ctx=ctx)
+            out.append(lg)
+    return out
+
+
+def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8):
+    """Prefill and teacher-forced decode logits of the seeded model at full
+    width cut to ``layers``, over 2 and over 4 virtual devices of the card,
+    against the same parameters on the card alone, within phase 5's bound;
+    each run's launches exactly n times the one-device run's. For the MoE
+    each slice run's expert ids are recorded and the one-device run then
+    replays them with its own gates (as phase 20 replays the card's on the
+    CPU), so both compute one function; the flips (the one-device run's
+    own choice against the slice's) must be near-ties of the router's
+    logits and at most MOE_FLIP_SHARE of the choices."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.layers import make_ctx
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    prompt, forced = parity_prompt(torch, cfg, b, p, n_new)
+    prompt, forced = prompt.to(dev), forced.to(dev)
+    rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
+    print(f"phase {phase}: logits of {arch} at full width cut to {layers} "
+          f"layers over 2 and 4 virtual devices against one, B={b} P={p}, "
+          f"{n_new} teacher-forced decode steps (tolerance {rel_tol} * "
+          f"max|logit|)")
+    one_launch = None
+    for n in (2, 4):
+        ctx = make_ctx(make_local_mesh(1, n, devices=[dev] * n))
+        prm = shd.device_put(params, shd.tree_shardings(
+            model.logical_axes(), ctx.mesh, ctx.rules, model.param_specs()))
+        replay = RouteReplay(phase, f"model={n} vs one device")
+        moe_on = cfg.num_experts > 0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with replay.recording(n) if moe_on else contextlib.nullcontext():
+            got = slice_logits(torch, model, prm, ctx, prompt, forced)
+        t_slice = time.perf_counter() - t0
+        launched = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with replay.replaying() if moe_on else contextlib.nullcontext():
+            one = slice_logits(torch, model, params, None, prompt, forced)
+        t_one = time.perf_counter() - t0
+        one_launch = dict(ops.LAUNCHES)
+        want = {k: n * v for k, v in one_launch.items()}
+        if slice_launches(cfg, "generate", 1, n)["decode_attention"] == 0:
+            want["decode_attention"] = 0
+        worst = 0.0
+        for lg1, lgn in zip(one, got):
+            err = (lgn - lg1).abs().max().item()
+            tol = rel_tol * lg1.abs().max().item()
+            worst = max(worst, err / tol)
+            if not (torch.isfinite(lgn).all() and err <= tol):
+                fail(f"phase {phase}: logits over {n} devices: {err} > {tol}")
+        print(f"  model={n}: {t_slice} s (one device {t_one} s), worst "
+              f"|diff| / tolerance {worst}, launches {launched} (one device "
+              f"{one_launch})")
+        if launched != want:
+            fail(f"phase {phase}: model={n} launched {launched}, want {want}")
+        if moe_on:
+            replay.check(cfg.experts_per_token)
+        del prm
+    del params
+
+
+def slice_update_parity(torch, dev, phase, arch, layers, n=2):
+    """One update_actor of ``arch`` at full width cut to ``layers`` on a
+    group of ``n`` virtual devices of the card against the same on the
+    card alone, from the same parameters and batch (phase 9's tolerances):
+    loss, pg_loss, kl, aux within 5e-2, grad_norm within 5 %, each leaf's
+    f32 mu within 5e-2 * max|mu|; the slice's launches exactly n times
+    the one device's. For the MoE the one device replays the slice's
+    expert ids (:class:`RouteReplay`, every flip a near-tie): a flipped
+    near-tie moves the router's gradient by several per cent of its
+    largest."""
+    from repro_torch.core import api
+    from repro_torch.core.state_manager import StateManager
+    from repro_torch.core.worker import WorkerProcessGroup
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MeshSlice
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+    from repro_torch.train.optimizer import AdamWConfig
+
+    overrides = (("num_layers", layers),)
+    spec = api.DeploymentSpec(deployment_id=f"parity-{arch}", job_id="P",
+                              model_name=arch, role="train",
+                              overrides=overrides)
+    adamw = AdamWConfig(**TRAIN_LR)
+    one = WorkerProcessGroup(spec, StateManager(
+        mesh_slice=MeshSlice(0, dev)), adamw_cfg=adamw)
+    sl = WorkerProcessGroup(spec, StateManager(
+        mesh_slice=slice_plane(dev, n).slice_for_group(0)), adamw_cfg=adamw)
+    cfg = one.cfg
+    params = one.model.init_params(
+        torch.Generator(device=dev).manual_seed(3), dev)
+    # a spread policy, as phase 9's
+    params["embed"]["embedding"].mul_(1 / 64)
+    for w in (one, sl):
+        w.execute(api.make_op(spec, api.Op.INIT, params=params))
+    del params
+    batch = seeded_train_batch(
+        lambda b: one.execute(api.make_op(spec, api.Op.FORWARD, b)),
+        PARITY_B, PARITY_S, PARITY_S // 2, 4)
+    print(f"phase {phase}: update_actor of {arch} at full width cut to "
+          f"{layers} layers on {n} virtual devices against one, "
+          f"B={PARITY_B} S={PARITY_S}, AdamW {TRAIN_LR}, embedding scaled "
+          f"by 1/64")
+    out, launched = {}, {}
+    replay = RouteReplay(phase, f"update_actor, {n} devices vs one")
+    moe_on = cfg.num_experts > 0
+    for where, w, wrap in ((f"{n} devices", sl,
+                            functools.partial(replay.recording, n)),
+                           ("one device", one, replay.replaying)):
+        ops.reset_launches()
+        with wrap() if moe_on else contextlib.nullcontext():
+            out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR,
+                                               batch))
+        launched[where] = dict(ops.LAUNCHES)
+        print(f"  {where}: {w.exec_log[-1][1]} s, launches "
+              f"{launched[where]}; {out[where]}")
+    if moe_on:
+        # the logits phases hold the share of flips. Here a flip of the
+        # forward and of its recomputation need only be a near-tie, and
+        # the router logits are held within phase 5's bound at this depth
+        replay.check(cfg.experts_per_token, share=None,
+                     logit_tol=2.0 ** -6 * math.sqrt(layers / 4))
+    want = slice_launches(cfg, "update_actor", 0, n)
+    if launched[f"{n} devices"] != want:
+        fail(f"phase {phase}: update_actor over {n} devices launched "
+             f"{launched[f'{n} devices']}, want {want}")
+    got, ref = out[f"{n} devices"], out["one device"]
+    worst = 0.0
+    for k in ("loss", "pg_loss", "kl", "aux", "grad_norm"):
+        tol = 5e-2 * (ref[k] if k == "grad_norm" else max(1.0, abs(ref[k])))
+        worst = max(worst, abs(got[k] - ref[k]) / tol)
+        if not abs(got[k] - ref[k]) <= tol:
+            fail(f"phase {phase}: {k} over {n} devices {got[k]}, one "
+                 f"device {ref[k]}")
+    if not ref["grad_norm"] > 0:
+        fail(f"phase {phase}: zero gradient")
+    mu1 = common.canonical_flat(one.opt_state().mu)
+    mun = common.canonical_flat(sl.opt_state().mu)
+    for k, want_mu in mu1.items():
+        err = (shd.gather(mun[k]) - want_mu).abs().max().item()
+        tol = 5e-2 * want_mu.abs().max().item()
+        worst = max(worst, err / tol if tol else 0.0)
+        if not err <= tol:
+            fail(f"phase {phase}: mu {k} over {n} devices: {err} > {tol}")
+    print(f"  metrics and f32 mu of {len(mu1)} leaves within phase 9's "
+          f"tolerances (worst |diff| / tolerance {worst})")
+    del one, sl
+
+
+def slice_train(torch, dev, phase, arch, overrides, jobs, n=TP_SLICE,
+                train=TRAIN):
+    """GRPO jobs (``jobs``: ids, one group each) of ``arch`` at full width
+    (cut by ``overrides``), each on its own group of ``n`` virtual devices
+    of the card, ``train``'s steps each through ``PlexCluster.run``: each
+    op's launches exactly n times the one-device path's (K1, K2 and K3 on
+    every device at its local heads), every op billed, every entry
+    ``Sharded`` on its group's slice. Returns the cluster, the
+    controllers and the launches over the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.kernels import ops
+
+    cfg = get_config(arch).replace(**dict(overrides))
+    n_new = train["max_new_tokens"]
+    print(f"phase {phase}: GRPO training {arch} at full width and "
+          f"{cfg.num_layers} layers, jobs {', '.join(jobs)}, each on a "
+          f"group of {n} virtual devices of {dev} ({train})")
+    cluster = PlexCluster(n_groups=len(jobs),
+                          device_plane=slice_plane(dev, n, len(jobs)))
+    ctls = {job: cluster.add_job(JobConfig(
+        job_id=job, model_name=arch, seed=g + 1, overrides=overrides,
+        **train), group_id=g) for g, job in enumerate(jobs)}
+    log = []
+    for job, c in ctls.items():
+        counted(c.dep.wpg, job, log)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    billing = cluster.run(interleave=True)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = {op: slice_launches(cfg, op, n_new, n)
+            for op in ("init", "generate", "update_actor")}
+    for job, op, sec, grew in log:
+        print(f"  job {job} {op}: {sec} s, launches {grew}")
+        if grew != want[op]:
+            fail(f"phase {phase}: job {job} {op} launched {grew}, want "
+                 f"{want[op]}")
+    print(f"  {len(log)} ops in {wall} s; launches {launches}; card peak "
+          f"{torch.cuda.max_memory_allocated(dev)} B")
+    for job, c in ctls.items():
+        wpg = c.dep.wpg
+        slice_layout(torch, phase, f"job {job} (group "
+                     f"{cluster.router.group_of[c.dep.deployment_id]})", wpg)
+        rec = billing[job]
+        print(f"  bill {job}: busy {rec.busy_seconds} s, switch "
+              f"{rec.switch_seconds} s, steps {rec.steps}")
+        check_bill(cluster, rec, [wpg], 1 + 2 * train["steps"],
+                   train["steps"])
+        for i, m in enumerate(c.metrics_log):
+            print(f"  job {job} step {i}: loss {m['loss']}, aux {m['aux']}, "
+                  f"grad_norm {m['grad_norm']}, lr {m['lr']}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"phase {phase}: job {job} step {i}: {m}")
+    return cluster, ctls, launches
+
+
+def slice_kernel_rows(torch, dev, records, rows):
+    """K1, K2 and K3 at per-device shapes against their plain versions,
+    timed beside their bounds and library calls: ``rows`` holds (kernel,
+    row name, timing function, its arguments, launches on the path)."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for name, row, fn, args, launches in rows:
+        if name == "ssd":
+            rec = ssd_timing(torch, gen, dev, *args)
+        else:
+            rec = fn(torch, randn, *args)
+        rec["launches"] = launches
+        records[name][row] = rec
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           rec["max_abs_err"])
+
+
+def ep_phase(torch, dev, records):
+    """Phase 33: the MoE family over a slice (expert parallelism), the card
+    seen as virtual devices. Qwen3-30B-A3B served as one job on a 2-device
+    group at full width cut to EP_LAYERS, then one generate over 4
+    devices; two granite GRPO jobs on two 2-device groups at full width cut
+    to GRANITE_LAYERS, billed, and one migrated live across slices; logits
+    over 2 and 4 devices against one (routing replayed) and update_actor
+    on a slice against one device; K1 and K2 at the per-device shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+
+    steps = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        print(f"  {name}: {steps[name]} s")
+
+    gens = {}
+    for n in (TP_SLICE, TP_DEVICES):
+        with step(f"Qwen3-30B-A3B over {n} devices"):
+            router, dep, got, local = slice_serve(
+                torch, dev, 33, MOE_ARCH,
+                EP_LAYERS if n == TP_SLICE else EP4_LAYERS, n, MOE_P,
+                rounds=EP_ROUNDS if n == TP_SLICE else 1)
+            gens[n] = got
+            del router, dep
+            release(torch, dev, f"the {n}-device Qwen3 router")
+    with step("logits over 2 and 4 devices"):
+        slice_parity(torch, dev, 33, MOE_ARCH, MOE_PARITY_LAYERS,
+                     b=MOE_PARITY_B)
+        release(torch, dev, "the Qwen3 parity parameters")
+    with step("granite jobs on two slices"):
+        cluster, ctls, launches = slice_train(
+            torch, dev, 33, GRANITE_ARCH, (("num_layers", GRANITE_LAYERS),),
+            "AB")
+    wa = ctls["A"].dep.wpg
+    before = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+              for k, v in common.canonical_flat(wa.params()).items()}
+    with step("migrate granite job A across slices"):
+        moved = cluster.reassign_job("A", 1)
+    mig = cluster.router.migrate_log[-1]
+    after = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+             for k, v in common.canonical_flat(wa.params()).items()}
+    print(f"  migration: {moved} B, {mig['seconds']} s, cross_mesh "
+          f"{mig['cross_mesh']}, now on slice {wa.mesh_slice.device_ids()}")
+    if not mig["cross_mesh"] or after != before or \
+            wa.mesh_slice.device_ids() != (2, 3):
+        fail("phase 33: the cross-slice migration was not bit-exact")
+    del cluster, ctls, wa
+    release(torch, dev, "the granite cluster")
+    with step("granite update_actor on a slice against one device"):
+        slice_update_parity(torch, dev, 33, GRANITE_ARCH, PARITY_LAYERS)
+        release(torch, dev, "the granite parity WPGs")
+    with step("K1 and K2 at the per-device shapes"):
+        qcfg = get_config(MOE_ARCH).replace(num_layers=EP_LAYERS)
+        gcfg = get_config(GRANITE_ARCH).replace(num_layers=GRANITE_LAYERS)
+        q2 = gens[TP_SLICE][0]
+        # the granite jobs' 4 generates and 4 update_actors
+        g_gen = 4 * TP_SLICE * launches_per_op(gcfg, "generate",
+                                               N_NEW)["flash_attention"]
+        g_upd = launches["flash_attention"] - g_gen
+        h, kh = MOE_H // TP_SLICE, MOE_KH // TP_SLICE
+        gh, gkh = GRANITE_H // TP_SLICE, GRANITE_KH // TP_SLICE
+        slice_kernel_rows(torch, dev, records, (
+            ("flash_attention", "ep_qwen3_prefill", flash_timing,
+             (B, MOE_P, h, kh, MOE_D), q2["flash_attention"]),
+            ("decode_attention", "ep_qwen3_decode", decode_timing,
+             (B, MOE_P + N_NEW, MOE_P + N_NEW - 1, 500, h, kh, MOE_D),
+             q2["decode_attention"]),
+            ("flash_attention", "ep_granite_training", flash_timing,
+             (B, TRAIN["seq_len"], gh, gkh, GRANITE_D), g_upd),
+            ("decode_attention", "ep_granite_decode", decode_timing,
+             (B, TRAIN["seq_len"], TRAIN["seq_len"] - 1, 500, gh, gkh,
+              GRANITE_D), launches["decode_attention"]),
+        ))
+        print(f"  Qwen3 launches a generate over {TP_DEVICES} devices "
+              f"{gens[TP_DEVICES][0]}; granite's over the steps {launches} "
+              f"({qcfg.num_layers} and {gcfg.num_layers} layers)")
+    print(f"  phase 33 sub-steps: {steps}")
+
+
+def ssm_tp_phase(torch, dev, records):
+    """Phase 34: mamba2 and zamba2 over a slice (SSD heads split), the card
+    seen as virtual devices. mamba2-2.7b served on a 2-device group at
+    full width cut to SSM_TP_LAYERS, then one generate over 4 devices; one
+    mamba2 GRPO job on a 2-device group (phase 14's shapes); logits over 2
+    and 4 devices against one; update_actor on a slice against one
+    device; zamba2-7b served on a 2-device group at full width cut to
+    HYB_TP_LAYERS blocks; K3 at 40 and 56 heads a device, K1 and K2 at
+    zamba2's local heads."""
+    from repro_torch.configs import get_config
+
+    steps = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        print(f"  {name}: {steps[name]} s")
+
+    gens = {}
+    for n in (TP_SLICE, TP_DEVICES):
+        with step(f"mamba2 over {n} devices"):
+            router, dep, got, _ = slice_serve(
+                torch, dev, 34, SSM_ARCH,
+                SSM_TP_LAYERS if n == TP_SLICE else SSM_TP4_LAYERS, n, SSM_P)
+            gens[n] = got[0]
+            del router, dep
+            release(torch, dev, f"the {n}-device mamba2 router")
+    with step("mamba2 GRPO job on a slice"):
+        cluster, _, train_launches = slice_train(
+            torch, dev, 34, SSM_ARCH, (("num_layers", SSM_TRAIN_LAYERS),),
+            "M")
+        del cluster
+        release(torch, dev, "the mamba2 training cluster")
+    with step("mamba2 logits over 2 and 4 devices"):
+        slice_parity(torch, dev, 34, SSM_ARCH, SSM_TP_PARITY_LAYERS)
+        release(torch, dev, "the mamba2 parity parameters")
+    with step("mamba2 update_actor on a slice against one device"):
+        slice_update_parity(torch, dev, 34, SSM_ARCH, PARITY_LAYERS)
+        release(torch, dev, "the mamba2 parity WPGs")
+    with step("zamba2 over 2 devices"):
+        router, dep, got, _ = slice_serve(torch, dev, 34, HYB_ARCH,
+                                          HYB_TP_LAYERS, TP_SLICE, HYB_P)
+        z2 = got[0]
+        del router, dep
+        release(torch, dev, "the zamba2 router")
+    with step("K3, K1 and K2 at the per-device shapes"):
+        h = SSM_H // TP_SLICE
+        zh, zsh = HYB_H // TP_SLICE, HYB_SSM_H // TP_SLICE
+        slice_kernel_rows(torch, dev, records, (
+            ("ssd", "tp_prefill", None, (h, SSM_N, (("prefill", SSM_P),)),
+             gens[TP_SLICE]["ssd"]),
+            ("ssd", "tp_zamba2", None, (zsh, HYB_SSM_N, (("prefill", HYB_P),)),
+             z2["ssd"]),
+            ("flash_attention", "tp_zamba2_prefill", flash_timing,
+             (B, HYB_P, zh, zh, HYB_D), z2["flash_attention"]),
+            ("decode_attention", "tp_zamba2_decode", decode_timing,
+             (B, HYB_P + N_NEW, HYB_P + N_NEW - 1, 500, zh, zh, HYB_D),
+             z2["decode_attention"]),
+        ))
+        print(f"  mamba2 launches a generate over {TP_DEVICES} devices "
+              f"{gens[TP_DEVICES]}; a training job's over its steps "
+              f"{train_launches}")
+    print(f"  phase 34 sub-steps: {steps}")
 
 
 def path_launches(records, launches, want, path=None):
@@ -4106,6 +4681,10 @@ def main():
             release(torch, dev, "multi-token cache writes")
         with phase_seconds("phase 32"):
             tp_phase(torch, dev, records)
+        with phase_seconds("phase 33"):
+            ep_phase(torch, dev, records)
+        with phase_seconds("phase 34"):
+            ssm_tp_phase(torch, dev, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -8,7 +8,9 @@ context switching (offload/load) never touches worker code. On a slice of
 several devices the WPG lays its state out by the model's ``"tp"`` rules
 (:meth:`state_shardings`, cached per slice), runs every op tensor-parallel
 over the slice (``models/layers.py``'s ``Ctx``) and syncs weights into the
-target deployment's own layout; only the dense family runs there yet.
+target deployment's own layout; the dense, MoE, ssm and hybrid families
+run there (the vlm, audio and gemma2 configs raise, naming their queued
+part).
 
 It runs every op of the service API: ``INIT``, ``GENERATE``, ``FORWARD``
 (logprobs, or a critic's values), ``FORWARD_BACKWARD`` (the GRPO, PPO or

@@ -25,15 +25,29 @@ and its decode K2 (through ``models/layers.py`` and ``models/mamba2.py``).
 The training forward rematerialises each group (its Mamba2 blocks and
 that application of the shared block) and each trailing block under
 ``cfg.remat`` (``layers.remat``), as the reference checkpoints its scans.
+
+Over a slice of several devices (a ``ctx``) the Mamba2 blocks run as
+``models/mamba2.py`` runs them there and the shared block through the
+tensor-parallel layers (K1 and K2 at each device's local heads); every
+cache entry is ``Sharded`` in the layout of its logical axes, each
+application keeping its own per-device KV blocks. The shared block's
+gradient sums over its applications through autograd, and its replicated
+leaves' copies are summed after the backward
+(``sharding.sum_replica_grads``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import mamba2 as mb
-from repro_torch.models.common import spec, stack_specs, unstack
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import spec, stack_specs
 from repro_torch.models.layers import (
+    Ctx,
+    add,
     apply_norm,
     attn_apply,
     attn_param_specs,
@@ -81,59 +95,64 @@ def param_specs(cfg: ModelConfig):
 
 
 def _shared_attn_apply(p, cfg: ModelConfig, x, positions, cache=None,
-                       cache_pos=None):
-    h = apply_norm(p["ln1"], x, cfg)
+                       cache_pos=None, ctx: Optional[Ctx] = None):
+    h = apply_norm(p["ln1"], x, cfg, ctx)
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
-                       window=0, cache=cache, cache_pos=cache_pos)
-    x = x + a
-    h = apply_norm(p["ln2"], x, cfg)
-    return x + mlp_apply(p["mlp"], cfg, h), kv
+                       window=0, cache=cache, cache_pos=cache_pos, ctx=ctx)
+    x = add(x, a)
+    h = apply_norm(p["ln2"], x, cfg, ctx)
+    return add(x, mlp_apply(p["mlp"], cfg, h, ctx)), kv
 
 
-def group_apply(group, shared, cfg: ModelConfig, x, positions):
+def group_apply(group, shared, cfg: ModelConfig, x, positions,
+                ctx: Optional[Ctx] = None):
     """One group without a cache: its Mamba2 blocks (``group``, stacked),
     then the shared block."""
-    for layer in unstack(group):
-        x, _ = mb.block_apply(layer, cfg, x)
-    return _shared_attn_apply(shared, cfg, x, positions)[0]
+    for layer in shd.unstack(group):
+        x, _ = mb.block_apply(layer, cfg, x, ctx=ctx)
+    return _shared_attn_apply(shared, cfg, x, positions, ctx=ctx)[0]
 
 
-def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
+def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
+            ctx: Optional[Ctx] = None):
     """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]).
     Without a cache each group and trailing block runs under ``remat``;
-    the prefill that builds a cache runs directly."""
+    the prefill that builds a cache runs directly. With ``ctx``, over the
+    slice: the cache's entries ``Sharded``, the logits whole on the
+    slice's first device."""
     b, s = tokens.shape
-    x = embed_apply(params["embed"], cfg, tokens)
+    x = embed_apply(params["embed"], cfg, tokens, ctx)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     shared = params["shared_attn"]
     cache = None
     if return_cache:
-        cache = {k: torch.empty(sp.shape, dtype=sp.dtype, device=x.device)
-                 for k, sp in cache_specs(cfg, b, s).items()}
+        cache = shd.empty(cache_specs(cfg, b, s), ctx, tokens.device)
         cache["pos"] = s
 
-    groups = unstack(params["mamba_grouped"])
-    tail = unstack(params["mamba_tail"]) if "mamba_tail" in params else []
+    groups = shd.unstack(params["mamba_grouped"])
+    tail = shd.unstack(params["mamba_tail"]) \
+        if "mamba_tail" in params else []
     if not return_cache:
         for group in groups:
-            x = remat(cfg, group_apply, group, shared, cfg, x, positions)
+            x = remat(cfg, group_apply, group, shared, cfg, x, positions, ctx)
         for layer in tail:
-            x, _ = remat(cfg, mb.block_apply, layer, cfg, x)
+            x, _ = remat(cfg, mb.block_apply, layer, cfg, x, None, False, ctx)
     else:
         for g, group in enumerate(groups):
-            for i, layer in enumerate(unstack(group)):
-                x, st = mb.block_apply(layer, cfg, x, return_state=True)
-                cache["conv_g"][g, i] = st["conv"]
-                cache["ssm_g"][g, i] = st["ssm"]
-            x, kv = _shared_attn_apply(shared, cfg, x, positions)
-            cache["attn_k"][g] = kv["k"]
-            cache["attn_v"][g] = kv["v"]
+            for i, layer in enumerate(shd.unstack(group)):
+                x, st = mb.block_apply(layer, cfg, x, return_state=True,
+                                       ctx=ctx)
+                shd.write_layer(cache["conv_g"], (g, i), st["conv"])
+                shd.write_layer(cache["ssm_g"], (g, i), st["ssm"])
+            x, kv = _shared_attn_apply(shared, cfg, x, positions, ctx=ctx)
+            shd.write_layer(cache["attn_k"], g, kv["k"])
+            shd.write_layer(cache["attn_v"], g, kv["v"])
         for i, layer in enumerate(tail):
-            x, st = mb.block_apply(layer, cfg, x, return_state=True)
-            cache["conv_t"][i] = st["conv"]
-            cache["ssm_t"][i] = st["ssm"]
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+            x, st = mb.block_apply(layer, cfg, x, return_state=True, ctx=ctx)
+            shd.write_layer(cache["conv_t"], i, st["conv"])
+            shd.write_layer(cache["ssm_t"], i, st["ssm"])
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
         return logits, aux, cache
@@ -170,30 +189,36 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     return c
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens):
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                ctx: Optional[Ctx] = None):
     """One decode step. tokens: (B, 1); every conv window, SSM state and
-    KV slot ``pos`` updated in place. Returns (logits, cache with
-    pos + 1)."""
+    KV slot ``pos`` updated in place (with ``ctx``, each device's blocks).
+    Returns (logits, cache with pos + 1)."""
     b = tokens.shape[0]
     pos = int(cache["pos"])
-    x = embed_apply(params["embed"], cfg, tokens)
+    x = embed_apply(params["embed"], cfg, tokens, ctx)
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
     shared = params["shared_attn"]
-    for g, group in enumerate(unstack(params["mamba_grouped"])):
-        for i, layer in enumerate(unstack(group)):
+
+    def at(key, index):
+        return shd.layer_view(cache[key], index)
+
+    for g, group in enumerate(shd.unstack(params["mamba_grouped"])):
+        for i, layer in enumerate(shd.unstack(group)):
             x, _ = mb.block_apply(layer, cfg, x,
-                                  cache={"conv": cache["conv_g"][g, i],
-                                         "ssm": cache["ssm_g"][g, i]})
+                                  cache={"conv": at("conv_g", (g, i)),
+                                         "ssm": at("ssm_g", (g, i))},
+                                  ctx=ctx)
         x, _ = _shared_attn_apply(shared, cfg, x, positions,
-                                  cache={"k": cache["attn_k"][g],
-                                         "v": cache["attn_v"][g]},
-                                  cache_pos=pos)
+                                  cache={"k": at("attn_k", g),
+                                         "v": at("attn_v", g)},
+                                  cache_pos=pos, ctx=ctx)
     if "mamba_tail" in params:
-        for i, layer in enumerate(unstack(params["mamba_tail"])):
+        for i, layer in enumerate(shd.unstack(params["mamba_tail"])):
             x, _ = mb.block_apply(layer, cfg, x,
-                                  cache={"conv": cache["conv_t"][i],
-                                         "ssm": cache["ssm_t"][i]})
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+                                  cache={"conv": at("conv_t", i),
+                                         "ssm": at("ssm_t", i)}, ctx=ctx)
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     return logits, dict(cache, pos=pos + 1)

@@ -75,10 +75,12 @@ def constrain(ctx: Optional[Ctx], x, axes):
     return shd.constrain(x, ctx.mesh, ctx.rules, axes)
 
 
-def _split(leaf, dim: int) -> bool:
-    """Whether a ``Sharded`` leaf's ``dim`` is split over the model axis."""
-    ents = list(leaf.sharding.spec) + [None] * leaf.dim()
-    return "model" in shd._mesh_axes_tuple(ents[dim])
+def add(x, y):
+    """A residual add: of tensors, or of per-device lists position by
+    position."""
+    if isinstance(x, list):
+        return [a + b for a, b in zip(x, y)]
+    return x + y
 
 # ------------------------------------------------------------------- norms
 
@@ -109,7 +111,13 @@ def norm_param_specs(cfg: ModelConfig, dim: Optional[int] = None):
     return {"scale": spec((d,), ("embed",), "zeros")}  # (1 + scale)
 
 
-def apply_norm(p, x, cfg: ModelConfig):
+def apply_norm(p, x, cfg: ModelConfig, ctx: Optional[Ctx] = None):
+    """The config's norm; with ``ctx``, of a replicated activation (a
+    per-device list), on every device by its copy of the (replicated)
+    parameters."""
+    if ctx is not None:
+        return [apply_norm(shd.local_tree(p, r), xr, cfg)
+                for r, xr in enumerate(x)]
     if cfg.norm == "layernorm":
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
@@ -304,7 +312,7 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
     devs = ctx.devices
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     g = h // cfg.num_kv_heads
-    q_split, kv_split = _split(p["wq"], 1), _split(p["wk"], 1)
+    q_split, kv_split = shd.splits(p["wq"], 1), shd.splits(p["wk"], 1)
     hl = h // ctx.n if q_split else h
     mixed = q_split and not kv_split
     hd_cache = hd_parallel(cfg, ctx)
@@ -498,7 +506,7 @@ def mlp_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     if ctx is not None:
         outs = [mlp_apply(shd.local_tree(p, r), cfg, xr)
                 for r, xr in enumerate(x)]
-        return shd.all_reduce(outs, ctx.devices) if _split(p["wo"], 0) \
+        return shd.all_reduce(outs, ctx.devices) if shd.splits(p["wo"], 0) \
             else outs
     if "wi" in p:
         return _act(cfg, x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
@@ -533,7 +541,7 @@ def embed_apply(p, cfg: ModelConfig, tokens, ctx: Optional[Ctx] = None):
 
 def _embed_tp(p, cfg: ModelConfig, tokens, ctx: Ctx):
     emb, devs = p["embedding"], ctx.devices
-    if not _split(emb, 0):
+    if not shd.splits(emb, 0):
         return [embed_apply(shd.local_tree(p, r), cfg, tokens.to(d))
                 for r, d in enumerate(devs)]
     parts = []
@@ -563,7 +571,7 @@ def unembed_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     if ctx is not None:
         w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
         vdim = 0 if cfg.tie_embeddings else 1
-        if _split(w, vdim):
+        if shd.splits(w, vdim):
             parts = [_unembed_product(shd.local_tree(p, r), cfg, xr)
                      for r, xr in enumerate(x)]
             spec = shd.P(None, None, w.sharding.spec[vdim])

@@ -18,16 +18,30 @@ it in the JAX package. The convolutions and the decode step are plain
 PyTorch, as they are plain jnp in the JAX package. The training forward
 rematerialises each block under ``cfg.remat`` (``layers.remat``), as the
 reference checkpoints its scanned block.
+
+Over a slice of several devices (a ``ctx``, ``models/layers.py``) the
+stored layouts are the reference's ``RULES_TP``: ``in_proj``'s columns
+(``ssm_inner``), the conv weights and the conv cache (``conv_dim``), and
+``A_log``, ``D``, ``dt_bias`` and the ssm cache (``ssm_heads``) split over
+the slice, as do ``norm`` and ``out_proj``'s rows (``ssm_inner``). The
+first two split *concatenated* dims (z | x | B | C | dt, and x | B | C)
+evenly, so their blocks do not follow the heads; :func:`mixer_apply`
+computes on them as GSPMD would reshard them (:func:`_mixer_apply_tp`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import spec, stack_specs, unstack
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import spec, stack_specs
 from repro_torch.models.layers import (
+    Ctx,
+    add,
     apply_norm,
     embed_apply,
     embed_param_specs,
@@ -209,15 +223,18 @@ def _split_xbc(cfg: ModelConfig, xBC):
 
 
 def mixer_apply(p, cfg: ModelConfig, x, cache=None,
-                return_state: bool = False):
+                return_state: bool = False, ctx: Optional[Ctx] = None):
     """Full-sequence mamba2 mixer. x: (B, S, d_model).
 
     Returns (out, new_cache). With ``cache`` ({"conv", "ssm"} of one layer)
     the input must be one step (S == 1) and both entries are updated IN
     PLACE (the dense ``attn_apply`` writes its K/V the same way). With
     ``return_state`` in full-sequence mode, the final (conv, ssm) states
-    are returned so a prefill can seed a decode cache.
+    are returned so a prefill can seed a decode cache. With ``ctx``, over
+    the slice (:func:`_mixer_apply_tp`).
     """
+    if ctx is not None:
+        return _mixer_apply_tp(p, cfg, x, cache, return_state, ctx)
     b, s, _ = x.shape
     h, pdim, n, g = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_ngroups
@@ -255,38 +272,148 @@ def mixer_apply(p, cfg: ModelConfig, x, cache=None,
     return torch.einsum("bse,ed->bsd", y, p["out_proj"]), new_cache
 
 
+# ------------------------------------------------------ mixer over a slice
+
+def _in_proj_tp(w, xs, ctx: Ctx):
+    """z | xBC | dt on every device (steps 1-2 of
+    :func:`_mixer_apply_tp`): each device's product by its block of
+    ``in_proj``'s columns, all-gathered."""
+    parts = [torch.einsum("bsd,de->bse", xr, w.locals[r])
+             for r, xr in enumerate(xs)]
+    if not shd.splits(w, 1):
+        return parts
+    return shd.all_gather(parts, ctx.devices, dim=-1)
+
+
+def _block_range(leaf, r: int, dim: int, size: int) -> slice:
+    """Device ``r``'s index range along ``dim`` of a leaf of ``size``
+    there: its block where the dim splits, else all of it."""
+    if not shd.splits(leaf, dim):
+        return slice(0, size)
+    n = leaf.locals[r].shape[dim]
+    b = leaf.sharding.block(r, leaf.dim())[dim]
+    return slice(b * n, (b + 1) * n)
+
+
+def _mixer_apply_tp(p, cfg: ModelConfig, xs, cache, return_state, ctx: Ctx):
+    """:func:`mixer_apply` over the slice, on the reference's stored
+    layouts. ``xs``: the input on every device; ``cache``: {"conv", "ssm":
+    per-device lists of the layer's local blocks}. Each device
+
+    1. multiplies by its block of ``in_proj``'s columns;
+    2. all-gathers the product, so it holds z, xBC and dt whole;
+    3. runs the depthwise conv on its ``conv_dim`` block of xBC (a decode
+       step: on its block of the conv cache, in place);
+    4. all-gathers the conv output, taking its heads' x and the whole B
+       and C (``ssm_ngroups`` is 1, ``groups`` is not split);
+    5. runs K3 at its local heads (a decode step: ``ssd_decode`` in place
+       on its block of the ssm cache), then the ``D`` skip;
+    6. gates and norms its block of d_inner, the f32 sum of squares
+       all-reduced so the RMS is over the whole d_inner;
+    7. multiplies by its rows of ``out_proj``, and an all-reduce sums the
+       partial products.
+
+    Returns the per-device outputs and, for a prefill with
+    ``return_state``, {"conv", "ssm": per-device local blocks}."""
+    devs = ctx.devices
+    h, pdim, n, g = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_ngroups
+    if not all(shd.splits(p[k], 0) for k in ("A_log", "norm", "out_proj")):
+        raise ValueError(
+            f"{cfg.name}: {h} SSD heads over a slice of {ctx.n} devices; "
+            f"the mixer runs over a slice whose size divides the heads")
+    di, gn, cdim = cfg.d_inner, g * n, conv_dim(cfg)
+    hl = p["A_log"].locals[0].shape[0]
+    il = hl * pdim
+    b, s, _ = xs[0].shape
+    zx = _in_proj_tp(p["in_proj"], xs, ctx)
+    cw, cb = p["conv_w"], p["conv_b"]
+    conv_split = shd.splits(cw, 0)
+    crange = [_block_range(cw, r, 0, cdim) for r in range(len(devs))]
+    convs, states = [], []
+    for r, z in enumerate(zx):
+        xbc = z[..., di:di + cdim][..., crange[r]]
+        if cache is None:
+            convs.append(causal_conv(xbc, cw.locals[r], cb.locals[r]))
+            if return_state:
+                kc = cfg.ssm_conv - 1
+                states.append(xbc[:, s - kc:, :].transpose(1, 2)
+                              .contiguous())
+        else:
+            convs.append(conv_decode(cache["conv"][r], xbc[:, 0],
+                                     cw.locals[r], cb.locals[r])[0][:, None])
+    xbc = shd.all_gather(convs, devs, dim=-1) if conv_split else convs
+    ys, ssm_states = [], []
+    for r, z in enumerate(zx):
+        hr = _block_range(p["A_log"], r, 0, h)
+        x_r = xbc[r][..., hr.start * pdim:hr.stop * pdim]
+        B, C = xbc[r][..., di:di + gn], xbc[r][..., di + gn:]
+        dt = F.softplus(z[..., di + cdim:][..., hr].float()
+                        + p["dt_bias"].locals[r])
+        A = -torch.exp(p["A_log"].locals[r].float())
+        xh = x_r.reshape(b, s, hl, pdim)
+        if cache is None:
+            y, final = kops.ssd(xh, dt, A, B.reshape(b, s, g, n),
+                                C.reshape(b, s, g, n), chunk=cfg.ssm_chunk)
+            ssm_states.append(final)
+        else:
+            y, _ = ssd_decode(cache["ssm"][r], xh[:, 0], dt[:, 0], A,
+                              B[:, 0].reshape(b, g, n),
+                              C[:, 0].reshape(b, g, n))
+            y = y[:, None]
+        y = y + p["D"].locals[r][None, None, :, None].to(y.dtype) * xh
+        zr = z[..., hr.start * pdim:hr.stop * pdim]
+        ys.append(y.reshape(b, s, il) * F.silu(zr.float()).to(y.dtype))
+    # the gated RMS norm over the whole d_inner: f32 sums of squares
+    sq = shd.all_reduce([torch.sum(torch.square(y.float()), dim=-1,
+                                   keepdim=True) for y in ys], devs)
+    outs = []
+    for r, y in enumerate(ys):
+        yn = (y.float() * torch.rsqrt(sq[r] / di + cfg.norm_eps)
+              * (1.0 + p["norm"].locals[r].float())).to(y.dtype)
+        outs.append(torch.einsum("bse,ed->bsd", yn, p["out_proj"].locals[r]))
+    new_cache = cache
+    if cache is None:
+        new_cache = {"conv": states, "ssm": ssm_states} if return_state \
+            else None
+    return shd.all_reduce(outs, devs), new_cache
+
+
 def block_apply(p, cfg: ModelConfig, x, cache=None,
-                return_state: bool = False):
-    h = apply_norm(p["ln"], x, cfg)
-    out, new_cache = mixer_apply(p["mixer"], cfg, h, cache, return_state)
-    return x + out, new_cache
+                return_state: bool = False, ctx: Optional[Ctx] = None):
+    h = apply_norm(p["ln"], x, cfg, ctx)
+    out, new_cache = mixer_apply(p["mixer"], cfg, h, cache, return_state,
+                                 ctx)
+    return add(x, out), new_cache
 
 
 # ----------------------------------------------------------------- model
 
-def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False):
-    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache])."""
+def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
+            ctx: Optional[Ctx] = None):
+    """Teacher-forcing forward. tokens: (B, S) -> (logits, aux[, cache]).
+    With ``ctx``, over the slice: the cache's entries ``Sharded`` in the
+    layout of :func:`cache_specs`' logical axes, the logits whole on the
+    slice's first device."""
     b, s = tokens.shape
-    x = embed_apply(params["embed"], cfg, tokens)
+    x = embed_apply(params["embed"], cfg, tokens, ctx)
     cache = None
     if return_cache:
-        # filled layer by layer: no list of per-layer states to stack
-        cache = {"conv": torch.empty((cfg.num_layers, b, conv_dim(cfg),
-                                      cfg.ssm_conv - 1), dtype=x.dtype,
-                                     device=x.device),
-                 "ssm": torch.empty((cfg.num_layers, b, cfg.ssm_nheads,
-                                     cfg.ssm_head_dim, cfg.ssm_state),
-                                    dtype=torch.float32, device=x.device),
-                 "pos": s}
-    for i, layer in enumerate(unstack(params["layers"])):
+        # filled layer by layer: no list of per-layer states to stack; the
+        # conv windows in the activations' dtype
+        specs = cache_specs(cfg, b, s)
+        specs["conv"] = specs["conv"]._replace(
+            dtype=(x if ctx is None else x[0]).dtype)
+        cache = dict(shd.empty(specs, ctx, tokens.device), pos=s)
+    for i, layer in enumerate(shd.unstack(params["layers"])):
         if return_cache:
-            x, st = block_apply(layer, cfg, x, return_state=True)
-            cache["conv"][i] = st["conv"]
-            cache["ssm"][i] = st["ssm"]
+            x, st = block_apply(layer, cfg, x, return_state=True, ctx=ctx)
+            shd.write_layer(cache["conv"], i, st["conv"])
+            shd.write_layer(cache["ssm"], i, st["ssm"])
         else:
-            x, _ = remat(cfg, block_apply, layer, cfg, x)
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+            x, _ = remat(cfg, block_apply, layer, cfg, x, None, False, ctx)
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
         return logits, aux, cache
@@ -306,15 +433,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     }
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens):
-    """One decode step. tokens: (B, 1); cache conv/ssm updated in place.
-    Returns (logits, cache with pos + 1)."""
-    x = embed_apply(params["embed"], cfg, tokens)
-    for i, layer in enumerate(unstack(params["layers"])):
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                ctx: Optional[Ctx] = None):
+    """One decode step. tokens: (B, 1); cache conv/ssm updated in place
+    (with ``ctx``, each device's blocks). Returns (logits, cache with
+    pos + 1)."""
+    x = embed_apply(params["embed"], cfg, tokens, ctx)
+    for i, layer in enumerate(shd.unstack(params["layers"])):
         x, _ = block_apply(layer, cfg, x,
-                           cache={"conv": cache["conv"][i],
-                                  "ssm": cache["ssm"][i]})
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+                           cache={"conv": shd.layer_view(cache["conv"], i),
+                                  "ssm": shd.layer_view(cache["ssm"], i)},
+                           ctx=ctx)
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     return logits, {"conv": cache["conv"], "ssm": cache["ssm"],
                     "pos": int(cache["pos"]) + 1}

@@ -23,6 +23,20 @@ scatter-adds:
 The buffer is laid out (experts, batch, capacity, d_model), so each expert
 GEMM is one ``bmm`` over the experts axis without a transpose; the
 reference's (batch, experts, capacity, d_model) holds the same rows.
+
+Over a slice of several devices (a ``ctx``, ``models/layers.py``) the
+layout is the reference's ``RULES_TP``: where the experts divide the
+slice, the router's columns and the expert weights split over experts
+(expert parallelism). Each device's block of router logits is gathered to
+every device before the softmax and top-k, so every device routes alike;
+each device fills only its own experts' rows of the buffer (the
+reference's "scatter replicated, then slice", ``repro/models/moe.py:
+104-112``) and runs the GEMMs over its experts; the expert outputs are
+gathered back to every device (the reference's explicit gather, ``:135-
+138``) and combined as on one device. Where the experts do not divide the
+slice the rules leave the expert weights replicated, and each device
+computes the whole MoE from its copy. The aux loss is the first device's,
+so a loss counts it once.
 """
 from __future__ import annotations
 
@@ -32,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import spec
 
 
@@ -50,14 +65,17 @@ def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, int(math.ceil(per * cfg.capacity_factor / 8.0)) * 8)
 
 
-def route(router, cfg: ModelConfig, x):
+def route(router, cfg: ModelConfig, x, logits=None):
     """x: (B, S, d) -> (gates (B, S, k) f32, expert ids (B, S, k), aux).
 
     Top-k by a stable descending sort, so equal probabilities go to the
     lower expert id first, as ``jax.lax.top_k``. Each token's k choices
-    then come in ascending expert id (the combine's order)."""
+    then come in ascending expert id (the combine's order). ``logits``:
+    the f32 router logits where they are already made (a slice gathers
+    them), else ``x``'s product with ``router``."""
     k, e = cfg.experts_per_token, cfg.num_experts
-    logits = x.float() @ router
+    if logits is None:
+        logits = x.float() @ router
     probs = torch.softmax(logits, dim=-1)
     gate_w, expert_ids = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
@@ -95,33 +113,90 @@ def slot_ranks(expert_ids, e: int):
         .reshape(expert_ids.shape)
 
 
-def moe_apply(p, cfg: ModelConfig, x):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
-    b, s, d = x.shape
-    k, e = cfg.experts_per_token, cfg.num_experts
-    cap = expert_capacity(cfg, s)
-    gate_w, expert_ids, aux = route(p["router"], cfg, x)
-    pos = slot_ranks(expert_ids, e)
-    keep = pos < cap
+def _slots(expert_ids, pos, keep, b: int, cap: int, e0: int, el: int,
+            e: int):
+    """Each choice's buffer row (expert - e0, batch row, rank) among the
+    ``el`` experts from ``e0``; a dropped choice, or one of another
+    device's experts, goes to one spare row past the end, which nothing
+    reads."""
+    rows = torch.arange(b, device=expert_ids.device)[:, None, None]
+    mine = keep if el == e else \
+        keep & (expert_ids >= e0) & (expert_ids < e0 + el)
+    return torch.where(mine, ((expert_ids - e0) * b + rows) * cap + pos,
+                       el * b * cap)
 
-    # dispatch: buffer row (expert, batch row, rank); a dropped choice
-    # writes into one spare row past the end, which nothing reads
-    rows = torch.arange(b, device=x.device)[:, None, None]
-    slot = torch.where(keep, (expert_ids * b + rows) * cap + pos,
-                       e * b * cap)
-    buf = x.new_zeros((e * b * cap + 1, d))
-    buf[slot.reshape(-1)] = x[:, :, None, :].expand(b, s, k, d).reshape(-1, d)
-    buf = buf[:-1].view(e, b * cap, d)
 
-    # expert compute: batched GEMMs over the experts axis
+def _experts(p, x, slot, n_experts: int, b: int, cap: int):
+    """Dispatch ``x`` (B, S, d) into the buffer rows ``slot`` and run the
+    expert GEMMs, batched over the ``n_experts`` experts of ``p``:
+    (n_experts * b * cap, d)."""
+    bb, s, d = x.shape
+    k = slot.shape[-1]
+    buf = x.new_zeros((n_experts * b * cap + 1, d))
+    buf[slot.reshape(-1)] = x[:, :, None, :].expand(bb, s, k, d) \
+        .reshape(-1, d)
+    buf = buf[:-1].view(n_experts, b * cap, d)
     h = F.silu(torch.bmm(buf, p["wi_gate"])) * torch.bmm(buf, p["wi_up"])
-    out_buf = torch.bmm(h, p["wo"]).view(e * b * cap, d)
+    return torch.bmm(h, p["wo"]).view(n_experts * b * cap, d)
 
-    # combine: gather back, weight by the bf16 gates, sum in expert order
+
+def _combine(out_buf, slot, keep, gate_w, k: int, dtype):
+    """Gather each choice's expert output back, weight it by its bf16
+    gate and sum a token's k in expert order."""
     eo = out_buf[torch.where(keep, slot, 0)]
     eo = torch.where(keep[..., None], eo, 0)
     contrib = eo * gate_w.to(eo.dtype)[..., None]
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]
-    return out.to(x.dtype), aux
+    return out.to(dtype)
+
+
+def moe_apply(p, cfg: ModelConfig, x, ctx=None):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar). With ``ctx``,
+    ``x`` and ``out`` are per-device lists over the slice."""
+    if ctx is not None:
+        return _moe_apply_tp(p, cfg, x, ctx)
+    b, s, d = x.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    cap = expert_capacity(cfg, s)
+    gate_w, expert_ids, aux = route(p["router"], cfg, x)
+    pos = slot_ranks(expert_ids, e)
+    keep = pos < cap
+    slot = _slots(expert_ids, pos, keep, b, cap, 0, e, e)
+    out_buf = _experts(p, x, slot, e, b, cap)
+    return _combine(out_buf, slot, keep, gate_w, k, x.dtype), aux
+
+
+def _moe_apply_tp(p, cfg: ModelConfig, xs, ctx):
+    """:func:`moe_apply` over the slice (module docstring). Returns the
+    per-device outputs and the first device's aux loss."""
+    if not shd.splits(p["wi_gate"], 0):
+        # the experts do not divide the slice: the whole MoE on every
+        # device, from its copy of the replicated weights
+        outs = [moe_apply(shd.local_tree(p, r), cfg, xr)
+                for r, xr in enumerate(xs)]
+        return [o for o, _ in outs], outs[0][1]
+    devs = ctx.devices
+    b, s, _ = xs[0].shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    el = p["wi_gate"].locals[0].shape[0]
+    cap = expert_capacity(cfg, s)
+    parts = [xr.float() @ p["router"].locals[r] for r, xr in enumerate(xs)]
+    logits = shd.all_gather(parts, devs, dim=-1)
+    routes, bufs = [], []
+    for r, xr in enumerate(xs):
+        gate_w, ids, aux = route(None, cfg, xr, logits=logits[r])
+        pos = slot_ranks(ids, e)
+        keep = pos < cap
+        e0 = p["wi_gate"].sharding.block(r, 3)[0] * el
+        slot = _slots(ids, pos, keep, b, cap, e0, el, e)
+        bufs.append(_experts(shd.local_tree(p, r), xr, slot, el, b, cap))
+        routes.append((gate_w, ids, pos, keep, aux))
+    out_bufs = shd.all_gather(bufs, devs, dim=0)
+    outs = []
+    for r, (gate_w, ids, pos, keep, _) in enumerate(routes):
+        slot = _slots(ids, pos, keep, b, cap, 0, e, e)
+        outs.append(_combine(out_bufs[r], slot, keep, gate_w, k,
+                             xs[r].dtype))
+    return outs, routes[0][4]

@@ -14,9 +14,10 @@ for vlm, as in ``repro.models.registry``; an RLVR train batch also
 carries ``behavior_logprobs``, ``advantages`` and ``loss_mask``. A cache is
 its specs' tensors and ``pos``, a host int (the reference's int32 leaf).
 ``abstract_*`` give ``meta`` tensors: the dry run's inputs. ``ctx`` (a
-slice of several devices, ``layers.Ctx``) runs the dense family
-tensor-parallel; the other families raise ``NotImplementedError`` naming
-their queued part of ROADMAP.md's Queue 1 item 5.
+slice of several devices, ``layers.Ctx``) runs the dense, MoE, ssm and
+hybrid families over the slice; the vlm and audio families and gemma2
+raise ``NotImplementedError`` naming their queued part of ROADMAP.md's
+Queue 1 item 5.
 """
 from __future__ import annotations
 

@@ -22,7 +22,9 @@ spec), :class:`Sharded` (a global tensor as one local tensor per device),
 collectives :func:`all_reduce` and :func:`all_gather` (copies between
 devices, ``Tensor.to``, and sums in one fixed device order, so a
 replicated result is the same bits on every device; autograd runs through
-them as through any op), :func:`constrain` and :func:`tree_shardings`.
+them as through any op), :func:`constrain` and :func:`tree_shardings`,
+and the helpers that build a per-layer cache on one device or a slice
+(:func:`empty`, :func:`write_layer`, :func:`layer_view`).
 A layout over one device is a plain tensor on it: the one-device path is
 the port's path before sharding.
 
@@ -204,9 +206,7 @@ def tree_partition_specs(axes_tree, mesh, rules: Rules, shapes_tree=None):
 
 # the queued parts of ROADMAP.md's Queue 1 item 5 (multi-device execution)
 PARTS = {
-    1: "the MoE family over experts",
     2: "the vlm family, gemma2 and whisper",
-    3: "mamba2 and zamba2 over ssm_heads",
     4: "process-mode groups of several devices",
     5: "the dry run's meshes of many devices",
     6: "mesh_bench.py",
@@ -222,13 +222,10 @@ def not_ported(what: str, part: int) -> NotImplementedError:
 
 def tp_unsupported(cfg) -> Optional[NotImplementedError]:
     """The error for a config whose family does not run over a slice of
-    several devices yet, or None for the dense family."""
-    if cfg.family == "moe":
-        return not_ported(f"{cfg.name} on a group of several devices", 1)
+    several devices yet (part 2: vlm, audio and gemma2's post-norms), or
+    None (the dense, MoE, ssm and hybrid families)."""
     if cfg.family in ("vlm", "audio") or cfg.post_norms:
         return not_ported(f"{cfg.name} on a group of several devices", 2)
-    if cfg.family in ("ssm", "hybrid"):
-        return not_ported(f"{cfg.name} on a group of several devices", 3)
     return None
 
 
@@ -371,6 +368,49 @@ class Sharded:
         return self
 
 
+def splits(leaf, dim: int, axis: str = "model") -> bool:
+    """Whether a :class:`Sharded` leaf's ``dim`` is split over ``axis``."""
+    ents = list(leaf.sharding.spec) + [None] * leaf.dim()
+    return axis in _mesh_axes_tuple(ents[dim])
+
+
+def empty(specs, ctx=None, device=None):
+    """A tree of specs (``common.spec``) as uninitialised tensors: the
+    caches a prefill fills layer by layer. Without ``ctx``, tensors on
+    ``device``; over a slice (``ctx``: ``models/layers.Ctx``, its mesh and
+    rules), :class:`Sharded` tensors, each in the layout its logical axes
+    resolve to."""
+
+    def one(sp):
+        if ctx is None:
+            return torch.empty(sp.shape, dtype=sp.dtype, device=device)
+        sh = NamedSharding(ctx.mesh, resolve(sp.axes, ctx.mesh, ctx.rules,
+                                             shape=sp.shape))
+        local = [n // p for n, p in zip(sp.shape, sh.parts(len(sp.shape)))]
+        return Sharded([torch.empty(local, dtype=sp.dtype, device=d)
+                        for d in sh.devices], sh)
+
+    return common.tree_map(one, specs)
+
+
+def write_layer(entry, index, value) -> None:
+    """``entry[index] = value`` in place: of a tensor, or of a
+    :class:`Sharded` cache entry's locals from per-device blocks."""
+    if not isinstance(entry, Sharded):
+        entry[index] = value
+        return
+    for loc, v in zip(entry.locals, value):
+        loc[index] = v
+
+
+def layer_view(entry, index):
+    """``entry[index]``: a view of a tensor, or per-device views of a
+    :class:`Sharded` entry's locals."""
+    if not isinstance(entry, Sharded):
+        return entry[index]
+    return [t[index] for t in entry.locals]
+
+
 def local_tensors(x) -> List[torch.Tensor]:
     """A leaf's tensors: a :class:`Sharded`'s locals, else the tensor."""
     return x.locals if isinstance(x, Sharded) else [x]
@@ -392,11 +432,13 @@ def local_tree(tree, pos: int):
 
 
 def unstack(tree) -> list:
-    """The per-layer trees of a stacked tree of :class:`Sharded` leaves
-    (a leading unsplit ``layers`` axis), as views: each local unbound once,
-    so the backward stacks the layers' gradients in one op
-    (``common.unstack``)."""
+    """The per-layer trees of a stacked tree (a leading unsplit ``layers``
+    axis), as views: a tree of tensors through ``common.unstack``; of
+    :class:`Sharded` leaves, each local unbound once, so the backward
+    stacks the layers' gradients in one op."""
     flat = common.canonical_flat(tree)
+    if not isinstance(next(iter(flat.values())), Sharded):
+        return common.unstack(tree)
     parts = {k: [torch.unbind(t) for t in v.locals] for k, v in flat.items()}
     shs = {k: NamedSharding(v.sharding.mesh,
                             PartitionSpec(*v.sharding.spec[1:]))

@@ -14,12 +14,13 @@ global one), as the reference scans them; the training forward
 rematerialises each group under ``cfg.remat`` (``layers.remat``).
 
 With a ``ctx`` (``layers.Ctx``: a slice of several devices) the dense
-family runs tensor-parallel: the parameters are ``Sharded`` leaves, the
-residual stream is one tensor per device, and the cache's k and v are
-``Sharded`` in the layout of :func:`cache_specs`' logical axes under the
-rules (split over KV heads, else over head_dim, ``cache_hd``). The
-logits come back whole on the slice's first device. ``ctx=None`` is the
-one-device path.
+and MoE families run tensor-parallel: the parameters are ``Sharded``
+leaves, the residual stream is one tensor per device, and the cache's k
+and v are ``Sharded`` in the layout of :func:`cache_specs`' logical axes
+under the rules (split over KV heads, else over head_dim, ``cache_hd``).
+The MoE runs over the experts (``models/moe.py``); its loss is the first
+device's. The logits come back whole on the slice's first device.
+``ctx=None`` is the one-device path.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.common import spec, stack_specs, unstack
 from repro_torch.models.layers import (
     Ctx,
+    add,
     apply_norm,
     attn_apply,
     attn_param_specs,
@@ -92,40 +94,33 @@ def _sub_window(cfg: ModelConfig, j: int, period: int) -> int:
 
 # ----------------------------------------------------------------- forward
 
-def _ffn(p, cfg: ModelConfig, x):
+def _ffn(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     """The MLP, or the MoE (plus arctic's parallel dense MLP). Returns
-    (out, aux)."""
+    (out, aux). With ``ctx``, over the slice (per-device lists)."""
     if cfg.num_experts:
-        out, aux = moe_lib.moe_apply(p["moe"], cfg, x)
+        out, aux = moe_lib.moe_apply(p["moe"], cfg, x, ctx)
         if cfg.dense_residual:
-            out = out + mlp_apply(p["mlp"], cfg, x)
+            out = add(out, mlp_apply(p["mlp"], cfg, x, ctx))
         return out, aux
-    return mlp_apply(p["mlp"], cfg, x), None
-
-
-def _norm_tp(p, xs, cfg: ModelConfig):
-    """A norm of a replicated activation: on every device, by its copy of
-    the (replicated) scale."""
-    return [apply_norm(shd.local_tree(p, r), x, cfg) for r, x in
-            enumerate(xs)]
+    return mlp_apply(p["mlp"], cfg, x, ctx), None
 
 
 def _layer_apply_tp(p, cfg: ModelConfig, xs, *, positions, window, cache,
                     cache_pos, ctx: Ctx):
-    h = _norm_tp(p["ln1"], xs, cfg)
+    h = apply_norm(p["ln1"], xs, cfg, ctx)
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
                        window=window, cache=cache, cache_pos=cache_pos,
                        ctx=ctx)
-    xs = [x + ar for x, ar in zip(xs, a)]
-    m = mlp_apply(p["mlp"], cfg, _norm_tp(p["ln2"], xs, cfg), ctx)
-    return [x + mr for x, mr in zip(xs, m)], None, kv
+    xs = add(xs, a)
+    m, aux = _ffn(p, cfg, apply_norm(p["ln2"], xs, cfg, ctx), ctx)
+    return add(xs, m), aux, kv
 
 
 def layer_apply(p, cfg: ModelConfig, x, *, positions, window: int = 0,
                 cache=None, cache_pos=None, ctx: Optional[Ctx] = None):
     """One decoder layer. Returns (x, aux, kv); aux is None without
     experts. With ``ctx``, ``x`` and the cache's k and v are per-device
-    lists (the dense family)."""
+    lists."""
     if ctx is not None:
         return _layer_apply_tp(p, cfg, x, positions=positions, window=window,
                                cache=cache, cache_pos=cache_pos, ctx=ctx)
@@ -159,42 +154,38 @@ def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool,
     return (x, aux, kvs) if with_kv else (x, aux)
 
 
-def _cache_sharding(cfg: ModelConfig, ctx: Ctx, b: int, t: int):
-    """The layout of the cache's k and v on the slice: its logical axes
-    resolved under the rules."""
-    sp = cache_specs(cfg, b, t)["k"]
-    return shd.NamedSharding(ctx.mesh, shd.resolve(sp.axes, ctx.mesh,
-                                                   ctx.rules, shape=sp.shape))
-
-
 def _forward_tp(params, cfg: ModelConfig, tokens, return_cache: bool,
                 ctx: Ctx):
     b, s = tokens.shape
-    devs = ctx.devices
     xs = embed_apply(params["embed"], cfg, tokens, ctx)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     _, period = _group_layout(cfg)
     layers = shd.unstack(params["layers"])
-    ks, vs = [[] for _ in devs], [[] for _ in devs]
+    cache, auxs = None, []
+    if return_cache:
+        # filled layer by layer, each device's blocks in the layout of the
+        # cache's logical axes
+        specs = {k: sp._replace(dtype=xs[0].dtype)
+                 for k, sp in cache_specs(cfg, b, s).items()}
+        cache = dict(shd.empty(specs, ctx), pos=s)
     for g in range(0, cfg.num_layers, period):
         group = layers[g:g + period]
         if return_cache:
-            xs, _, kvs = group_apply(group, cfg, xs, positions, True, ctx)
-            for kv in kvs:
-                for r in range(len(devs)):
-                    ks[r].append(kv["k"][r])
-                    vs[r].append(kv["v"][r])
+            xs, aux, kvs = group_apply(group, cfg, xs, positions, True, ctx)
+            for j, kv in enumerate(kvs):
+                shd.write_layer(cache["k"], g + j, kv["k"])
+                shd.write_layer(cache["v"], g + j, kv["v"])
         else:
-            xs, _ = remat(cfg, group_apply, group, cfg, xs, positions, False,
-                          ctx)
+            xs, aux = remat(cfg, group_apply, group, cfg, xs, positions,
+                            False, ctx)
+        if aux is not None:
+            auxs.append(aux)
     logits = unembed_apply(params["embed"], cfg,
-                           _norm_tp(params["ln_f"], xs, cfg), ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+                           apply_norm(params["ln_f"], xs, cfg, ctx), ctx)
+    # the MoE loss, on the first device, once for the slice
+    aux = torch.cat(auxs).mean() if auxs else \
+        torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
-        sh = _cache_sharding(cfg, ctx, b, s)
-        cache = {"k": shd.Sharded([torch.stack(k) for k in ks], sh),
-                 "v": shd.Sharded([torch.stack(v) for v in vs], sh),
-                 "pos": s}
         return logits, aux, cache
     return logits, aux
 
@@ -255,11 +246,11 @@ def _decode_step_tp(params, cfg: ModelConfig, cache, tokens, ctx: Ctx):
         xs, _, _ = layer_apply(
             layer, cfg, xs, positions=positions,
             window=_sub_window(cfg, i % period, period),
-            cache={"k": [t[i] for t in cache["k"].locals],
-                   "v": [t[i] for t in cache["v"].locals]},
+            cache={"k": shd.layer_view(cache["k"], i),
+                   "v": shd.layer_view(cache["v"], i)},
             cache_pos=pos, ctx=ctx)
     logits = unembed_apply(params["embed"], cfg,
-                           _norm_tp(params["ln_f"], xs, cfg), ctx)
+                           apply_norm(params["ln_f"], xs, cfg, ctx), ctx)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 

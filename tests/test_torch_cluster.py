@@ -90,6 +90,18 @@ class _Pkg:
     def plane(self) -> dict:
         return {"device_plane": cpu_plane()} if self.torch else {}
 
+    def router_plane(self) -> dict:
+        """A one-device plane for either package's Router: the
+        reference's carves ``jax.devices()[:1]``, so its slices (and each
+        migration's ``cross_mesh``) do not depend on how many host devices
+        an earlier import made jax start with (``repro.launch.dryrun``
+        sets 512)."""
+        if self.torch:
+            return self.plane()
+        import jax
+        from repro.launch.mesh import DevicePlane
+        return {"device_plane": DevicePlane(devices=jax.devices()[:1])}
+
     def leaf(self, a: np.ndarray):
         return torch.from_numpy(a.copy()) if self.torch else a
 
@@ -146,7 +158,7 @@ def _virtual_router(P):
     clock = P.VirtualClock()
     router = P.Router(now=clock,
                       wpg_factory=lambda spec, sm: ClockWPG(spec, sm, clock),
-                      **P.plane())
+                      **P.router_plane())
     return clock, router
 
 

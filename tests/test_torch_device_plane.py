@@ -306,13 +306,23 @@ def test_e2e_disjoint_slices_and_cross_slice_live_migration():
     ("llama-3.2-vision-90b", 2), ("mamba2-2.7b", 3), ("zamba2-7b", 3)])
 def test_other_families_on_several_devices_raise_naming_their_part(arch,
                                                                    part):
+    """A family whose part is still queued raises, naming it, at INIT on
+    a 2-device slice; one whose part is ported (1: MoE, 3: mamba2 and
+    zamba2) lays out its state there (the shardings alone: nothing
+    allocated at full width)."""
     sl = _plane(slice_size=2).slice_for_group(0)
     wpg = WorkerProcessGroup(api.DeploymentSpec(
         deployment_id="d", job_id="j", model_name=arch, role="rollout"),
         StateManager(mesh_slice=sl))
-    with pytest.raises(NotImplementedError,
-                       match=f"item 5, sharding, part {part}"):
-        wpg.execute(api.make_op(wpg.spec, api.Op.INIT, 0))
+    if part in shd.PARTS:
+        with pytest.raises(NotImplementedError,
+                           match=f"item 5, sharding, part {part}"):
+            wpg.execute(api.make_op(wpg.spec, api.Op.INIT, 0))
+    else:
+        assert shd.tp_unsupported(get_config(arch)) is None
+        st = common.canonical_flat(wpg.param_shardings())
+        assert all(v.mesh == sl.mesh for v in st.values())
+        assert any("model" in tuple(v.spec) for v in st.values())
     assert get_config(arch).name == arch
 
 
