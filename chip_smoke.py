@@ -264,7 +264,24 @@ Phases (any failure raises and the process exits non-zero):
     against one device; zamba2-7b at full width cut to 15 of 81 blocks
     served on a 2-device group (the shared block at 16 heads a device:
     exactly 4 K1, 256 K2 and 26 K3); K3 at 40 and 56 heads and K1 and K2
-    at zamba2's 16 heads a device against their plain versions and timed.
+    at zamba2's 16 heads a device against their plain versions and timed;
+35. gemma2, whisper and the vlm family over a slice: gemma2-27b at full
+    width cut to 8 of 46 layers on a 2-device group (16 query and 8 KV
+    heads a device, the window and both softcaps; B=16 prompt 128, then
+    B=1 prompt 4,352 where the window cuts) and, cut to 4 layers, once on
+    a 4-device group (8:4 heads); two whisper-large-v3 jobs at 8 + 8 of 32 + 32 layers on
+    two 2-device groups (10 heads a device: the encoder, the cross prefill
+    and the cross decode at local heads; the frames through
+    ``extra_inputs``), job A migrated live to the other slice and
+    generating there, one generate on a 4-device group at 4 + 4 layers (5
+    heads, the vocabulary replicated); llama-3.2-vision-90b at 10 of 100
+    layers on a 4-device group (16:2 heads a device, the gates written to
+    1.0 after INIT, one generate given its patch embeddings through
+    ``extra_inputs``); each
+    generate's launches exactly n times the one-device path's; logits
+    over 2 and 4 devices against one for each family; update_actor on a
+    slice against one device for gemma2 and whisper; K1 and K2 at the new
+    per-device shapes against their plain versions and timed.
 
 Each phase prints its seconds, and its start to the standard error. The
 earlier paths' depth is cut where a phase's time would otherwise crowd the
@@ -490,6 +507,15 @@ EP4_LAYERS, SSM_TP4_LAYERS = 6, 8       # the generates over 4 devices
 SSM_TP_LAYERS = 16
 SSM_TP_PARITY_LAYERS = 16
 HYB_TP_LAYERS = 15
+# phase 35: gemma2 at 8 of 46 layers over 2 devices (1.13 GB a layer, the
+# tied embedding 2.36 GB: 11.42 GB, 5.71 a device) and at 4 over 4; two
+# whisper jobs at 8 + 8 layers over 2 devices and one generate at 4 + 4
+# over 4; vision at 10 of 100 layers over 4 (21.32 GB, 5.33 a device).
+# Logits at the parity phases' depths; update_actor of gemma2 at 2 layers
+# and of whisper at 2 + 2 on a slice against one device
+GEMMA_TP_LAYERS, GEMMA_TP4_LAYERS = 8, 4
+WHISPER_TP_LAYERS, WHISPER_TP4_LAYERS = 8, 4
+XATTN_TRAIN_LAYERS = 2
 PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
              "decode_attention": (11_010_048, 1_630_208),
              "ssd": (53_812_920_320, 216_531_264)}
@@ -1702,24 +1728,32 @@ def launches_per_op(cfg, op, n_new):
     """The kernel launches one op of a GRPO or PPO step makes: K1 in each
     attention layer's prefill or training forward, K2 in each decode step
     of each attention layer, K3 in each Mamba2 block's prefill or training
-    forward. An op that takes a gradient (``GRAD_OPS``) runs every layer
-    group's forward twice under ``cfg.remat`` "full" or "dots" (the
+    forward. whisper's attention layers are its encoder's and, twice, its
+    decoder's (self and cross); vision's cross layers attend as its self
+    layers do. An op that takes a gradient (``GRAD_OPS``) runs every
+    layer group's forward twice under ``cfg.remat`` "full" or "dots" (the
     forward, then its recomputation in the backward), so its K1 and K3
     launch twice a layer; once under "none"."""
     from repro_torch.models import hybrid
 
+    mamba, decode = 0, None
     if cfg.family == "hybrid":
         attn = hybrid._layout(cfg)[0]
         mamba = cfg.num_layers - attn
+    elif cfg.family == "ssm":
+        attn, mamba = 0, cfg.num_layers
+    elif cfg.family == "audio":
+        attn, decode = cfg.encoder_layers + 2 * cfg.num_layers, \
+            2 * cfg.num_layers
     else:
-        attn = cfg.num_layers if cfg.family in ("dense", "moe") else 0
-        mamba = cfg.num_layers - attn
+        attn = cfg.num_layers
+    decode = attn if decode is None else decode
     zero = {"flash_attention": 0, "decode_attention": 0, "ssd": 0}
     if op in ("init", "optim_step", "sync_weights"):
         return zero
     runs = 2 if op in GRAD_OPS and cfg.remat != "none" else 1
     return {"flash_attention": runs * attn,
-            "decode_attention": attn * n_new if op == "generate" else 0,
+            "decode_attention": decode * n_new if op == "generate" else 0,
             "ssd": runs * mamba}
 
 
@@ -3991,27 +4025,29 @@ def slice_layout(torch, phase, label, wpg, want_bytes=None):
     return local
 
 
-def slice_serve(torch, dev, phase, arch, layers, n, prompt_len, rounds=1):
-    """One rollout deployment of ``arch`` at full width cut to ``layers``,
-    on one group of ``n`` virtual devices of the card: INIT (the seeded
-    init laid out on the slice), then ``rounds`` generates (B, prompt
-    ``prompt_len`` of seeded ids, N_NEW new), each with exactly ``n``
-    times the one-device launches (the counts set to 0 before each) and a
-    peak under 80 GB. Returns the router, the deployment, each round's
-    launches and the per-device bytes."""
+def slice_serve(torch, dev, phase, arch, layers, n, prompt_len, rounds=1,
+                overrides=None, shapes=None, extras=None, after_init=None):
+    """One rollout deployment of ``arch`` at full width cut to ``layers``
+    (or by ``overrides``), on one group of ``n`` virtual devices of the
+    card: INIT (the seeded init laid out on the slice), ``after_init(router,
+    dep)`` where given, then ``rounds`` generates (B, prompt ``prompt_len``
+    of seeded ids, N_NEW new; ``shapes``: each round's (batch, prompt)
+    instead; ``extras(r, b)``: round r's ``extra_inputs``), each with
+    exactly ``n`` times the one-device launches (the counts set to 0
+    before each) and a peak under 80 GB. Returns the router, the
+    deployment, each round's launches and the per-device bytes."""
     from repro_torch.configs import get_config
     from repro_torch.core import api
     from repro_torch.core.router import Router
-    from repro_torch.kernels import ops
-    from repro_torch.rl import data as data_lib
 
-    overrides = (("num_layers", layers),)
+    overrides = overrides or (("num_layers", layers),)
     cfg = get_config(arch).replace(**dict(overrides))
+    shapes = shapes or [(B, prompt_len)] * rounds
     want = slice_launches(cfg, "generate", N_NEW, n)
-    print(f"phase {phase}: serving {arch} at full width cut to {layers} "
-          f"layers on a group of {n} virtual devices of {dev} (B={B}, "
-          f"prompt {prompt_len}, {N_NEW} new; {spec_bytes(cfg)} B of "
-          f"parameters); want {want} a generate")
+    print(f"phase {phase}: serving {arch} at full width, {dict(overrides)}, "
+          f"on a group of {n} virtual devices of {dev} ((B, prompt) "
+          f"{shapes}, {N_NEW} new; {spec_bytes(cfg)} B of parameters); "
+          f"want {want} a generate")
     router = Router(device_plane=slice_plane(dev, n))
     dep = router.deploy(api.DeploymentSpec(
         deployment_id=f"slice-{n}", job_id="S", model_name=arch,
@@ -4023,44 +4059,62 @@ def slice_serve(torch, dev, phase, arch, layers, n, prompt_len, rounds=1):
         dep.init(seed=1).wait(timeout=900)
         print(f"  INIT: {time.perf_counter() - t0} s; peak card memory "
               f"{torch.cuda.max_memory_allocated(dev)} B")
+        if after_init:
+            after_init(router, dep)
         local = slice_layout(torch, phase, "rollout", dep.wpg,
                              spec_bytes(cfg))
-        rounds_launched = []
-        for r in range(rounds):
-            prompt = torch.randint(data_lib.EOS + 1, cfg.vocab_size,
-                                   (B, prompt_len), generator=gen,
-                                   device=dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            ops.reset_launches()
-            t0 = time.perf_counter()
-            out = dep.generate(prompt, max_new_tokens=N_NEW,
-                               temperature=0.7).wait(timeout=600)
-            wall = time.perf_counter() - t0
-            got = dict(ops.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated(dev)
-            toks, logps = out["tokens"], out["logprobs"]
-            print(f"  generate {r}: wall {wall} s, {B * N_NEW / wall} tok/s, "
-                  f"launches {got}, peak card memory {peak} B")
-            if got != want:
-                fail(f"phase {phase}: a generate over {n} devices launched "
-                     f"{got}, want {want}")
-            if tuple(toks.shape) != (B, N_NEW) or not bool(
-                    ((toks >= 0) & (toks < cfg.vocab_size)).all()) or \
-                    not bool(torch.isfinite(logps).all()) or peak >= 80e9:
-                fail(f"phase {phase}: round {r}: tokens "
-                     f"{tuple(toks.shape)}, logprobs or peak {peak} B")
-            rounds_launched.append(got)
+        rounds_launched = [
+            slice_generate(torch, dev, phase, dep, cfg, b, p, want, gen,
+                           extras(r, b) if extras else None, f"generate {r}")
+            for r, (b, p) in enumerate(shapes)]
         print(f"  exec_log: {list(dep.wpg.exec_log)}")
     return router, dep, rounds_launched, local
 
 
-def slice_logits(torch, model, params, ctx, prompt, forced):
-    """The prefill's logits, then each teacher-forced decode step's, over
-    ``ctx``'s slice (or one device)."""
+def slice_generate(torch, dev, phase, dep, cfg, b, prompt_len, want, gen,
+                   extra, label):
+    """One generate of the deployment ``dep`` on its group's slice (B=``b``,
+    a prompt of ``prompt_len`` seeded ids, N_NEW new, ``extra`` as its
+    ``extra_inputs``), the counts set to 0 before it: fail unless it
+    launched exactly ``want``, its tokens and logprobs are in range and the
+    card's peak is under 80 GB. Returns its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.rl import data as data_lib
+
+    prompt = torch.randint(data_lib.EOS + 1, cfg.vocab_size,
+                           (b, prompt_len), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = dep.generate(prompt, max_new_tokens=N_NEW, temperature=0.7,
+                       extra_inputs=extra).wait(timeout=600)
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    toks, logps = out["tokens"], out["logprobs"]
+    print(f"  {label} (B={b}, prompt {prompt_len}): wall {wall} s, "
+          f"{b * N_NEW / wall} tok/s, launches {got}, peak card memory "
+          f"{peak} B")
+    if got != want:
+        fail(f"phase {phase}: a generate over {dep.wpg.mesh_slice.n_devices}"
+             f" devices launched {got}, want {want}")
+    if tuple(toks.shape) != (b, N_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()) or \
+            not bool(torch.isfinite(logps).all()) or peak >= 80e9:
+        fail(f"phase {phase}: {label}: tokens {tuple(toks.shape)}, "
+             f"logprobs or peak {peak} B")
+    return got
+
+
+def slice_logits(torch, model, params, ctx, prompt, forced, extra=None):
+    """The prefill's logits (``extra``: its inputs beside the tokens), then
+    each teacher-forced decode step's, over ``ctx``'s slice (or one
+    device)."""
     from repro_torch.rl.rollout import _pad_cache
 
     with torch.inference_mode():
-        lg, _, cache = model.forward(params, {"tokens": prompt},
+        lg, _, cache = model.forward(params, {"tokens": prompt,
+                                              **(extra or {})},
                                      return_cache=True, ctx=ctx)
         out = [lg]
         cache = _pad_cache(cache, forced.shape[1])
@@ -4071,11 +4125,15 @@ def slice_logits(torch, model, params, ctx, prompt, forced):
     return out
 
 
-def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8):
+def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8,
+                 replace=(), extra=None, after_init=None):
     """Prefill and teacher-forced decode logits of the seeded model at full
-    width cut to ``layers``, over 2 and over 4 virtual devices of the card,
-    against the same parameters on the card alone, within phase 5's bound;
-    each run's launches exactly n times the one-device run's. For the MoE
+    width cut to ``layers`` (and ``replace``'s other fields), over 2 and
+    over 4 virtual devices of the card, against the same parameters on the
+    card alone, within phase 5's bound (its depth whisper's encoder and
+    decoder layers); each run's launches exactly n times the one-device
+    run's. ``extra``: the prefill's inputs beside the tokens, on the card;
+    ``after_init(params)``: run on the seeded parameters first. For the MoE
     each slice run's expert ids are recorded and the one-device run then
     replays them with its own gates (as phase 20 replays the card's on the
     CPU), so both compute one function; the flips (the one-device run's
@@ -4088,17 +4146,19 @@ def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8):
     from repro_torch.models.layers import make_ctx
     from repro_torch.models.registry import build_model
 
-    cfg = get_config(arch).replace(num_layers=layers)
+    cfg = get_config(arch).replace(num_layers=layers, **dict(replace))
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(1),
                                dev)
+    if after_init:
+        after_init(params)
     prompt, forced = parity_prompt(torch, cfg, b, p, n_new)
     prompt, forced = prompt.to(dev), forced.to(dev)
-    rel_tol = 2.0 ** -6 * math.sqrt(cfg.num_layers / 4)
+    rel_tol = 2.0 ** -6 * math.sqrt((cfg.num_layers + cfg.encoder_layers) / 4)
     print(f"phase {phase}: logits of {arch} at full width cut to {layers} "
-          f"layers over 2 and 4 virtual devices against one, B={b} P={p}, "
-          f"{n_new} teacher-forced decode steps (tolerance {rel_tol} * "
-          f"max|logit|)")
+          f"layers{f', {dict(replace)}' if replace else ''} over 2 and 4 "
+          f"virtual devices against one, B={b} P={p}, {n_new} teacher-forced "
+          f"decode steps (tolerance {rel_tol} * max|logit|)")
     one_launch = None
     for n in (2, 4):
         ctx = make_ctx(make_local_mesh(1, n, devices=[dev] * n))
@@ -4109,13 +4169,15 @@ def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8):
         ops.reset_launches()
         t0 = time.perf_counter()
         with replay.recording(n) if moe_on else contextlib.nullcontext():
-            got = slice_logits(torch, model, prm, ctx, prompt, forced)
+            got = slice_logits(torch, model, prm, ctx, prompt, forced,
+                               extra)
         t_slice = time.perf_counter() - t0
         launched = dict(ops.LAUNCHES)
         ops.reset_launches()
         t0 = time.perf_counter()
         with replay.replaying() if moe_on else contextlib.nullcontext():
-            one = slice_logits(torch, model, params, None, prompt, forced)
+            one = slice_logits(torch, model, params, None, prompt, forced,
+                               extra)
         t_one = time.perf_counter() - t0
         one_launch = dict(ops.LAUNCHES)
         want = {k: n * v for k, v in one_launch.items()}
@@ -4139,16 +4201,20 @@ def slice_parity(torch, dev, phase, arch, layers, b=2, p=64, n_new=8):
     del params
 
 
-def slice_update_parity(torch, dev, phase, arch, layers, n=2):
-    """One update_actor of ``arch`` at full width cut to ``layers`` on a
-    group of ``n`` virtual devices of the card against the same on the
-    card alone, from the same parameters and batch (phase 9's tolerances):
-    loss, pg_loss, kl, aux within 5e-2, grad_norm within 5 %, each leaf's
-    f32 mu within 5e-2 * max|mu|; the slice's launches exactly n times
-    the one device's. For the MoE the one device replays the slice's
-    expert ids (:class:`RouteReplay`, every flip a near-tie): a flipped
-    near-tie moves the router's gradient by several per cent of its
-    largest."""
+def slice_update_parity(torch, dev, phase, arch, layers, n=2, overrides=None,
+                        extra=None):
+    """One update_actor of ``arch`` at full width cut to ``layers`` (or by
+    ``overrides``) on a group of ``n`` virtual devices of the card against
+    the same on the card alone, from the same parameters and batch (phase
+    9's tolerances): loss, pg_loss, kl, aux within 5e-2, grad_norm within
+    5 %, each leaf's f32 mu within 5e-2 * max|mu|; the slice's launches
+    exactly n times the one device's. ``extra(b)``: the batch's inputs
+    beside the tokens. The slice runs first; its metrics and moments are
+    kept on the host and the slice is freed before the one-device run, so
+    one deployment's train state is on the card at a time. For the MoE the
+    one device replays the slice's expert ids (:class:`RouteReplay`, every
+    flip a near-tie): a flipped near-tie moves the router's gradient by
+    several per cent of its largest."""
     from repro_torch.core import api
     from repro_torch.core.state_manager import StateManager
     from repro_torch.core.worker import WorkerProcessGroup
@@ -4158,49 +4224,62 @@ def slice_update_parity(torch, dev, phase, arch, layers, n=2):
     from repro_torch.models import sharding as shd
     from repro_torch.train.optimizer import AdamWConfig
 
-    overrides = (("num_layers", layers),)
+    overrides = overrides or (("num_layers", layers),)
     spec = api.DeploymentSpec(deployment_id=f"parity-{arch}", job_id="P",
                               model_name=arch, role="train",
                               overrides=overrides)
     adamw = AdamWConfig(**TRAIN_LR)
-    one = WorkerProcessGroup(spec, StateManager(
-        mesh_slice=MeshSlice(0, dev)), adamw_cfg=adamw)
     sl = WorkerProcessGroup(spec, StateManager(
         mesh_slice=slice_plane(dev, n).slice_for_group(0)), adamw_cfg=adamw)
-    cfg = one.cfg
-    params = one.model.init_params(
+    cfg = sl.cfg
+    params = sl.model.init_params(
         torch.Generator(device=dev).manual_seed(3), dev)
     # a spread policy, as phase 9's
     params["embed"]["embedding"].mul_(1 / 64)
-    for w in (one, sl):
-        w.execute(api.make_op(spec, api.Op.INIT, params=params))
-    del params
-    batch = seeded_train_batch(
-        lambda b: one.execute(api.make_op(spec, api.Op.FORWARD, b)),
-        PARITY_B, PARITY_S, PARITY_S // 2, 4)
-    print(f"phase {phase}: update_actor of {arch} at full width cut to "
-          f"{layers} layers on {n} virtual devices against one, "
+    sl.execute(api.make_op(spec, api.Op.INIT, params=params))
+    params = common.tree_map(lambda t: t.cpu(), params,
+                             is_leaf=torch.is_tensor)
+    inputs = extra(PARITY_B) if extra else {}
+    batch = dict(seeded_train_batch(
+        lambda b: sl.execute(api.make_op(spec, api.Op.FORWARD,
+                                         dict(b, **inputs))),
+        PARITY_B, PARITY_S, PARITY_S // 2, 4), **inputs)
+    print(f"phase {phase}: update_actor of {arch} at full width, "
+          f"{dict(overrides)}, on {n} virtual devices against one, "
           f"B={PARITY_B} S={PARITY_S}, AdamW {TRAIN_LR}, embedding scaled "
           f"by 1/64")
     out, launched = {}, {}
     replay = RouteReplay(phase, f"update_actor, {n} devices vs one")
     moe_on = cfg.num_experts > 0
-    for where, w, wrap in ((f"{n} devices", sl,
-                            functools.partial(replay.recording, n)),
-                           ("one device", one, replay.replaying)):
+
+    def run(w, where, wrap):
         ops.reset_launches()
         with wrap() if moe_on else contextlib.nullcontext():
             out[where] = w.execute(api.make_op(spec, api.Op.UPDATE_ACTOR,
                                                batch))
         launched[where] = dict(ops.LAUNCHES)
         print(f"  {where}: {w.exec_log[-1][1]} s, launches "
-              f"{launched[where]}; {out[where]}")
+              f"{launched[where]}; {out[where]}; peak card memory "
+              f"{torch.cuda.max_memory_allocated(dev)} B")
+
+    run(sl, f"{n} devices", functools.partial(replay.recording, n))
+    # the slice's moments on the host, the slice freed, then the one
+    # device from the same parameters
+    mun = {k: shd.gather(v, "cpu") for k, v in
+           common.canonical_flat(sl.opt_state().mu).items()}
+    del sl
+    release(torch, dev, f"the {n}-device parity WPG")
+    one = WorkerProcessGroup(spec, StateManager(mesh_slice=MeshSlice(0, dev)),
+                             adamw_cfg=adamw)
+    one.execute(api.make_op(spec, api.Op.INIT, params=params))
+    del params
+    run(one, "one device", replay.replaying)
     if moe_on:
         # the logits phases hold the share of flips. Here a flip of the
         # forward and of its recomputation need only be a near-tie, and
         # the router logits are held within phase 5's bound at this depth
         replay.check(cfg.experts_per_token, share=None,
-                     logit_tol=2.0 ** -6 * math.sqrt(layers / 4))
+                     logit_tol=2.0 ** -6 * math.sqrt(cfg.num_layers / 4))
     want = slice_launches(cfg, "update_actor", 0, n)
     if launched[f"{n} devices"] != want:
         fail(f"phase {phase}: update_actor over {n} devices launched "
@@ -4216,16 +4295,15 @@ def slice_update_parity(torch, dev, phase, arch, layers, n=2):
     if not ref["grad_norm"] > 0:
         fail(f"phase {phase}: zero gradient")
     mu1 = common.canonical_flat(one.opt_state().mu)
-    mun = common.canonical_flat(sl.opt_state().mu)
     for k, want_mu in mu1.items():
-        err = (shd.gather(mun[k]) - want_mu).abs().max().item()
+        err = (mun[k].to(dev) - want_mu).abs().max().item()
         tol = 5e-2 * want_mu.abs().max().item()
         worst = max(worst, err / tol if tol else 0.0)
         if not err <= tol:
             fail(f"phase {phase}: mu {k} over {n} devices: {err} > {tol}")
     print(f"  metrics and f32 mu of {len(mu1)} leaves within phase 9's "
           f"tolerances (worst |diff| / tolerance {worst})")
-    del one, sl
+    del one, mun
 
 
 def slice_train(torch, dev, phase, arch, overrides, jobs, n=TP_SLICE,
@@ -4290,17 +4368,18 @@ def slice_train(torch, dev, phase, arch, overrides, jobs, n=TP_SLICE,
 def slice_kernel_rows(torch, dev, records, rows):
     """K1, K2 and K3 at per-device shapes against their plain versions,
     timed beside their bounds and library calls: ``rows`` holds (kernel,
-    row name, timing function, its arguments, launches on the path)."""
+    row name, timing function, its arguments, launches on the path[, its
+    keyword arguments])."""
     gen = torch.Generator(device=dev).manual_seed(33)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    for name, row, fn, args, launches in rows:
+    for name, row, fn, args, launches, *kw in rows:
         if name == "ssd":
             rec = ssd_timing(torch, gen, dev, *args)
         else:
-            rec = fn(torch, randn, *args)
+            rec = fn(torch, randn, *args, **(kw[0] if kw else {}))
         rec["launches"] = launches
         records[name][row] = rec
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
@@ -4457,6 +4536,216 @@ def ssm_tp_phase(torch, dev, records):
               f"{gens[TP_DEVICES]}; a training job's over its steps "
               f"{train_launches}")
     print(f"  phase 34 sub-steps: {steps}")
+
+
+def whisper_slices(torch, dev, phase):
+    """Two whisper-large-v3 rollout jobs at full width cut to
+    WHISPER_TP_LAYERS encoder and decoder layers, each on its own group of
+    TP_SLICE virtual devices: INIT, a generate each (frames through
+    ``extra_inputs``), then job A migrated live to group 1's slice
+    (``cross_mesh``, every leaf bit-exact, its device ids) and one more
+    generate of A there; every generate's launches exactly TP_SLICE times
+    the one-device path's. Returns the launches of the three generates."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.router import Router
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+
+    overrides = (("num_layers", WHISPER_TP_LAYERS),
+                 ("encoder_layers", WHISPER_TP_LAYERS))
+    cfg = get_config(WHISPER_ARCH).replace(**dict(overrides))
+    want = slice_launches(cfg, "generate", N_NEW, TP_SLICE)
+    print(f"phase {phase}: two {WHISPER_ARCH} jobs at full width, "
+          f"{dict(overrides)}, on two groups of {TP_SLICE} virtual devices "
+          f"(B={B}, prompt {WHISPER_P}, frames {(B, WHISPER_T)}, {N_NEW} "
+          f"new); want {want} a generate")
+    router = Router(device_plane=slice_plane(dev, TP_SLICE, 2))
+    deps = {job: router.deploy(api.DeploymentSpec(
+        deployment_id=f"whisper-{job}", job_id=job, model_name=WHISPER_ARCH,
+        role="rollout", overrides=overrides), group_id=g)
+        for g, job in enumerate("AB")}
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    launched = []
+    with router:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for seed, (job, dep) in enumerate(deps.items(), start=1):
+            dep.init(seed=seed).wait(timeout=900)
+            slice_layout(torch, phase, f"job {job}", dep.wpg,
+                         spec_bytes(cfg))
+        for r, job in enumerate("AB"):
+            launched.append(slice_generate(
+                torch, dev, phase, deps[job], cfg, B, WHISPER_P, want, gen,
+                {"frames": whisper_frames(torch, dev, B, r)},
+                f"job {job} generate"))
+        wa = deps["A"].wpg
+        before = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+                  for k, v in common.canonical_flat(wa.params()).items()}
+        moved = router.reassign_job("A", 1)
+        mig = router.migrate_log[-1]
+        after = {k: [digest(torch, t) for t in shd.local_tensors(v)]
+                 for k, v in common.canonical_flat(wa.params()).items()}
+        print(f"  migration: {moved} B, {mig['seconds']} s, cross_mesh "
+              f"{mig['cross_mesh']}, now on slice "
+              f"{wa.mesh_slice.device_ids()}")
+        if not mig["cross_mesh"] or after != before or \
+                wa.mesh_slice.device_ids() != (2, 3):
+            fail(f"phase {phase}: whisper's cross-slice migration was not "
+                 f"bit-exact")
+        launched.append(slice_generate(
+            torch, dev, phase, deps["A"], cfg, B, WHISPER_P, want, gen,
+            {"frames": whisper_frames(torch, dev, B, 2)},
+            "job A generate on its new slice"))
+        print(f"  card peak {torch.cuda.max_memory_allocated(dev)} B")
+    return launched
+
+
+def write_vision_gates(torch, dev, groups):
+    """An ``after_init``: both gates of each cross layer written to
+    VISION_GATE through ``StateManager.write`` into their replicated
+    leaves on the slice, then every device's copy read back."""
+    from repro_torch.models import sharding as shd
+
+    def write(router, dep):
+        router.state_managers[0].write(dep.wpg.job_prefix,
+                                       vision_gates(torch, groups, dev))
+        for g in ("gate_attn", "gate_mlp"):
+            leaf = dep.wpg.params()["cross_layers"][g]
+            got = [t.tolist() for t in shd.local_tensors(leaf)]
+            print(f"  {g} on each device after the write: {got}")
+            if any(v != VISION_GATE for vals in got for v in vals):
+                fail(f"the gates read back {got}, not {VISION_GATE}")
+
+    return write
+
+
+def xattn_tp_phase(torch, dev, records):
+    """Phase 35: gemma2, whisper and the vlm family over a slice, the card
+    seen as virtual devices. gemma2-27b served on a 2-device group at full
+    width cut to GEMMA_TP_LAYERS (B=16 prompt GEMMA_P, then B=1 prompt
+    GEMMA_LONG_P: the window cuts) and on a 4-device group; two whisper
+    jobs on two 2-device groups, one migrated live (``whisper_slices``),
+    and one generate on a 4-device group; llama-3.2-vision-90b on a
+    4-device group at VISION_LAYERS, its gates written after INIT; logits
+    over 2 and 4 devices against one for each family; update_actor on a
+    slice against one device for gemma2 and whisper; K1 and K2 at the new
+    per-device shapes."""
+    steps = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        print(f"  {name}: {steps[name]} s")
+
+    def frames(r, b):
+        return {"frames": whisper_frames(torch, dev, b, r)}
+
+    def patches(r, b):
+        return {"vision": vision_embeddings(torch, dev, b, r)}
+
+    with step("gemma2 over 2 devices"):
+        router, dep, g2, _ = slice_serve(
+            torch, dev, 35, GEMMA_ARCH, GEMMA_TP_LAYERS, TP_SLICE, GEMMA_P,
+            shapes=[(B, GEMMA_P), (1, GEMMA_LONG_P)])
+        del router, dep
+        release(torch, dev, "the 2-device gemma2 router")
+    with step("gemma2 over 4 devices"):
+        router, dep, _, _ = slice_serve(torch, dev, 35, GEMMA_ARCH,
+                                        GEMMA_TP4_LAYERS, TP_DEVICES, GEMMA_P)
+        del router, dep
+        release(torch, dev, "the 4-device gemma2 router")
+    with step("gemma2 logits over 2 and 4 devices"):
+        # phase 24's reason: the final softcap squeezes the logits whose
+        # bf16 steps the bound measures; it is f32 code both sides share
+        slice_parity(torch, dev, 35, GEMMA_ARCH, GEMMA_PARITY_LAYERS,
+                     replace=(("final_logit_softcap", None),))
+        release(torch, dev, "the gemma2 parity parameters")
+    with step("gemma2 update_actor on a slice against one device"):
+        slice_update_parity(torch, dev, 35, GEMMA_ARCH, XATTN_TRAIN_LAYERS)
+        release(torch, dev, "the gemma2 parity WPGs")
+    with step("whisper jobs on two slices"):
+        w2 = whisper_slices(torch, dev, 35)
+        release(torch, dev, "the whisper slices' router")
+    with step("whisper over 4 devices"):
+        router, dep, _, _ = slice_serve(
+            torch, dev, 35, WHISPER_ARCH, None, TP_DEVICES, WHISPER_P,
+            overrides=(("num_layers", WHISPER_TP4_LAYERS),
+                       ("encoder_layers", WHISPER_TP4_LAYERS)),
+            extras=frames)
+        del router, dep
+        release(torch, dev, "the 4-device whisper router")
+    with step("whisper logits over 2 and 4 devices"):
+        slice_parity(torch, dev, 35, WHISPER_ARCH, WHISPER_PARITY_LAYERS,
+                     replace=(("encoder_layers", WHISPER_PARITY_LAYERS),),
+                     extra=frames(7, 2))
+        release(torch, dev, "the whisper parity parameters")
+    with step("whisper update_actor on a slice against one device"):
+        slice_update_parity(
+            torch, dev, 35, WHISPER_ARCH, None,
+            overrides=(("num_layers", XATTN_TRAIN_LAYERS),
+                       ("encoder_layers", XATTN_TRAIN_LAYERS)),
+            extra=lambda b: frames(9, b))
+        release(torch, dev, "the whisper parity WPGs")
+    groups = VISION_LAYERS // VISION_PERIOD
+    with step("vision over 4 devices"):
+        router, dep, v4, local = slice_serve(
+            torch, dev, 35, VISION_ARCH, VISION_LAYERS, TP_DEVICES, VISION_P,
+            extras=patches,
+            after_init=write_vision_gates(torch, dev, groups))
+        del router, dep
+        release(torch, dev, "the 4-device vision router")
+    with step("vision logits over 2 and 4 devices"):
+        # phase 28's patch embeddings: unit scale, a component each row's
+        # patches share, so the cross path reaches the logits
+        gates = vision_gates(torch, 1, dev)["cross_layers"]
+        slice_parity(torch, dev, 35, VISION_ARCH, VISION_PERIOD,
+                     extra={"vision": vision_embeddings(
+                         torch, dev, 2, 7, scale=1.0, shared=True)},
+                     after_init=lambda p: [p["cross_layers"][g].copy_(t)
+                                           for g, t in gates.items()])
+        release(torch, dev, "the vision parity parameters")
+    with step("K1 and K2 at the per-device shapes"):
+        gh, gkh = GEMMA_H // TP_SLICE, GEMMA_KH // TP_SLICE
+        wh = WHISPER_H // TP_SLICE
+        vh, vkh = VISION_H // TP_DEVICES, VISION_KH // TP_DEVICES
+        gemma = dict(window=GEMMA_WINDOW, softcap=GEMMA_CAP,
+                     scale=GEMMA_SCALE)
+        # the launches of each shape on the paths above: gemma2's B=16
+        # round (every layer K1, every layer and step K2 over 2 devices);
+        # whisper's three generates over 2 devices (a third each of K1's
+        # for the encoder and the cross prefill, half of K2's the cross
+        # decode); vision's over 4 (a cross layer closes each group)
+        vfrac = 1 / VISION_PERIOD
+        slice_kernel_rows(torch, dev, records, (
+            ("flash_attention", "tp_gemma2_prefill", flash_timing,
+             (B, GEMMA_P, gh, gkh, GEMMA_D), g2[0]["flash_attention"],
+             gemma),
+            ("decode_attention", "tp_gemma2_decode", decode_timing,
+             (B, GEMMA_P + N_NEW, GEMMA_P + N_NEW - 1, 500, gh, gkh,
+              GEMMA_D), g2[0]["decode_attention"], gemma),
+            ("flash_attention", "tp_whisper_encoder", flash_timing,
+             (B, WHISPER_T, wh, wh, WHISPER_D),
+             sum(x["flash_attention"] for x in w2) // 3,
+             dict(causal=False)),
+            ("flash_attention", "tp_whisper_cross_prefill", flash_timing,
+             (B, WHISPER_P, wh, wh, WHISPER_D),
+             sum(x["flash_attention"] for x in w2) // 3,
+             dict(t=WHISPER_T, causal=False)),
+            ("decode_attention", "tp_whisper_cross_decode", decode_timing,
+             (B, WHISPER_T, WHISPER_T - 1, 500, wh, wh, WHISPER_D),
+             sum(x["decode_attention"] for x in w2) // 2, {}),
+            ("flash_attention", "tp_vision_cross_prefill", flash_timing,
+             (B, VISION_P, vh, vkh, VISION_D),
+             int(sum(x["flash_attention"] for x in v4) * vfrac),
+             dict(t=VISION_T, causal=False)),
+            ("decode_attention", "tp_vision_cross_decode", decode_timing,
+             (B, VISION_T, VISION_T - 1, 500, vh, vkh, VISION_D),
+             int(sum(x["decode_attention"] for x in v4) * vfrac), {}),
+        ))
+        print(f"  vision's state a device over {TP_DEVICES}: {local} B")
+    print(f"  phase 35 sub-steps: {steps}")
 
 
 def path_launches(records, launches, want, path=None):
@@ -4685,6 +4974,8 @@ def main():
             ep_phase(torch, dev, records)
         with phase_seconds("phase 34"):
             ssm_tp_phase(torch, dev, records)
+        with phase_seconds("phase 35"):
+            xattn_tp_phase(torch, dev, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

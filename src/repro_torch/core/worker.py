@@ -150,9 +150,6 @@ class WorkerProcessGroup:
         if sl is None or sl.n_devices == 1:
             return None
         if self._shard_cache is None or self._shard_cache[0] != sl.mesh:
-            err = shd.tp_unsupported(self.cfg)
-            if err is not None:
-                raise err
             self._shard_cache = (sl.mesh, tstate.shardings(
                 self.model, sl.mesh, shd.named_rules("tp")))
         return self._shard_cache[1]
@@ -282,8 +279,9 @@ class WorkerProcessGroup:
     def _op_generate(self, prompt_tokens, max_new_tokens: int = 32,
                      temperature: float = 1.0, extra_inputs=None):
         """A rollout of ``prompt_tokens``; every tensor or numpy array of
-        ``extra_inputs`` (whisper's ``frames``) goes to the group's device
-        and joins the prefill's batch."""
+        ``extra_inputs`` (whisper's ``frames``, vlm's ``vision``) goes to
+        the group's (first) device and joins the prefill's batch; over a
+        slice the model places it on every device."""
         tokens = torch.as_tensor(prompt_tokens, dtype=torch.long,
                                  device=self.device)
         extra = {k: torch.as_tensor(v, device=self.device)

@@ -9,14 +9,16 @@ Plain functions on tensors; parameters are nested dicts built from the
 ``*_param_specs`` declarations, with the JAX package's layouts and
 canonical keys. With a :class:`Ctx` (a slice's mesh of several devices
 and the sharding rules) :func:`embed_apply`, :func:`attn_apply`,
-:func:`mlp_apply` and :func:`unembed_apply` run tensor-parallel over the
-slice: the parameters are ``models/sharding.py``'s ``Sharded`` leaves,
-an activation is a list of per-device tensors, and each device computes
-with its local tensors (Megatron's layout, which the reference's GSPMD
-derives from the same specs): column-parallel Q/K/V and MLP input
-projections, K1 and K2 at each device's local heads, row-parallel
-output projections summed by an all-reduce, and the tied embedding split
-over the vocabulary. Where the KV heads do not split over the slice, the
+:func:`cross_decode`, :func:`mlp_apply` and :func:`unembed_apply` run
+tensor-parallel over the slice: the parameters are
+``models/sharding.py``'s ``Sharded`` leaves, an activation is a list of
+per-device tensors, and each device computes with its local tensors
+(Megatron's layout, which the reference's GSPMD derives from the same
+specs): column-parallel Q/K/V and MLP input projections (a
+cross-attention's K/V from the key/value input every device holds), K1
+and K2 at each device's local heads, row-parallel output projections
+summed by an all-reduce (whisper's output bias added once, after it),
+and the tied embedding split over the vocabulary. Where the KV heads do not split over the slice, the
 cache is split over head_dim and a decode step takes the reference's
 head-dim-parallel branch (:func:`_hd_parallel_decode_attention`). Dtypes follow ``repro.models.layers``: activations stay in
 the parameters' dtype (bf16), norms and RoPE compute in f32, logits are a
@@ -73,6 +75,13 @@ def constrain(ctx: Optional[Ctx], x, axes):
     if ctx is None:
         return x
     return shd.constrain(x, ctx.mesh, ctx.rules, axes)
+
+
+def on_slice(ctx: Optional[Ctx], x):
+    """An input on every device of the slice (audio's frames, vlm's patch
+    embeddings: their ``batch`` axis goes over ``data``, which is 1 inside
+    a slice), or ``x`` itself without ``ctx``."""
+    return x if ctx is None else [x.to(d) for d in ctx.devices]
 
 
 def add(x, y):
@@ -236,13 +245,13 @@ def attn_apply(p, cfg: ModelConfig, x, *, positions, causal=True, window=0,
     offset on the card and to the port of the reference's XLA branch on
     the CPU. Returns ``(out, kv)``: the cache dict when one was given, else
     the freshly projected (post-rope) {"k", "v"} the prefill uses to build
-    one. With ``ctx``, tensor-parallel self-attention over the slice
-    (:func:`_attn_apply_tp`).
+    one. With ``ctx``, tensor-parallel self- or cross-attention over the
+    slice (:func:`_attn_apply_tp`; ``x`` and ``kv_x`` per device).
     """
     if ctx is not None:
         return _attn_apply_tp(p, cfg, x, positions=positions, causal=causal,
-                              window=window, cache=cache,
-                              cache_pos=cache_pos, ctx=ctx)
+                              window=window, kv_x=kv_x, cache=cache,
+                              cache_pos=cache_pos, use_rope=use_rope, ctx=ctx)
     q, k, v = _project_qkv(p, cfg, x, x if kv_x is None else kv_x)
     scale = cfg.attn_scale if cfg.attn_scale is not None \
         else cfg.resolved_head_dim ** -0.5
@@ -296,10 +305,13 @@ def hd_parallel(cfg: ModelConfig, ctx: Optional[Ctx]) -> bool:
 
 
 def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
-                   positions, causal, window, cache, cache_pos, ctx: Ctx):
-    """:func:`attn_apply` over the slice. ``xs``: the input on every
-    device; ``p``: ``Sharded`` leaves. Each device projects its local
-    query and KV heads (column-parallel, biases split alike) and attends
+                   positions, causal, window, kv_x, cache, cache_pos,
+                   use_rope, ctx: Ctx):
+    """:func:`attn_apply` over the slice. ``xs`` (and ``kv_x``, the
+    cross-attention's key/value input): the input on every device; ``p``:
+    ``Sharded`` leaves. Each device projects its local query heads from
+    ``xs`` and its local KV heads from ``kv_x`` or ``xs``
+    (column-parallel, biases split alike) and attends
     with K1 (prefill) or K2 (decode) at its local heads; its output
     projection by its rows of ``wo`` is a partial sum, and an all-reduce
     gives every device the whole. Where the query heads split and the KV
@@ -323,10 +335,12 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
     for r, dev in enumerate(devs):
         pr = shd.local_tree(p, r)
         pos_r = positions.to(dev)
-        q, k, v = _project_qkv(pr, cfg, xs[r], xs[r])
-        if cfg.rope_theta > 0:
+        q, k, v = _project_qkv(pr, cfg, xs[r],
+                               xs[r] if kv_x is None else kv_x[r])
+        if use_rope and cfg.rope_theta > 0:
             q = rope(q, pos_r, cfg.rope_theta)
-            k = rope(k, pos_r, cfg.rope_theta)
+            if kv_x is None:
+                k = rope(k, pos_r, cfg.rope_theta)
         new_k.append(k)
         new_v.append(v)
         if cache is None:
@@ -339,7 +353,8 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
         else:
             qs.append(q)
     if hd_cache:
-        # the cache keeps each device's head_dim block of every KV head
+        # the cache (or the cross K/V) keeps each device's head_dim block
+        # of every KV head
         new_k = constrain(ctx, new_k, ("cache_batch", "cache_seq",
                                        "kv_heads", "cache_hd"))
         new_v = constrain(ctx, new_v, ("cache_batch", "cache_seq",
@@ -454,13 +469,17 @@ def _hd_parallel_decode_attention(q, k, v, *, q_positions, kv_mask, window,
     return [_hd_softmax_pv(sc, vr, **opts) for sc, vr in zip(scores, v)]
 
 
-def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
+def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v,
+                 ctx: Optional[Ctx] = None):
     """A decode step's cross-attention over precomputed K/V (B, T, K, D),
     as whisper's and llama-3.2-vision's references compute it
     (``repro/models/whisper.py:104-115``, ``vision.py:70-77``): q alone is
     projected, unrotated, scaled by head_dim^-1/2 (not ``cfg.attn_scale``),
     over every key, non-causal and with no cap: K2 at ``pos = T - 1``.
-    h: (B, 1, d_model)."""
+    h: (B, 1, d_model). With ``ctx``, over the slice
+    (:func:`_cross_decode_tp`)."""
+    if ctx is not None:
+        return _cross_decode_tp(p, cfg, h, cross_k, cross_v, ctx)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
@@ -468,6 +487,45 @@ def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v):
                                 cross_k.shape[1] - 1,
                                 scale=cfg.resolved_head_dim ** -0.5)
     return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
+
+
+def _cross_decode_tp(p, cfg: ModelConfig, hs, cross_k, cross_v, ctx: Ctx):
+    """:func:`cross_decode` over the slice. ``hs``: the input on every
+    device; ``cross_k``, ``cross_v``: per-device lists of the layer's
+    blocks of the cross K/V. Each device projects its local query heads
+    and runs K2 over its block at ``pos = T - 1``; its rows of ``wo`` give
+    a partial sum, and an all-reduce completes it. Where the cross K/V
+    split over head_dim (the KV heads do not split), the head-dim-parallel
+    route of the self decode (:func:`_hd_decode_tp`), every key live."""
+    devs = ctx.devices
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    g = h // cfg.num_kv_heads
+    q_split, kv_split = shd.splits(p["wq"], 1), shd.splits(p["wk"], 1)
+    hl = h // ctx.n if q_split else h
+    scale, t = hd ** -0.5, cross_k[0].shape[1]
+    qs = []
+    for r, hr in enumerate(hs):
+        pr = shd.local_tree(p, r)
+        q = torch.einsum("bsd,dhk->bshk", hr, pr["wq"])
+        qs.append(q + pr["bq"] if cfg.qkv_bias else q)
+    if hd_parallel(cfg, ctx):
+        # the last query position sees every key: the mask is all live
+        positions = torch.full((hs[0].shape[0], 1), t - 1, dtype=torch.int32,
+                               device=hs[0].device)
+        outs = _hd_decode_tp(p, cfg, qs, {"k": cross_k, "v": cross_v},
+                             positions=positions, window=0, softcap=None,
+                             scale=scale, cache_pos=t - 1, q_split=q_split,
+                             hl=hl, ctx=ctx)
+        return shd.all_reduce(outs, devs)
+    outs = []
+    for r, q in enumerate(qs):
+        ck, cv = cross_k[r], cross_v[r]
+        if q_split and not kv_split:
+            ck, cv = _kv_for_heads(ck, r, hl, g), _kv_for_heads(cv, r, hl, g)
+        out = kops.decode_attention(q[:, 0], ck, cv, t - 1, scale=scale)
+        outs.append(torch.einsum("bshk,hkd->bsd", out[:, None],
+                                 p["wo"].locals[r]))
+    return shd.all_reduce(outs, devs) if q_split else outs
 
 
 # --------------------------------------------------------------------- mlp
@@ -496,21 +554,31 @@ def _act(cfg: ModelConfig, x):
     return F.silu(x)
 
 
+def _mlp_product(p, cfg: ModelConfig, x):
+    """The MLP up to its output projection, whisper's output bias left
+    out."""
+    if "wi" in p:
+        return _act(cfg, x @ p["wi"] + p["bi"]) @ p["wo"]
+    return (_act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
 def mlp_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     """Gated MLP: act(x W_gate) * (x W_up), then W_o; or, with ``wi``,
     whisper's plain one: act(x W_i + b_i) W_o + b_o, each bias added to
-    the bf16 product as the reference adds it. With ``ctx`` (the gated
-    MLP), ``x`` is per device: column-parallel W_gate / W_up, row-parallel
-    W_o summed by an all-reduce (or whole on every device where ``mlp``
-    does not split)."""
+    the bf16 product as the reference adds it. With ``ctx``, ``x`` is per
+    device: column-parallel W_gate / W_up (W_i and b_i), row-parallel W_o
+    summed by an all-reduce (or whole on every device where ``mlp`` does
+    not split), then the replicated b_o added once, on every device."""
     if ctx is not None:
-        outs = [mlp_apply(shd.local_tree(p, r), cfg, xr)
+        outs = [_mlp_product(shd.local_tree(p, r), cfg, xr)
                 for r, xr in enumerate(x)]
-        return shd.all_reduce(outs, ctx.devices) if shd.splits(p["wo"], 0) \
-            else outs
-    if "wi" in p:
-        return _act(cfg, x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
-    return (_act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+        if shd.splits(p["wo"], 0):
+            outs = shd.all_reduce(outs, ctx.devices)
+        if "bo" in p:
+            outs = [o + b for o, b in zip(outs, p["bo"].locals)]
+        return outs
+    out = _mlp_product(p, cfg, x)
+    return out + p["bo"] if "bo" in p else out
 
 
 # -------------------------------------------------------------- embeddings

@@ -14,10 +14,9 @@ for vlm, as in ``repro.models.registry``; an RLVR train batch also
 carries ``behavior_logprobs``, ``advantages`` and ``loss_mask``. A cache is
 its specs' tensors and ``pos``, a host int (the reference's int32 leaf).
 ``abstract_*`` give ``meta`` tensors: the dry run's inputs. ``ctx`` (a
-slice of several devices, ``layers.Ctx``) runs the dense, MoE, ssm and
-hybrid families over the slice; the vlm and audio families and gemma2
-raise ``NotImplementedError`` naming their queued part of ROADMAP.md's
-Queue 1 item 5.
+slice of several devices, ``layers.Ctx``) runs every family over the
+slice; audio's frames and vlm's patch embeddings go to every device of
+it.
 """
 from __future__ import annotations
 
@@ -27,8 +26,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig, ShapeSpec
-from repro_torch.models import (common, hybrid, mamba2, sharding,
-                                transformer, vision, whisper)
+from repro_torch.models import (common, hybrid, mamba2, transformer, vision,
+                                whisper)
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
                    "hybrid": hybrid, "audio": whisper, "vlm": vision}
@@ -90,24 +89,15 @@ class Model:
             return (batch["vision"],)
         return ()
 
-    def _ctx_kwargs(self, ctx) -> Dict[str, Any]:
-        if ctx is None:
-            return {}
-        err = sharding.tp_unsupported(self.cfg)
-        if err is not None:
-            raise err
-        return {"ctx": ctx}
-
     def forward(self, params, batch: Dict[str, Any],
                 return_cache: bool = False, ctx=None):
         return self.mod.forward(params, self.cfg, batch["tokens"],
                                 *self._extras(batch),
-                                return_cache=return_cache,
-                                **self._ctx_kwargs(ctx))
+                                return_cache=return_cache, ctx=ctx)
 
     def decode_step(self, params, cache, batch: Dict[str, Any], ctx=None):
         return self.mod.decode_step(params, self.cfg, cache, batch["tokens"],
-                                    **self._ctx_kwargs(ctx))
+                                    ctx=ctx)
 
     def cache_specs(self, batch: int, max_len: int):
         return self.mod.cache_specs(self.cfg, batch, max_len)

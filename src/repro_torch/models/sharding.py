@@ -206,7 +206,6 @@ def tree_partition_specs(axes_tree, mesh, rules: Rules, shapes_tree=None):
 
 # the queued parts of ROADMAP.md's Queue 1 item 5 (multi-device execution)
 PARTS = {
-    2: "the vlm family, gemma2 and whisper",
     4: "process-mode groups of several devices",
     5: "the dry run's meshes of many devices",
     6: "mesh_bench.py",
@@ -222,10 +221,8 @@ def not_ported(what: str, part: int) -> NotImplementedError:
 
 def tp_unsupported(cfg) -> Optional[NotImplementedError]:
     """The error for a config whose family does not run over a slice of
-    several devices yet (part 2: vlm, audio and gemma2's post-norms), or
-    None (the dense, MoE, ssm and hybrid families)."""
-    if cfg.family in ("vlm", "audio") or cfg.post_norms:
-        return not_ported(f"{cfg.name} on a group of several devices", 2)
+    several devices: None for every config (the dense, MoE, ssm, hybrid,
+    audio and vlm families and gemma2's post-norms all run there)."""
     return None
 
 
@@ -401,6 +398,21 @@ def write_layer(entry, index, value) -> None:
         return
     for loc, v in zip(entry.locals, value):
         loc[index] = v
+
+
+def stack(blocks, ctx=None, sp=None):
+    """Per-layer values stacked on a new leading axis: ``torch.stack`` of
+    tensors; over a slice (``ctx``; each block a per-device list), each
+    device's blocks stacked, as a list, or with ``sp`` (the stacked
+    value's ``common.spec``) as a :class:`Sharded` in the layout its
+    logical axes resolve to."""
+    if ctx is None:
+        return torch.stack(blocks)
+    locs = [torch.stack([b[r] for b in blocks]) for r in range(len(blocks[0]))]
+    if sp is None:
+        return locs
+    return Sharded(locs, NamedSharding(ctx.mesh, resolve(
+        sp.axes, ctx.mesh, ctx.rules, shape=sp.shape)))
 
 
 def layer_view(entry, index):

@@ -14,7 +14,8 @@ global one), as the reference scans them; the training forward
 rematerialises each group under ``cfg.remat`` (``layers.remat``).
 
 With a ``ctx`` (``layers.Ctx``: a slice of several devices) the dense
-and MoE families run tensor-parallel: the parameters are ``Sharded``
+and MoE families (gemma2's post-norms on the all-reduced outputs) run
+tensor-parallel: the parameters are ``Sharded``
 leaves, the residual stream is one tensor per device, and the cache's k
 and v are ``Sharded`` in the layout of :func:`cache_specs`' logical axes
 under the rules (split over KV heads, else over head_dim, ``cache_hd``).
@@ -111,8 +112,12 @@ def _layer_apply_tp(p, cfg: ModelConfig, xs, *, positions, window, cache,
     a, kv = attn_apply(p["attn"], cfg, h, positions=positions, causal=True,
                        window=window, cache=cache, cache_pos=cache_pos,
                        ctx=ctx)
+    if cfg.post_norms:
+        a = apply_norm(p["ln1_post"], a, cfg, ctx)
     xs = add(xs, a)
     m, aux = _ffn(p, cfg, apply_norm(p["ln2"], xs, cfg, ctx), ctx)
+    if cfg.post_norms:
+        m = apply_norm(p["ln2_post"], m, cfg, ctx)
     return add(xs, m), aux, kv
 
 

@@ -18,14 +18,28 @@ The cache is ``{"k", "v": (L, B, T, K, D), "cross_k", "cross_v": (L, B,
 encoder_seq, K, D), "pos": int}``: ``pos`` stays a host int, the
 self-attention cache is written in place, and the cross K/V are computed
 once by the prefill and only read afterwards.
+
+With a ``ctx`` (``layers.Ctx``: a slice of several devices) every
+function runs tensor-parallel, as the reference's GSPMD under the same
+specs: the frames, the positions and the residual streams are on every
+device, K1 and K2 run at each device's local heads (the encoder, the
+cross prefill and the cross decode too), the biased MLP is column- then
+row-parallel, and the caches, cross K/V included, are ``Sharded`` in the
+layout of :func:`cache_specs`' logical axes. ``ctx=None`` is the
+one-device path.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import spec, stack_specs, unstack
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import spec, stack_specs
 from repro_torch.models.layers import (
+    Ctx,
+    add,
     apply_norm,
     attn_apply,
     attn_param_specs,
@@ -35,6 +49,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_param_specs,
     norm_param_specs,
+    on_slice,
     remat,
     sinusoidal_positions,
     unembed_apply,
@@ -80,86 +95,94 @@ def _positions(b: int, s: int, device):
 
 def _add_positions(x, positions, cfg: ModelConfig):
     """x plus the f32 sinusoid cast to x's dtype, as the reference adds
-    it."""
+    it; of a per-device list, on every device."""
+    if isinstance(x, list):
+        return [_add_positions(xr, positions.to(xr.device), cfg) for xr in x]
     return x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
 
 # ----------------------------------------------------------------- encoder
 
-def enc_layer_apply(p, cfg: ModelConfig, x, positions):
+def enc_layer_apply(p, cfg: ModelConfig, x, positions,
+                    ctx: Optional[Ctx] = None):
     """One encoder layer: non-causal self-attention, then the MLP."""
-    h = apply_norm(p["ln1"], x, cfg)
+    h = apply_norm(p["ln1"], x, cfg, ctx)
     a, _ = attn_apply(p["attn"], cfg, h, positions=positions, causal=False,
-                      use_rope=False)
-    x = x + a
-    return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], x, cfg))
+                      use_rope=False, ctx=ctx)
+    x = add(x, a)
+    return add(x, mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], x, cfg, ctx),
+                            ctx))
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, ctx: Optional[Ctx] = None):
     """frames: (B, T_enc, d_model) stubbed frame embeddings -> (B, T_enc,
-    d_model). Each layer runs under ``remat``."""
+    d_model), per device with ``ctx``. Each layer runs under ``remat``."""
     b, t, _ = frames.shape
     positions = _positions(b, t, frames.device)
-    x = _add_positions(frames, positions, cfg)
-    for layer in unstack(params["enc_layers"]):
-        x = remat(cfg, enc_layer_apply, layer, cfg, x, positions)
-    return apply_norm(params["enc_ln_f"], x, cfg)
+    x = on_slice(ctx, _add_positions(frames, positions, cfg))
+    for layer in shd.unstack(params["enc_layers"]):
+        x = remat(cfg, enc_layer_apply, layer, cfg, x, positions, ctx)
+    return apply_norm(params["enc_ln_f"], x, cfg, ctx)
 
 
 # ----------------------------------------------------------------- decoder
 
-def dec_layer_apply(p, cfg: ModelConfig, x, enc_out, positions, cache=None,
-                    cache_pos=None, cross_kv=None):
+def dec_layer_apply(p, cfg: ModelConfig, x, enc_out, positions,
+                    ctx: Optional[Ctx] = None, cache=None, cache_pos=None,
+                    cross_kv=None):
     """One decoder layer: causal self-attention (written into ``cache`` at
     ``cache_pos`` when one is given), cross-attention over ``enc_out`` (the
     prefill) or the precomputed ``cross_kv`` (a decode step), then the
     MLP. Returns (x, self k/v or the cache, cross k/v)."""
-    h = apply_norm(p["ln1"], x, cfg)
+    h = apply_norm(p["ln1"], x, cfg, ctx)
     a, kv = attn_apply(p["self_attn"], cfg, h, positions=positions,
                        causal=True, cache=cache, cache_pos=cache_pos,
-                       use_rope=False)
-    x = x + a
-    h = apply_norm(p["ln2"], x, cfg)
+                       use_rope=False, ctx=ctx)
+    x = add(x, a)
+    h = apply_norm(p["ln2"], x, cfg, ctx)
     if cross_kv is not None:
         c = cross_decode(p["cross_attn"], cfg, h, cross_kv["k"],
-                         cross_kv["v"])
+                         cross_kv["v"], ctx)
         ckv = cross_kv
     else:
         c, ckv = attn_apply(p["cross_attn"], cfg, h, positions=positions,
-                            kv_x=enc_out, causal=False, use_rope=False)
-    x = x + c
-    return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln3"], x, cfg)), kv, \
-        ckv
+                            kv_x=enc_out, causal=False, use_rope=False,
+                            ctx=ctx)
+    x = add(x, c)
+    return add(x, mlp_apply(p["mlp"], cfg, apply_norm(p["ln3"], x, cfg, ctx),
+                            ctx)), kv, ckv
 
 
 def forward(params, cfg: ModelConfig, tokens, frames,
-            return_cache: bool = False):
+            return_cache: bool = False, ctx: Optional[Ctx] = None):
     """Teacher-forcing forward. tokens: (B, S); frames: (B, T_enc,
     d_model) -> (logits, aux 0[, cache]). Each encoder and decoder layer
     runs under ``remat``, which runs it directly where no gradient is
-    wanted (the prefill that builds a cache)."""
+    wanted (the prefill that builds a cache). With ``ctx``,
+    tensor-parallel over the slice; the logits come back whole on its
+    first device."""
     b, s = tokens.shape
-    enc_out = encode(params, cfg, frames)
+    enc_out = encode(params, cfg, frames, ctx)
     positions = _positions(b, s, tokens.device)
-    x = _add_positions(embed_apply(params["embed"], cfg, tokens), positions,
-                       cfg)
-    ks, vs, cks, cvs = [], [], [], []
-    for layer in unstack(params["layers"]):
+    x = _add_positions(embed_apply(params["embed"], cfg, tokens, ctx),
+                       positions, cfg)
+    kvs = []
+    for layer in shd.unstack(params["layers"]):
         x, kv, ckv = remat(cfg, dec_layer_apply, layer, cfg, x, enc_out,
-                           positions)
+                           positions, ctx)
         if return_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-            cks.append(ckv["k"])
-            cvs.append(ckv["v"])
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+            kvs.append((kv, ckv))
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if return_cache:
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "cross_k": torch.stack(cks), "cross_v": torch.stack(cvs),
-                 "pos": s}
-        return logits, aux, cache
+        specs = cache_specs(cfg, b, s)
+        cache = {name: shd.stack([kv[i][part] for kv in kvs], ctx,
+                                 specs[name])
+                 for name, i, part in (("k", 0, "k"), ("v", 0, "v"),
+                                       ("cross_k", 1, "k"),
+                                       ("cross_v", 1, "v"))}
+        return logits, aux, dict(cache, pos=s)
     return logits, aux
 
 
@@ -174,23 +197,27 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     return {"k": kv, "v": kv, "cross_k": ckv, "cross_v": ckv}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens):
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                ctx: Optional[Ctx] = None):
     """One decode step. tokens: (B, 1); the self-attention cache is
     written in place at ``cache["pos"]``, the cross K/V only read. Returns
-    (logits, cache with pos + 1)."""
+    (logits, cache with pos + 1). With ``ctx``, tensor-parallel over the
+    slice, the cache's locals written in place."""
     b = tokens.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=tokens.device)
-    x = _add_positions(embed_apply(params["embed"], cfg, tokens), positions,
-                       cfg)
-    for i, layer in enumerate(unstack(params["layers"])):
+    x = _add_positions(embed_apply(params["embed"], cfg, tokens, ctx),
+                       positions, cfg)
+    for i, layer in enumerate(shd.unstack(params["layers"])):
         x, _, _ = dec_layer_apply(
-            layer, cfg, x, None, positions,
-            cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos,
-            cross_kv={"k": cache["cross_k"][i], "v": cache["cross_v"][i]})
-    x = apply_norm(params["ln_f"], x, cfg)
-    logits = unembed_apply(params["embed"], cfg, x)
+            layer, cfg, x, None, positions, ctx,
+            cache={n: shd.layer_view(cache[n], i) for n in ("k", "v")},
+            cache_pos=pos,
+            cross_kv={n: shd.layer_view(cache[f"cross_{n}"], i)
+                      for n in ("k", "v")})
+    x = apply_norm(params["ln_f"], x, cfg, ctx)
+    logits = unembed_apply(params["embed"], cfg, x, ctx)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "cross_k": cache["cross_k"],
                     "cross_v": cache["cross_v"], "pos": pos + 1}

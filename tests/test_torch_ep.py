@@ -403,12 +403,13 @@ def test_update_actor_over_a_slice_matches_one_device(n, f32_port):
 
 # --------------------------------------------- migration and weight sync
 
-def migrate_and_sync_check(arch):
+def migrate_and_sync_check(arch, extra=None):
     """A train deployment INITed on group 0's 2-device slice, migrated
     live to group 1's (a resharding migration: every leaf bit-exact, laid
     out on the new slice), then SYNC_WEIGHTS into a rollout deployment on
     group 0's slice, bit-exact in the target's own layout; a later update
-    leaves the synced weights as they were."""
+    (its batch joined by ``extra``, the family's other inputs) leaves the
+    synced weights as they were."""
     plane = DevicePlane(devices=[CPU] * 4, slice_size=2)
     router = Router(device_plane=plane, wpg_factory=functools.partial(
         WorkerProcessGroup, adamw_cfg=topt.AdamWConfig(**FAST_LR)))
@@ -438,7 +439,8 @@ def migrate_and_sync_check(arch):
         assert dst[k].sharding == want[k], k
         assert torch.equal(shd.gather(dst[k]), shd.gather(v)), k
     synced = {k: shd.gather(v).clone() for k, v in dst.items()}
-    upd = train.update_actor(train_batch(2, reduced_config(arch).vocab_size))
+    upd = train.update_actor(dict(
+        train_batch(2, reduced_config(arch).vocab_size), **(extra or {})))
     router.drain()
     assert np.isfinite(upd.result()["loss"])
     for k, v in common.canonical_flat(roll.wpg.params()).items():
