@@ -126,10 +126,10 @@ Phases (any failure raises and the process exits non-zero):
     state to DISK and back, one ``host_capacity`` eviction to DISK, then
     ``checkpoint_all`` -> ``fail_node`` -> ``restore_all``, each bit-exact
     on the card; the temporary files are removed at the end;
-18. the process plane: phase 8's two jobs, cut to 6 of the 24 layers,
+18. the process plane: phase 8's two jobs, cut to 4 of the 24 layers,
     on two groups through
     ``PlexCluster.run(concurrent=True)``, first in thread mode (one step
-    each, exact launches and bills), then with
+    each, exact launches and bills), then (one step each) with
     each group's WPGs in a spawned child process on the same card
     (``process_plane=True``): every op runs in its group's child, with
     exact K1 and K2 launches read there, every op billed, both wall times
@@ -228,7 +228,7 @@ Phases (any failure raises and the process exits non-zero):
 32. node groups of several devices: the one card seen as four virtual
     devices (``DevicePlane(devices=[cuda:0] * 4, slice_size=2)``), two
     qwen2-0.5b GRPO jobs at full width cut to 6 of 24 layers, one on
-    each 2-device group, two steps each through ``PlexCluster.run`` (B=16,
+    each 2-device group, one step each through ``PlexCluster.run`` (B=16,
     prompt 128, 64 new), tensor-parallel: K1 and K2 on each device at its
     7 local query heads and 1 KV head (exactly 12 K1 and 12 x 64 K2 a
     generate, 24 K1 an update_actor), every op billed; K1 and K2 checked
@@ -281,7 +281,31 @@ Phases (any failure raises and the process exits non-zero):
     generate's launches exactly n times the one-device path's; logits
     over 2 and 4 devices against one for each family; update_actor on a
     slice against one device for gemma2 and whisper; K1 and K2 at the new
-    per-device shapes against their plain versions and timed.
+    per-device shapes against their plain versions and timed;
+36. process-mode groups of several devices: the card as 4 virtual devices
+    carved into two 2-device slices, each group in its own spawned child
+    that sees its slice (``PlexCluster(n_groups=2, devices_per_group=2,
+    process_plane=True)``): two qwen2-0.5b GRPO jobs at full width cut to
+    4 of 24 layers, one step each at phase 8's shapes through
+    ``run(interleave=True, concurrent=True)``, each op's K1 and K2
+    launches read in its child exactly twice the one-device path's (7
+    query heads and 1 KV head a device), none in the parent, every op
+    billed, every entry on its slice; K1 and K2 at those per-device
+    shapes (B=16: the prefill at S=T=64, the training forward at S=T=128,
+    the decode's last step at T=128) against their plain versions and
+    timed, each row with the children's launches at its shape; a greedy
+    generate and the FORWARD of
+    its tokens in a child at 2 layers, B=2 prompt 64, against thread mode
+    on the same slice (tokens equal, logprobs within phase 5's bound); job
+    A moved live into the other child (``cross_mesh`` True, every entry's
+    gathered bits as before, in the target slice's layout; its seconds,
+    bytes and route) and generating there; a cross-process SYNC_WEIGHTS
+    into target shardings, bit-exact in the target child; a PPO job
+    (actor and critic) on a 2-device group, one step, its gradients
+    across the pipe; ``OPTIM_STEP(host=True)`` over the slice in the child
+    and in thread mode against one device's host step on the same gathered
+    gradients (rtol 2^-7 bf16, 1e-5 f32), replicas alike, then a prefetch
+    and a generate; the children's CUDA contexts released at the end.
 
 Each phase prints its seconds, and its start to the standard error. The
 earlier paths' depth is cut where a phase's time would otherwise crowd the
@@ -295,6 +319,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -455,9 +480,12 @@ TRAIN = dict(batch_size=16, group_size=4, prompt_len=64, max_new_tokens=64,
              seq_len=128, steps=2)
 TRAIN_OVERRIDES = ()
 PPO_LAYERS = 6              # phase 16's jobs, a quarter of qwen2-0.5b's depth
-# phase 18's jobs: phase 8's at full width, cut to 6 of the 24 layers (a
-# generate still lasts long enough to be caught and killed mid-way)
-PROC_OVERRIDES = (("num_layers", 6),)
+# phase 18's jobs: phase 8's at full width, cut to 4 of the 24 layers (a
+# generate still lasts long enough to be caught and killed mid-way),
+# PROC_STEPS steps each in process mode; cut from 6 layers and 2 steps to
+# keep the whole run well inside its time limit
+PROC_OVERRIDES = (("num_layers", 4),)
+PROC_STEPS = 1
 # the training parity phases (9, 15, 22) at B=2: their CPU sides are the
 # script's slowest (zamba2's 38–42 s at B=4, the others 12–13 s)
 PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 128
@@ -493,7 +521,9 @@ COST_SSM_LAYERS = 4
 # groups of TP_SLICE; the jobs generate at the serving path's prompt
 TP_DEVICES, TP_SLICE = 4, 2
 TP_LAYERS = 6               # phase 32's depth, a quarter of qwen2-0.5b's
-TP_TRAIN = dict(TRAIN, prompt_len=P, seq_len=P + TRAIN["max_new_tokens"])
+# one step a job (cut from two, for the whole run's time)
+TP_TRAIN = dict(TRAIN, prompt_len=P, seq_len=P + TRAIN["max_new_tokens"],
+                steps=1)
 # phases 33-34: the MoE, ssm and hybrid families over groups of TP_SLICE
 # (and one generate over TP_DEVICES) virtual devices. Qwen3-30B-A3B served
 # at full width cut to EP_LAYERS of 48 layers (1.25 GB of weights a
@@ -516,6 +546,14 @@ HYB_TP_LAYERS = 15
 GEMMA_TP_LAYERS, GEMMA_TP4_LAYERS = 8, 4
 WHISPER_TP_LAYERS, WHISPER_TP4_LAYERS = 8, 4
 XATTN_TRAIN_LAYERS = 2
+# phase 36: process-mode groups of TP_SLICE virtual devices, each in its
+# own child; phase 8's jobs at full width cut to 4 of 24 layers (1.96 GB of
+# train state a job), one step each; the logits check at 2 layers, B=2,
+# prompt 64, greedy, 8 new
+PROC_TP_LAYERS = 4
+PROC_TP_OVERRIDES = (("num_layers", PROC_TP_LAYERS),)
+PROC_TP_PARITY_LAYERS, PROC_TP_PARITY_NEW = 2, 8
+PROC_TP_PARITY_OVERRIDES = (("num_layers", PROC_TP_PARITY_LAYERS),)
 PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
              "decode_attention": (11_010_048, 1_630_208),
              "ssd": (53_812_920_320, 216_531_264)}
@@ -2294,10 +2332,11 @@ def proc_phase(torch, dev, records, tmp):
     from repro_torch.launch.mesh import host_shm_bytes
     from repro_torch.launch.proc_plane import StateManagerProxy
 
-    steps, n_new = TRAIN["steps"], TRAIN["max_new_tokens"]
+    steps, n_new = PROC_STEPS, TRAIN["max_new_tokens"]
     cfg = proc_config()
     print(f"phase 18: the process plane, {ARCH} at full width, overrides "
-          f"{dict(PROC_OVERRIDES)}, jobs A and B on groups 0 and 1 ({TRAIN}) through "
+          f"{dict(PROC_OVERRIDES)}, jobs A and B on groups 0 and 1 ({TRAIN}, "
+          f"{steps} step(s) a job in process mode) through "
           f"PlexCluster.run(interleave=True, concurrent=True); card "
           f"{card_line()}; /dev/shm free {host_shm_bytes()} B; "
           f"shm_available() {shmt.shm_available()}")
@@ -2322,7 +2361,7 @@ def proc_phase(torch, dev, records, tmp):
 
     used0 = mem_used(torch, dev)
     parent0 = torch.cuda.memory_reserved(dev)
-    cluster, ctls = proc_workload(True)
+    cluster, ctls = proc_workload(True, steps=steps)
     router = cluster.router
     gps = router.group_procs
     print(f"  process mode: children {({g: gp.pid() for g, gp in gps.items()})}"
@@ -4748,6 +4787,462 @@ def xattn_tp_phase(torch, dev, records):
     print(f"  phase 35 sub-steps: {steps}")
 
 
+# ----------------------- phase 36: process-mode groups of several devices
+
+def child_layouts(gp, prefix, digests=False):
+    """Where each of a job's entries lies in its child (tier, shape, spec,
+    device ids, local devices, replicas alike) and, with ``digests``, a
+    digest of each one's gathered bits computed there (its seconds
+    printed)."""
+    out = gp.call("probe", {"layouts": prefix, "digests": digests})[0]
+    if digests:
+        print(f"  digests of {len(out['layouts'])} entries of {prefix} in "
+              f"group {gp.group_id}'s child: {out['layouts_seconds']} s")
+    return out["layouts"]
+
+
+def host_step_close(torch, got, want):
+    """tests/test_torch_ppo.py's tolerances for the host step: rtol 2^-7
+    for a bf16 leaf, rtol 1e-5 and atol 1e-7 for f32. Returns the worst
+    |diff| over its bound."""
+    rtol, atol = (2.0 ** -7, 0.0) if want.dtype == torch.bfloat16 \
+        else (1e-5, 1e-7)
+    g, w = got.float(), want.float()
+    bound = atol + rtol * w.abs()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((diff > bound).any()):
+        return math.inf
+    return float((diff / bound.clamp_min(1e-30)).max())
+
+
+def proc_tp_phase(torch, dev, records):
+    """Phase 36: process-mode node groups of several devices. The card as
+    TP_DEVICES virtual devices carved into two slices of TP_SLICE, each
+    group in its own spawned child, which sees the slice's devices: two
+    qwen2-0.5b GRPO jobs at full width cut to PROC_TP_LAYERS, one step each
+    (K1 and K2 at each device's local heads, counted in the children, and
+    checked and timed here at those shapes), a greedy generate in a child against thread mode on the same slice, job
+    A moved live into the other child (resharded), a cross-process
+    SYNC_WEIGHTS into target shardings, a PPO job's step (its gradients
+    across the pipe) and OPTIM_STEP(host=True) over the slice in the child
+    and in thread mode against one device's host step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.cluster import PlexCluster
+    from repro_torch.core.controller import JobConfig
+    from repro_torch.core.router import Router
+    from repro_torch.core.state_manager import StateManager, Tier
+    from repro_torch.core.worker import WorkerProcessGroup
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MeshSlice, devices_for_slice
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import data as data_lib
+    from repro_torch.train import train_state as tstate
+    from repro_torch.train.optimizer import AdamWConfig
+
+    n, n_new = TP_SLICE, TRAIN["max_new_tokens"]
+    cut = PROC_TP_OVERRIDES
+    cfg = get_config(ARCH).replace(**dict(cut))
+    train = dict(TRAIN, steps=1)
+    want = {op: slice_launches(cfg, op, n_new, n) for op in
+            ("init", "generate", "forward", "forward_backward",
+             "update_actor", "optim_step", "sync_weights")}
+    gen = torch.Generator().manual_seed(36)
+    steps = {}
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        print(f"  {name}: {steps[name]} s")
+
+    def run(fut):
+        router.drain()
+        return fut.result()
+
+    def prompts(b, p):
+        return torch.randint(data_lib.EOS + 1, cfg.vocab_size, (b, p),
+                             generator=gen)
+
+    def counted_op(gp, fut_fn, label, want_launches):
+        """One op through the router, the child's counts set to 0 before
+        and read after."""
+        gp.call("probe", {"reset": True})
+        out = run(fut_fn())
+        got = gp.call("probe")[0]["launches"]
+        print(f"  {label}: launches {got} in group {gp.group_id}'s child")
+        if got != want_launches:
+            fail(f"phase 36: {label} launched {got}, want {want_launches}")
+        return out, got
+
+    used0 = mem_used(torch, dev)
+    print(f"phase 36: process-mode groups of {n} virtual devices of {dev}, "
+          f"each group in its own child: {ARCH} at full width, {dict(cut)}, "
+          f"jobs A and B ({train}); card {card_line()}; card memory in use "
+          f"{used0} B")
+    with step("spawn the two children"):
+        cluster = PlexCluster(n_groups=2, devices_per_group=n,
+                              process_plane=True,
+                              device_plane=slice_plane(dev, n, 2))
+        router = cluster.router
+        gps = router.group_procs
+        # both children load torch and build their slice at once (a
+        # deployment's creation would load them one child after the other)
+        with concurrent.futures.ThreadPoolExecutor(len(gps)) as pool:
+            list(pool.map(lambda gp: gp.call("probe", {"layouts": "-"}),
+                          gps.values()))
+    slices = {g: router.state_managers[g].mesh_slice for g in gps}
+    # each child's view of its slice: cuda:0 n times on the one card
+    views = {g: devices_for_slice(sl) for g, sl in slices.items()}
+    print(f"  children {({g: gp.pid() for g, gp in gps.items()})} (parent "
+          f"{os.getpid()}): devices "
+          f"{({g: gp.devices for g, gp in gps.items()})}, ids "
+          f"{({g: gp.device_ids for g, gp in gps.items()})}, env "
+          f"{({g: gp.env for g, gp in gps.items()})}")
+    for g, gp in gps.items():
+        if gp.devices != views[g] or \
+                tuple(gp.device_ids) != slices[g].device_ids():
+            fail(f"phase 36: group {g}'s child sees {gp.devices} "
+                 f"{gp.device_ids}")
+    if len({gp.pid() for gp in gps.values()} | {os.getpid()}) != 3:
+        fail("phase 36: the groups do not run in two children of their own")
+
+    # two GRPO jobs, one a group, concurrently, counted in the children
+    with step("two jobs' INIT and step"):
+        ctls = {job: cluster.add_job(JobConfig(
+            job_id=job, model_name=ARCH, seed=g + 1, overrides=cut, **train),
+            group_id=g) for g, job in enumerate("AB")}
+        log = []
+        for job, c in ctls.items():
+            counted_in_child(c.dep.wpg, job, log)
+        for gp in gps.values():
+            gp.call("probe", {"reset": True})
+        ops.reset_launches()
+        billing = cluster.run(interleave=True, concurrent=True)
+    home = {"A": 0, "B": 1}
+    per_kernel = {"generate": {}, "update_actor": {}}
+    for job, op, sec, grew, pid in log:
+        print(f"  job {job} {op}: {sec} s in pid {pid}, launches {grew}")
+        if grew != want[op]:
+            fail(f"phase 36: job {job} {op} launched {grew}, want {want[op]}")
+        if pid != gps[home[job]].pid():
+            fail(f"phase 36: job {job} {op} ran in pid {pid}")
+        for k, v in grew.items():
+            if op in per_kernel:
+                per_kernel[op][k] = per_kernel[op].get(k, 0) + v
+    if any(ops.LAUNCHES.values()):
+        fail(f"phase 36: the parent launched kernels: {ops.LAUNCHES}")
+    for job, c in ctls.items():
+        rec = billing[job]
+        print(f"  bill {job}: busy {rec.busy_seconds} s, switch "
+              f"{rec.switch_seconds} s, steps {rec.steps}; metrics "
+              f"{c.metrics_log}")
+        check_bill(cluster, rec, [c.dep.wpg], 1 + 2, 1)
+        if not all(math.isfinite(v) for m in c.metrics_log
+                   for v in m.values()):
+            fail(f"phase 36: job {job}: non-finite metrics")
+        del c.dep.wpg.execute            # the plain proxy from here on
+        lay = child_layouts(gps[home[job]], c.dep.wpg.job_prefix)
+        ids = list(slices[home[job]].device_ids())
+        split = sum("model" in str(v["spec"]) for v in lay.values())
+        if not lay or not split or any(
+                v["ids"] != ids or v["devices"] != views[home[job]]
+                or not v["replicas_same"] for v in lay.values()):
+            fail(f"phase 36: job {job}'s entries are not laid out on its "
+                 f"slice {ids}")
+        print(f"  job {job}: {len(lay)} entries on slice {ids} in its child "
+              f"({split} split over the slice)")
+    # K1 and K2 at the per-device shapes the children ran them at, held
+    # against their plain versions and timed here: the generate's prefill
+    # at the prompt, its last decode step, the training forward over the
+    # packed sequence; each row gets the children's launches at its shape
+    kgen = torch.Generator(device=dev).manual_seed(36)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=kgen,
+                           device=dev).to(torch.bfloat16)
+
+    h, kh = H // n, KH // n
+    p_len, t_cap = TRAIN["prompt_len"], TRAIN["prompt_len"] + n_new
+    fa, de = records["flash_attention"], records["decode_attention"]
+    with step("K1 and K2 at the children's per-device shapes"):
+        fa["proc_tp_prefill"] = flash_timing(torch, randn, B, p_len, h, kh,
+                                             D)
+        fa["proc_tp_training"] = flash_timing(torch, randn, B,
+                                              TRAIN["seq_len"], h, kh, D)
+        de["proc_tp_decode"] = decode_timing(torch, randn, B, t_cap,
+                                             t_cap - 1, 500, h, kh, D)
+    for rec, row, op, k in (
+            (fa, "proc_tp_prefill", "generate", "flash_attention"),
+            (fa, "proc_tp_training", "update_actor", "flash_attention"),
+            (de, "proc_tp_decode", "generate", "decode_attention")):
+        rec[row]["launches"] = per_kernel[op][k]
+        rec["max_abs_err"] = max(rec["max_abs_err"], rec[row]["max_abs_err"])
+
+    # a greedy generate in a child, then the teacher-forced FORWARD of its
+    # tokens (the log-softmax of the logits at each next token), against
+    # the same two ops in thread mode on the same slice
+    pcut = PROC_TP_PARITY_OVERRIDES
+    pcfg = get_config(ARCH).replace(**dict(pcut))
+    pspec = api.DeploymentSpec(deployment_id="R-roll", job_id="R",
+                               model_name=ARCH, role="rollout",
+                               overrides=pcut)
+    prompt = prompts(2, 64)
+    pwant = {"generate": slice_launches(pcfg, "generate",
+                                        PROC_TP_PARITY_NEW, n),
+             "forward": slice_launches(pcfg, "forward", 0, n)}
+
+    def generate_and_forward(d, counted):
+        gen_out = counted(lambda: d.generate(
+            prompt, max_new_tokens=PROC_TP_PARITY_NEW, temperature=0.0),
+            "generate")
+        seq = torch.cat([prompt, gen_out["tokens"].cpu()], 1)
+        lp = counted(lambda: d.forward({"tokens": seq.numpy().astype(
+            np.int32)}), "forward")
+        return gen_out["tokens"].cpu(), lp.float().cpu()
+
+    with step("a child's generate and forward against thread mode"):
+        dep = router.deploy(pspec, group_id=0)
+        run(dep.init(seed=5))
+        child = generate_and_forward(dep, lambda f, op: (
+            counted_op(gps[0], f, f"a greedy {op} at {pcfg.num_layers} "
+                       f"layers, B=2 prompt 64", pwant[op])[0]))
+        router.teardown("R-roll")
+        tr = Router(device_plane=slice_plane(dev, n))
+        tdep = tr.deploy(pspec, group_id=0)
+        tdep.init(seed=5)
+        tr.drain()
+        tl = {}
+
+        def thread_counted(f, op):
+            ops.reset_launches()
+            fut = f()
+            tr.drain()
+            tl[op] = dict(ops.LAUNCHES)
+            return fut.result()
+
+        thread = generate_and_forward(tdep, thread_counted)
+        del tdep, tr
+        release(torch, dev, "the thread-mode router")
+    rel_tol = 2.0 ** -6 * math.sqrt(pcfg.num_layers / 4)
+    err = (child[1] - thread[1]).abs().max().item()
+    tol = rel_tol * thread[1].abs().max().item()
+    same = torch.equal(child[0], thread[0])
+    print(f"  thread mode: launches {tl}; tokens equal {same}; the forward's "
+          f"logprobs |diff| {err} (bound {tol}: phase 5's {rel_tol} * "
+          f"max|logprob|), bit-identical {torch.equal(child[1], thread[1])}")
+    if tl != pwant or not same or not err <= tol:
+        fail("phase 36: the child's generate parts from thread mode's")
+
+    # job A's train state into group 1's child, resharded there
+    a_prefix = ctls["A"].dep.wpg.job_prefix
+    with step("digest job A's entries in group 0's child"):
+        before = child_layouts(gps[0], a_prefix, digests=True)
+    nbytes = router.state_managers[0].job_bytes(a_prefix)
+    with step("migrate job A into the other child"):
+        moved = cluster.reassign_job("A", 1)
+    lm = dict(router.state_managers[0].last_migrate)
+    with step("digest them in group 1's child"):
+        after = child_layouts(gps[1], a_prefix, digests=True)
+    here = StateManager(mesh_slice=slices[1])
+    bad = [k for k, v in before.items() if after.get(k, {}).get("digest")
+           != v["digest"] or after[k]["ids"] != list(slices[1].device_ids())
+           or tuple(after[k]["spec"]) != tuple(here._layout_here(
+               shd.NamedSharding(slices[0].mesh, shd.P(*v["spec"])),
+               torch.Size(v["shape"])).spec)]
+    route = "spill" if lm["spilled"] else "shm" if lm["shm"] else "pickle"
+    rate = moved / lm["seconds"] / 1e9
+    print(f"  reassign_job(A, 1): {moved} B in {lm['seconds']} s ({rate} "
+          f"GB/s; export {lm['export_seconds']} s, "
+          f"import {lm['import_seconds']} s), {lm['keys']} entries over "
+          f"{route}, cross_mesh {lm['cross_mesh']}; entries bit-exact and "
+          f"in the target slice's layout: {len(before) - len(bad)} of "
+          f"{len(before)}")
+    if moved != nbytes or not lm["cross_mesh"] or bad or \
+            not router.migrate_log[-1]["cross_mesh"] or \
+            router.state_managers[0].job_bytes(a_prefix):
+        fail(f"phase 36: job A's move into group 1's child: {bad[:5]}")
+    with step("a generate of job A on its new slice"):
+        counted_op(gps[1], lambda: ctls["A"].dep.generate(
+            prompts(B, TRAIN["prompt_len"]), max_new_tokens=n_new),
+            "job A's generate in group 1's child", want["generate"])
+
+    # SYNC_WEIGHTS from group 1's child into a rollout deployment of job A
+    # in group 0's child that holds no parameters, in the rules' layout
+    # over group 0's slice, built in this process
+    roll = router.deploy(api.DeploymentSpec(
+        deployment_id="A-roll", job_id="A", model_name=ARCH, role="rollout",
+        overrides=cut), group_id=0)
+    targets = tstate.shardings(build_model(cfg), slices[0].mesh,
+                               shd.named_rules("tp")).params
+    with step("SYNC_WEIGHTS across children into target shardings"):
+        synced = run(ctls["A"].dep.sync_weights(roll,
+                                                target_shardings=targets))
+    src = {k.split("/params/")[1]: v for k, v in
+           child_layouts(gps[1], a_prefix, True).items() if "/params/" in k}
+    dst = {k.split("/params/")[1]: v for k, v in
+           child_layouts(gps[0], roll.wpg.job_prefix, True).items()}
+    tflat = common.canonical_flat(targets)
+    bad = [k for k in src if dst.get(k, {}).get("digest") != src[k]["digest"]
+           or tuple(dst[k]["spec"]) != tuple(tflat[k].spec)
+           or dst[k]["ids"] != list(slices[0].device_ids())]
+    print(f"  sync: {synced['synced_bytes']} B in "
+          f"{ctls['A'].dep.wpg.exec_log[-1][1]} s; {len(src) - len(bad)} of "
+          f"{len(src)} leaves bit-exact in the target shardings on slice "
+          f"{slices[0].device_ids()}")
+    if bad or src.keys() != dst.keys():
+        fail(f"phase 36: the cross-process sync: {bad[:5]}")
+    router.teardown("A-roll")
+
+    # a PPO job (actor and critic) on group 0, one step
+    with step("a PPO job's step in group 0's child"):
+        ppo = cluster.add_job(JobConfig(job_id="P", model_name=ARCH, seed=3,
+                                        overrides=cut, **train),
+                              group_id=0, algo="ppo")
+        plog = []
+        for d in (ppo.dep, ppo.critic):
+            counted_in_child(d.wpg, d.deployment_id, plog)
+        billing = cluster.run(interleave=True)
+    for dep_id, op, sec, grew, pid in plog:
+        print(f"  {dep_id} {op}: {sec} s, launches {grew}")
+        if grew != want[op] or pid != gps[0].pid():
+            fail(f"phase 36: {dep_id} {op} launched {grew} in pid {pid}")
+    rec = billing["P"]
+    print(f"  bill P: busy {rec.busy_seconds} s, steps {rec.steps}; "
+          f"metrics {ppo.metrics_log}")
+    check_bill(cluster, rec, [ppo.dep.wpg, ppo.critic.wpg], 2 + 8, 1)
+    m = ppo.metrics_log[0]
+    if not {"pg_loss", "value_loss", "step"} <= m.keys() or \
+            not all(math.isfinite(v) for v in m.values()):
+        fail(f"phase 36: the PPO step's metrics {m}")
+    for d in (ppo.dep, ppo.critic):
+        del d.wpg.execute
+
+    # OPTIM_STEP(host=True) over the slice: a train deployment of job H in
+    # group 0's child and one in thread mode on a slice of this process,
+    # INITed from one seed (the same bits); one FORWARD_BACKWARD in the
+    # child, whose gradients cross the pipe whole; the host step on each
+    # (thread mode's gradients laid out on its slice) against one device's
+    # host step from the same parameters and gradients
+    hp = AdamWConfig()                  # the children's WPGs' defaults
+    hspec = api.DeploymentSpec(deployment_id="H-train", job_id="H",
+                               model_name=ARCH, role="train", overrides=cut)
+    dep = router.deploy(hspec, group_id=0)
+    h_prefix = dep.wpg.job_prefix
+    run(dep.init(seed=7))
+    batch = seeded_train_batch(lambda b: run(dep.forward(b)), B,
+                               TRAIN["seq_len"], TRAIN["prompt_len"], 36)
+    with step("FORWARD_BACKWARD in the child"):
+        fb, _ = counted_op(gps[0], lambda: dep.forward_backward(batch),
+                           "job H's forward_backward",
+                           want["forward_backward"])
+    grads = fb["grads"]
+    with step("OPTIM_STEP(host=True) in the child"):
+        res = run(dep.optim_step(grads, host=True))
+    with step("read the child's parameters"):
+        child_after = child_params(gps[0], dep.deployment_id)
+        lay = child_layouts(gps[0], h_prefix)
+    print(f"  the child's host step: {res}, {dep.wpg.exec_log[-1][1]} s")
+    if not res.get("host") or any(
+            not v["replicas_same"] for v in lay.values()) or any(
+            v["tier"] != int(Tier.HOST) for k, v in lay.items()
+            if "/params/" in k):
+        fail("phase 36: the child's host step left replicas apart or "
+             "parameters on the card")
+    with step("prefetch and a generate in the child"):
+        dep.wpg.ensure_resident()
+        lay = child_layouts(gps[0], h_prefix)
+        if any(v["tier"] != int(Tier.DEVICE) or v["devices"] != views[0]
+               for v in lay.values()):
+            fail("phase 36: the prefetch left an entry off the slice")
+        counted_op(gps[0], lambda: dep.generate(
+            prompts(B, TRAIN["prompt_len"]), max_new_tokens=n_new),
+            "job H's generate after the host step", want["generate"])
+
+    # the children close, both at once, while this process runs the same
+    # step in thread mode and on one device
+    probes = {g: gp.call("probe")[0] for g, gp in gps.items()}
+    reserved = sum(p["cuda_reserved"] or 0 for p in probes.values())
+    used_open = mem_used(torch, dev)
+    procs = [gp._proc for gp in gps.values()]
+    closer = concurrent.futures.ThreadPoolExecutor(len(gps))
+    t_close = time.perf_counter()
+    closed = [closer.submit(gp.shutdown) for gp in gps.values()]
+    with step("the same INIT and host step in thread mode"):
+        tw = WorkerProcessGroup(hspec, StateManager(
+            node_id="phase36", mesh_slice=slice_plane(dev, n).slices()[0]))
+        tw.execute(api.make_op(hspec, api.Op.INIT, 7))
+        # copies: on the host a gathered leaf may be a block's own tensor
+        params0 = common.tree_map(torch.clone, tw.host_params(),
+                                  is_leaf=torch.is_tensor)
+        tw.execute(api.make_op(hspec, api.Op.OPTIM_STEP, shd.device_put(
+            grads, tw.param_shardings()), host=True))
+    for k in tw.sm.keys_for(tw.job_prefix):
+        e = tw.sm.entries[k]
+        if isinstance(e.ref, shd.Sharded):
+            first = {}
+            for pos, t in enumerate(e.ref.locals):
+                b = e.ref.sharding.block(pos, e.ref.dim())
+                if b in first and not same_bytes(torch, t, first[b]):
+                    fail(f"phase 36: thread mode's {k} replicas differ")
+                first.setdefault(b, t)
+    thread_after = common.canonical_flat(tw.host_params())
+    with step("one device's host step"):
+        # its moments on the card, as one device's optimizer makes them
+        ref = StateManager(node_id="phase36-ref",
+                           mesh_slice=MeshSlice(0, dev))
+        ref.register(h_prefix, common.tree_map(
+            lambda t: t.to(dev, copy=True), params0, is_leaf=torch.is_tensor))
+        ref.register(h_prefix, {mom: common.tree_map(
+            lambda t: torch.zeros(t.shape, dtype=torch.float32, device=dev),
+            params0, is_leaf=torch.is_tensor) for mom in ("mu", "nu")},
+            prefix="opt")
+        ref.host_optimizer_step(h_prefix, grads, None, lr=hp.lr, b1=hp.b1,
+                                b2=hp.b2, eps=hp.eps)
+    want_p = common.canonical_flat(ref.gather(h_prefix, params0))
+    start = common.canonical_flat(params0)
+    worst = {"child": 0.0, "thread": 0.0}
+    for k, w in want_p.items():
+        for side, got in (("child", child_after[k]), ("thread",
+                                                       thread_after[k])):
+            worst[side] = max(worst[side], host_step_close(torch, got, w))
+    moved_leaves = sum(not same_bytes(torch, w, start[k])
+                       for k, w in want_p.items())
+    same = all(same_bytes(torch, child_after[k], thread_after[k])
+               for k in want_p)
+    print(f"  host step against one device's: worst |diff| / bound "
+          f"{worst} (rtol 2^-7 bf16, 1e-5 f32); {moved_leaves} of "
+          f"{len(want_p)} leaves moved; child and thread mode bit-identical "
+          f"{same}")
+    if max(worst.values()) > 1.0 or not moved_leaves:
+        fail(f"phase 36: the host step over the slice: {worst}")
+    del tw, ref, params0, thread_after, child_after, grads, start, want_p
+
+    for f in closed:
+        f.result()
+    closer.shutdown()
+    router.close_processes()
+    steps["close the children (beside the steps above)"] = \
+        time.perf_counter() - t_close
+    del cluster, router, ctls, ppo, dep, roll
+    release(torch, dev, "phase 36's cluster and host-step WPGs")
+    alive = [p.pid for p in procs if p.is_alive()]
+    used1 = mem_used(torch, dev)
+    print(f"  children's peaks "
+          f"{({g: p['cuda_peak'] for g, p in probes.items()})} B, the "
+          f"parent's {torch.cuda.max_memory_allocated(dev)} B; card memory in "
+          f"use {used0} B before the phase, {used_open} B with the children "
+          f"(their caching allocators {reserved} B), {used1} B after they "
+          f"exit; children alive {alive}")
+    if alive or used_open - used1 < reserved:
+        fail("phase 36: the children's CUDA contexts were not released")
+    print(f"  phase 36 sub-steps: {steps}")
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -4976,6 +5471,8 @@ def main():
             ssm_tp_phase(torch, dev, records)
         with phase_seconds("phase 35"):
             xattn_tp_phase(torch, dev, records)
+        with phase_seconds("phase 36"):
+            proc_tp_phase(torch, dev, records)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

@@ -26,10 +26,12 @@ the reference, :meth:`fail_node`, :meth:`checkpoint_all` and
 :meth:`restore_all` fail (checkpoints go through the deployments'
 ``save_checkpoint`` / ``load_checkpoint`` ops instead).
 ``devices_per_group`` sizes each group's device slice (the Router's
-``DevicePlane(slice_size=)``): a group of several devices runs its dense,
-MoE, ssm and hybrid deployments over its slice (tensor, expert and SSD-head
-parallel), and a migration across groups reshards onto the destination's
-slice.
+``DevicePlane(slice_size=)``): a group of several devices runs its
+deployments over its slice (tensor, expert and SSD-head parallel), in
+thread mode or in its process-plane child, which sees the slice's devices;
+a migration across groups reshards onto the destination's slice, and the
+bills come from the exec logs (the children's, mirrored in this
+process).
 """
 from __future__ import annotations
 

@@ -29,8 +29,8 @@ own spawned worker process (:mod:`repro_torch.launch.proc_plane`), which
 the Router supervises (:meth:`process_health`, :meth:`respawn_dead_groups`,
 :meth:`close_processes`). ``devices_per_group`` sizes the slices the
 plane leases (``DevicePlane(slice_size=)``); a group whose slice has
-several devices runs in this process (process mode over such a slice is
-queued: ROADMAP.md, Queue 1: item 5, part 4).
+several devices runs its WPGs tensor-parallel over it, in this process or,
+in process mode, in its child, which sees the slice's devices.
 
 Futures passed as operation arguments are dataflow edges (see
 :mod:`repro_torch.core.api`); an operation that raises resolves its future
@@ -49,11 +49,10 @@ from repro_torch.core.scheduler import hrrs
 from repro_torch.core.scheduler.executor import State, Task, TaskExecutor
 from repro_torch.core.state_manager import StateManager
 from repro_torch.core.worker import WorkerProcessGroup
-from repro_torch.launch.mesh import (DevicePlane, device_for_slice,
+from repro_torch.launch.mesh import (DevicePlane, devices_for_slice,
                                      env_for_slice)
 from repro_torch.launch.proc_plane import (GroupProcess, StateManagerProxy,
                                            WPGProxy)
-from repro_torch.models.sharding import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -139,10 +138,6 @@ class Router:
         sm = self.state_managers.get(group_id)
         if sm is None:
             sl = self.device_plane.slice_for_group(group_id)
-            if self.process_plane and sl.n_devices > 1:
-                self.device_plane.release(group_id)
-                raise not_ported("a process-mode group of several devices",
-                                 4)
             if self.process_plane:
                 sm = self._spawn_group_process(group_id, sl)
             else:
@@ -152,12 +147,16 @@ class Router:
         return sm
 
     def _spawn_group_process(self, group_id: int, sl) -> StateManagerProxy:
+        """The group's child on its slice: it sees the slice's cards and
+        builds the slice (the same device ids) over them. The proxy keeps
+        the parent's slice."""
         gp = GroupProcess(group_id, env=env_for_slice(sl),
                           slice_index=sl.index,
                           wpg_factory=self.proc_wpg_factory,
                           node_id=f"group{group_id}",
                           shm=self.shm_transport,
-                          device=device_for_slice(sl))
+                          devices=devices_for_slice(sl),
+                          device_ids=list(sl.device_ids()))
         self.group_procs[group_id] = gp
         return StateManagerProxy(gp, mesh_slice=sl,
                                  node_id=f"group{group_id}")

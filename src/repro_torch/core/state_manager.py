@@ -37,11 +37,13 @@ H100's single slice) a DEVICE entry changes owner without a copy
 destination's mesh in its recorded spec (replicated where the spec does
 not fit there), each local copied to its device: between virtual devices
 of one card the copy is the hand-over itself. Between processes (the process plane)
-:meth:`export_state` stages a job's entries to the host and
-:meth:`import_state` adopts them in the other process. A checkpoint is
-materialised from the managed state, whichever tier holds it
-(:meth:`materialize_checkpoint`), and :meth:`host_optimizer_step` is the
-CPU AdamW of ZeRO-offload (§4.5.4).
+:meth:`export_state` stages a job's entries to the host, each gathered
+whole with its spec and its mesh's shape, and :meth:`import_state` adopts
+them in the other process, laid out on its slice as :meth:`migrate` lays
+them out. A checkpoint is materialised from the managed state, whichever
+tier holds it (:meth:`materialize_checkpoint`), and
+:meth:`host_optimizer_step` is the CPU AdamW of ZeRO-offload (§4.5.4),
+over one device's entries or a slice's.
 """
 from __future__ import annotations
 
@@ -355,8 +357,7 @@ class StateManager:
         as it was."""
         src_sl, dst_sl = self.mesh_slice, dst.mesh_slice
         cross_mesh = dst.device != self.device if src_sl is None or \
-            dst_sl is None else (src_sl.devices, src_sl.device_ids()) != \
-            (dst_sl.devices, dst_sl.device_ids())
+            dst_sl is None else src_sl.crosses(dst_sl)
         self._sync()
         t0 = self.clock()
         keys = list(self.keys_for(job_id))
@@ -427,8 +428,11 @@ class StateManager:
     def export_state(self, job_id: str, max_inline_bytes: int = 64 << 20
                      ) -> Dict[str, Any]:
         """Stage a job's managed state for another process (the process
-        plane's migrate-export): every entry as a host numpy array, bf16 as
-        its 16-bit pattern (``is_bf16``). An entry above
+        plane's migrate-export): every entry as a host numpy array (a
+        ``Sharded`` one gathered), bf16 as its 16-bit pattern
+        (``is_bf16``), with the spec of its layout over a slice of several
+        devices (``spec``, None over one device), as the reference records
+        it. An entry above
         ``max_inline_bytes`` spills to ``export__{txn}__<key>.npy`` under
         ``disk_dir`` (``np.save``, the reference's format) and travels by
         path. Non-destructive: the source keeps its entries until the
@@ -452,8 +456,10 @@ class StateManager:
             else:
                 arr, dtype = ckpt.to_numpy(_global_cpu(e.ref))
                 is_bf16 = dtype == "bfloat16"
+            sh = e.sharding
             ent = {"key": k, "nbytes": e.nbytes, "version": e.version,
-                   "tier": int(e.tier), "is_bf16": is_bf16, "spec": None,
+                   "tier": int(e.tier), "is_bf16": is_bf16,
+                   "spec": None if sh is None else tuple(sh.spec),
                    "path": None, "data": None}
             if arr.nbytes > max_inline_bytes:
                 os.makedirs(self.disk_dir, exist_ok=True)
@@ -473,7 +479,13 @@ class StateManager:
 
     def import_state(self, payload: Dict[str, Any]) -> int:
         """Adopt an :meth:`export_state` payload: entries exported from
-        DEVICE land on this manager's device, HOST and DISK ones on HOST.
+        DEVICE land on this manager's slice, HOST and DISK ones on HOST.
+        Over a slice of several devices each entry takes
+        :meth:`_layout_here` of its recorded spec, as :meth:`migrate`
+        re-lays an entry out: the spec itself on this slice's mesh where it
+        fits (so always between meshes of one shape), else replicated. A
+        DEVICE entry is laid out on the slice's devices, a HOST one kept
+        whole in the layout this slice's :meth:`prefetch` restores.
         Every entry is copied out of the payload (its tensors may be views
         over a shared segment that is recycled once this returns). A
         failure removes every staged entry before it re-raises, so the
@@ -492,14 +504,20 @@ class StateManager:
                 t = torch.as_tensor(data)
                 if ent["is_bf16"]:
                     t = t.view(torch.bfloat16)
-                if Tier(ent["tier"]) == Tier.DEVICE:
-                    tier, dev = Tier.DEVICE, self.device
+                spec = ent.get("spec")
+                sh = self._layout_here(
+                    shd.NamedSharding(self.mesh_slice.mesh, shd.P(*spec))
+                    if spec is not None and self.multi else None, t.shape)
+                if Tier(ent["tier"]) != Tier.DEVICE:
+                    tier, ref = Tier.HOST, t.to("cpu", copy=True)
+                elif sh is not None:
+                    tier, ref = Tier.DEVICE, shd.shard(t, sh)
                 else:
-                    tier, dev = Tier.HOST, torch.device("cpu")
+                    tier, ref = Tier.DEVICE, t.to(self.device, copy=True)
                 self.entries[ent["key"]] = Entry(
                     key=ent["key"], tier=tier, nbytes=ent["nbytes"],
-                    ref=t.to(dev, copy=True), version=ent["version"],
-                    last_touch=self._touch())
+                    ref=ref, version=ent["version"],
+                    last_touch=self._touch(), sharding=sh)
                 staged.append(ent["key"])
                 moved += ent["nbytes"]
         except Exception:
@@ -567,28 +585,31 @@ class StateManager:
         clip, warmup or weight decay; bias correction by the new step.
         Returns the new step count.
 
-        The moments are created on HOST at first use, under the device
-        optimizer's ``{job}/opt/mu|nu/...`` keys; moments that already live
-        on DEVICE are updated there, in place, as the reference updates
-        them where they are. A DEVICE parameter is pulled to HOST (into its
-        pinned buffer where it has one) and stays there until the next
-        prefetch. Every tensor is written in place."""
+        The moments are created on HOST at first use, f32 whole-leaf
+        tensors, under the device optimizer's ``{job}/opt/mu|nu/...`` keys;
+        moments that already live on DEVICE are updated there, in place,
+        as the reference updates them where they are (a slice's, block by
+        block on each device). A DEVICE parameter is pulled to HOST (into
+        its pinned buffers where it has them) and stays there until the
+        next prefetch. Over a slice of several devices a gradient may be
+        ``Sharded`` (thread mode) or whole (from the process plane's pipe);
+        the step runs on the gathered leaf and writes the new value into
+        every local block of the parameter's host copy, replicas the same
+        bits, so the next prefetch restores the slice's layout. Every
+        tensor is written in place: nothing is re-registered."""
         pre = f"{job_id}/{prefix}/"
         step_key = f"{job_id}/opt/step"
         if step_key not in self.entries:
             self.entries[step_key] = Entry(
                 step_key, Tier.HOST, 8, ref=torch.zeros((), dtype=torch.int64),
                 last_touch=self._touch())
-        st = self.entries[step_key]
-        step = int(st.ref) + 1
-        st.ref.fill_(step)
+        steps = shd.local_tensors(self.entries[step_key].ref)
+        step = int(steps[0]) + 1
+        for t in steps:
+            t.fill_(step)
         c1 = 1.0 - b1 ** step
         c2 = 1.0 - b2 ** step
         gflat = common.canonical_flat(grads_tree)
-        if any(isinstance(self.entries[pre + sub].ref, shd.Sharded)
-               for sub in gflat):
-            raise shd.not_ported(
-                "the host optimizer step over a slice of several devices", 7)
         for sub in gflat:
             e = self.entries[pre + sub]
             if e.tier == Tier.DEVICE:
@@ -598,8 +619,8 @@ class StateManager:
         self._sync()
         for sub, g in gflat.items():
             e = self.entries[pre + sub]
-            p = e.ref.float()
-            g32 = g.detach().to("cpu", torch.float32)
+            p = _global_cpu(e.ref).float()
+            g32 = _global_cpu(g).detach().to("cpu", torch.float32)
             for mom in ("mu", "nu"):
                 mkey = f"{job_id}/opt/{mom}/{sub}"
                 if mkey not in self.entries:
@@ -608,10 +629,17 @@ class StateManager:
                         ref=torch.zeros_like(g32), last_touch=self._touch())
             mu = self.entries[f"{job_id}/opt/mu/{sub}"].ref
             nu = self.entries[f"{job_id}/opt/nu/{sub}"].ref
-            gm = g32.to(mu.device)
-            mu.copy_(b1 * mu + (1 - b1) * gm)
-            nu.copy_(b2 * nu + (1 - b2) * torch.square(gm))
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + eps)
-            e.ref.copy_(p - lr * upd.cpu())
+            upd = []
+            for pos, (m, v) in enumerate(zip(shd.local_tensors(mu),
+                                             shd.local_tensors(nu))):
+                gm = (g32[mu.sharding.slices(pos, g32.shape)]
+                      if isinstance(mu, shd.Sharded) else g32).to(m.device)
+                m.copy_(b1 * m + (1 - b1) * gm)
+                v.copy_(b2 * v + (1 - b2) * torch.square(gm))
+                upd.append((m / c1) / (torch.sqrt(v / c2) + eps))
+            upd = shd.gather(shd.Sharded(upd, mu.sharding), "cpu") \
+                if isinstance(mu, shd.Sharded) else upd[0].cpu()
+            # a Sharded host copy takes the global value into each block
+            e.ref.copy_(p - lr * upd)
             e.version += 1
         return step

@@ -8,9 +8,8 @@ context switching (offload/load) never touches worker code. On a slice of
 several devices the WPG lays its state out by the model's ``"tp"`` rules
 (:meth:`state_shardings`, cached per slice), runs every op tensor-parallel
 over the slice (``models/layers.py``'s ``Ctx``) and syncs weights into the
-target deployment's own layout; the dense, MoE, ssm and hybrid families
-run there (the vlm, audio and gemma2 configs raise, naming their queued
-part).
+target deployment's own layout; every family runs there, in the Router's
+process or in a process-plane child that sees the slice.
 
 It runs every op of the service API: ``INIT``, ``GENERATE``, ``FORWARD``
 (logprobs, or a critic's values), ``FORWARD_BACKWARD`` (the GRPO, PPO or
@@ -187,17 +186,20 @@ class WorkerProcessGroup:
         self.sm.unregister(self.sm.keys_for(self.job_prefix, prefix))
         self.sm.register(self.job_prefix, tree, Tier.DEVICE, prefix)
 
-    def _store_params(self, tree):
+    def _store_params(self, tree, shardings=None):
         """Parameters from a weight sync or a checkpoint: written into the
         registered tensors where the deployment holds some, else
-        registered (a copy on the group's device). Either way the tree is
-        copied, so its leaves may be views over memory that is reused once
-        this returns (the process plane's shared segments)."""
+        registered (a copy laid out in ``shardings``, by default
+        :meth:`param_shardings`; on the group's device over one device).
+        Either way the tree is copied, so its leaves may be views over
+        memory that is reused once this returns (the process plane's
+        shared segments)."""
         if self.sm.keys_for(self.job_prefix, "params"):
             self.sm.write(self.job_prefix, tree, "params")
         else:
-            self._register("params", self._place(tree,
-                                                 self.param_shardings()))
+            self._register("params", self._place(
+                tree, self.param_shardings() if shardings is None
+                else shardings))
 
     def _batch(self, batch):
         """A train batch (numpy or CPU tensors) on the group's device."""
@@ -337,6 +339,9 @@ class WorkerProcessGroup:
                 "metrics": metrics}
 
     def _op_optim_step(self, grads, host: bool = False):
+        """AdamW on the device, or the StateManager's host step. Over a
+        slice, gradients that arrive whole (from the process plane's pipe)
+        are laid out in the parameters' layout first."""
         if host:
             # §4.5.4: CPU optimizer over host-resident canonical state
             step = self.sm.host_optimizer_step(
@@ -344,8 +349,14 @@ class WorkerProcessGroup:
                 lr=self.adamw_cfg.lr, b1=self.adamw_cfg.b1,
                 b2=self.adamw_cfg.b2, eps=self.adamw_cfg.eps)
             return {"step": step, "host": True}
-        state = self.opt_state()
-        metrics = opt.update_(grads, state, self.params(), self.adamw_cfg)
+        state, params = self.opt_state(), self.params()
+        pflat = common.canonical_flat(params)
+        grads = common.canonical_unflatten(params, {
+            k: shd.shard(g, pflat[k].sharding)
+            if isinstance(pflat[k], shd.Sharded)
+            and not isinstance(g, shd.Sharded) else g
+            for k, g in common.canonical_flat(grads).items()})
+        metrics = opt.update_(grads, state, params, self.adamw_cfg)
         return {"step": int(shd.local_tensors(state.step)[0]),
                 **{k: float(v) for k, v in metrics.items()}}
 
@@ -369,7 +380,7 @@ class WorkerProcessGroup:
             target_shardings = target_wpg.param_shardings()
         tree = self.sm.sync_weights(self.job_prefix, self.model.param_specs(),
                                     target_shardings)
-        target_wpg._store_params(tree)
+        target_wpg._store_params(tree, target_shardings)
         return {"synced_bytes": self.sm.job_bytes(self.job_prefix)}
 
     def _op_save_checkpoint(self, path: str, step: int = 0):

@@ -26,9 +26,14 @@ where the caller lists them.
 256- and 512-chip meshes are queued (ROADMAP.md, Queue 1: item 5, part
 5).
 
-:func:`env_for_slice` and :func:`device_for_slice` give a process-plane
-child (``launch/proc_plane.py``) its view of a one-device slice: a CUDA
-slice is the only card the child sees, as its ``cuda:0``.
+:func:`env_for_slice` and :func:`devices_for_slice` give a process-plane
+child (``launch/proc_plane.py``) its view of its slice, of one device or
+several: ``CUDA_VISIBLE_DEVICES`` over the slice's distinct cards, in
+order, and one device string per device of the slice in the child's
+numbering (cards 2 and 3 become ``cuda:0`` and ``cuda:1``; four virtual
+devices on card 0 become ``cuda:0`` four times). With the slice's device
+ids the child builds the parent's :class:`MeshSlice` over its own
+devices.
 """
 from __future__ import annotations
 
@@ -127,6 +132,15 @@ class MeshSlice:
     def device_ids(self) -> Tuple[int, ...]:
         return tuple(int(i) for i in self.mesh.device_ids.flat)
 
+    def crosses(self, other: "MeshSlice") -> bool:
+        """Whether a move from this slice to ``other`` changes devices: it
+        does unless both hold the same devices under the same ids (two
+        slices of virtual devices on one card share the card, not the
+        ids). ``StateManager.migrate`` and the process plane's migrate
+        both decide ``cross_mesh`` here."""
+        return (self.devices, self.device_ids()) != \
+            (other.devices, other.device_ids())
+
 
 def make_local_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
     """A (data, model) mesh over the first ``data * model`` of ``devices``
@@ -145,27 +159,37 @@ def make_local_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
     return Mesh(grid, ("data", "model"))
 
 
+def _slice_cards(sl: MeshSlice) -> List[int]:
+    """The slice's distinct CUDA cards, in the order they first appear."""
+    cards: List[int] = []
+    for d in sl.devices:
+        if d.type == "cuda":
+            idx = 0 if d.index is None else d.index
+            if idx not in cards:
+                cards.append(idx)
+    return cards
+
+
 def env_for_slice(sl: MeshSlice) -> Dict[str, str]:
     """The environment that makes a spawned group process see exactly its
     slice's cards: ``CUDA_VISIBLE_DEVICES`` set to them (each card once,
     in the slice's order), which the child then sees as ``cuda:0`` and
     on. A CPU slice (the tests) hides every card. Applied in the child
     before torch initialises CUDA."""
-    cards = []
-    for d in sl.devices:
-        if d.type == "cuda":
-            idx = 0 if d.index is None else d.index
-            if idx not in cards:
-                cards.append(idx)
-    return {"CUDA_VISIBLE_DEVICES": ",".join(str(i) for i in cards)}
+    return {"CUDA_VISIBLE_DEVICES": ",".join(str(i)
+                                             for i in _slice_cards(sl))}
 
 
-def device_for_slice(sl: MeshSlice) -> str:
-    """The device a group process runs on, as a plain string for its
-    config (unpickling a ``torch.device`` would import torch before the
-    environment is applied): ``"cuda:0"`` under :func:`env_for_slice`'s
-    mask, else the slice's own device type."""
-    return "cuda:0" if sl.device.type == "cuda" else sl.device.type
+def devices_for_slice(sl: MeshSlice) -> List[str]:
+    """The slice's devices as a group process sees them under
+    :func:`env_for_slice`'s mask, one string per device of the slice (a
+    child's config carries plain strings: unpickling a ``torch.device``
+    would import torch before the environment is applied). A card becomes
+    ``cuda:<its position among the slice's cards>``, so a virtual device
+    repeats; any other device keeps its type (``cpu``)."""
+    cards = _slice_cards(sl)
+    return [f"cuda:{cards.index(0 if d.index is None else d.index)}"
+            if d.type == "cuda" else d.type for d in sl.devices]
 
 
 def host_shm_bytes(path: str = "/dev/shm") -> Optional[int]:

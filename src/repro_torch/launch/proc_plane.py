@@ -5,7 +5,10 @@ one interpreter, so two groups' host work (a decode step's eager launches,
 the controller's packing) serialises on the GIL even when both groups feed
 the same card. In process mode each node group's WPGs live in a separate OS
 process bound to the group's device slice, and the Router's dispatch
-protocol crosses a pipe instead of a method call.
+protocol crosses a pipe instead of a method call. A slice may hold several
+devices: the child sees the slice's cards, builds the parent's
+:class:`~repro_torch.launch.mesh.MeshSlice` (the same device ids) over
+them, and its WPGs run tensor-parallel there as in thread mode.
 
 Pieces
 ------
@@ -13,8 +16,9 @@ Pieces
   process. Spawned, never forked (the parent holds a CUDA context and
   dispatch threads), with the slice's environment
   (:func:`repro_torch.launch.mesh.env_for_slice`: ``CUDA_VISIBLE_DEVICES``,
-  applied in the child before torch loads) and its device as a plain
-  string in its config. A length-prefixed pickle protocol over a duplex
+  applied in the child before torch loads), its devices as plain strings
+  in its config (:func:`repro_torch.launch.mesh.devices_for_slice`) and
+  the slice's device ids. A length-prefixed pickle protocol over a duplex
   pipe carries ``create_deployment`` / ``execute`` / ``migrate_export`` /
   ``migrate_import`` / ``sync_export`` / ``store_params`` / ``ping`` /
   ``shutdown`` and the StateManager queries. ``respawn()`` replaces a dead
@@ -32,7 +36,8 @@ A parent thread blocked in ``recv`` releases the GIL, so dispatch threads
 that proxy into different children overlap.
 
 Tensors in requests and replies: CUDA tensors never cross. A child stages
-every result to host tensors, the large ones ride
+every result to host tensors (a ``Sharded`` one gathered to one CPU
+tensor), the large ones ride
 :mod:`repro_torch.launch.shm_transport` segments (descriptors on the pipe),
 the small ones the pickle. A reply acks its request's segments (a handler
 that lands tensors on its device synchronises the device before it
@@ -133,13 +138,17 @@ def _resolve_factory(ref: Optional[str]):
 
 def _to_host(obj):
     """A result tree with every device tensor copied to the host (the
-    reply's pickle and the shm writer take host memory only). Does nothing
-    in a child that never loaded torch."""
+    reply's pickle and the shm writer take host memory only), a
+    ``Sharded`` one (a slice's gradients) gathered to one CPU tensor. Does
+    nothing in a child that never loaded torch."""
     torch = sys.modules.get("torch")
     if torch is None:
         return obj
+    shd = sys.modules.get("repro_torch.models.sharding")
 
     def conv(x):
+        if shd is not None and isinstance(x, shd.Sharded):
+            return shd.gather(x, "cpu").detach()
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             return x.detach().cpu()
         return x
@@ -175,8 +184,9 @@ class _LiteSM:
 
 
 class _ChildState:
-    """What a group's worker process owns: its StateManager on the child's
-    device (made on first need) and one WPG per registered deployment."""
+    """What a group's worker process owns: its StateManager over the
+    child's devices, the group's slice (made on first need), and one WPG
+    per registered deployment."""
 
     def __init__(self, cfg: Dict[str, Any]):
         self.cfg = cfg
@@ -197,19 +207,44 @@ class _ChildState:
             import torch
 
             from repro_torch.core.state_manager import StateManager
-            from repro_torch.launch.mesh import MeshSlice
+            from repro_torch.launch.mesh import MeshSlice, _slice_mesh
 
-            dev = torch.device(self.cfg["device"])
-            if dev.type == "cuda" and not torch.cuda.is_available():
+            devs = [torch.device(d) for d in self.cfg["devices"]]
+            ids = self.cfg["device_ids"]
+            cards = [d.index or 0 for d in devs if d.type == "cuda"]
+            seen = torch.cuda.device_count() \
+                if torch.cuda.is_available() else 0
+            if cards and max(cards) >= seen:
                 raise RuntimeError(
-                    f"group {self.cfg['group_id']}: the slice is {dev} but "
-                    "this worker process sees no CUDA device "
-                    f"(CUDA_VISIBLE_DEVICES="
+                    f"group {self.cfg['group_id']}: the slice is "
+                    f"{[str(d) for d in devs]} but this worker process sees "
+                    f"{seen or 'no'} CUDA device(s) (CUDA_VISIBLE_DEVICES="
                     f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
             self._sm = StateManager(
                 node_id=self.cfg["node_id"],
-                mesh_slice=MeshSlice(self.cfg["slice_index"], dev))
+                mesh_slice=MeshSlice(self.cfg["slice_index"], tuple(devs),
+                                     _slice_mesh(devs, ids)))
         return self._sm
+
+    def _own_shardings(self, shardings):
+        """A tree of the parent's ``NamedSharding``\\ s re-bound to this
+        child's mesh: the same specs, over this child's view of the
+        devices. They must name this group's slice (the same device ids)."""
+        from repro_torch.models import common
+        from repro_torch.models import sharding as shd
+
+        mesh = self._state_manager(True).mesh_slice.mesh
+
+        def one(sh):
+            if sh.mesh.device_ids.tolist() != mesh.device_ids.tolist():
+                raise ValueError(
+                    f"target shardings over device ids "
+                    f"{sh.mesh.device_ids.tolist()}, but group "
+                    f"{self.cfg['group_id']}'s slice is "
+                    f"{mesh.device_ids.tolist()}")
+            return shd.NamedSharding(mesh, sh.spec)
+
+        return common.tree_map(one, shardings)
 
     # ---------------------------------------------------------- handlers
     def handle(self, kind: str, payload) -> Tuple[Any, Any]:
@@ -237,9 +272,13 @@ class _ChildState:
             # a sync between deployments of this child: the marker names
             # the target WPG (cross-child syncs are relayed by WPGProxy)
             args = (self.wpgs[args[0][1]],) + args[1:]
+        kwargs = dict(p["kwargs"])
+        if kwargs.get("target_shardings") is not None:
+            kwargs["target_shardings"] = self._own_shardings(
+                kwargs["target_shardings"])
         qop = api.QueuedOperation(
             req_id=p["req_id"], deployment_id=p["dep"], job_id=p["job_id"],
-            op=op, args=args, kwargs=dict(p["kwargs"]))
+            op=op, args=args, kwargs=kwargs)
         t0 = time.monotonic()
         result = wpg.execute(qop)
         return _to_host(result), (op.value, time.monotonic() - t0)
@@ -259,9 +298,16 @@ class _ChildState:
         return self.wpgs[p["dep"]].host_params(), None
 
     def _h_store_params(self, p):
-        # the store copies out of the mapped views; the device is synced
-        # before the reply, which lets the writer recycle the segment
-        self.wpgs[p["dep"]]._store_params(p["tree"])
+        """A synced tree into the deployment: written into the parameters
+        it holds, else laid out in the op's ``target_shardings`` (re-bound
+        to this child's devices) or the WPG's own shardings. The store
+        copies out of the mapped views; the device is synced before the
+        reply, which lets the writer recycle the segment."""
+        wpg = self.wpgs[p["dep"]]
+        if p.get("shardings") is None:
+            wpg._store_params(p["tree"])
+        else:
+            wpg._store_params(p["tree"], self._own_shardings(p["shardings"]))
         if self._sm is not None:
             self._sm._sync()
         return None, None
@@ -318,10 +364,14 @@ class _ChildState:
     def _h_probe(self, p):
         """Instrumentation: this process's pid, its kernel launch counts
         (None before the kernels' wrappers load; zeroed first on
-        ``reset``) and its CUDA caching allocator's bytes (None before CUDA
-        initialises here)."""
+        ``reset``), its CUDA caching allocator's bytes and peak (None
+        before CUDA initialises here; the peak reset on ``reset``) and,
+        given ``layouts`` (a job prefix), where each of the job's entries
+        lies (:meth:`_layouts`; with ``digests``, a digest of each one's
+        gathered bits too) and the seconds that took."""
         out = {"pid": os.getpid(), "launches": None,
-               "cuda_allocated": None, "cuda_reserved": None}
+               "cuda_allocated": None, "cuda_reserved": None,
+               "cuda_peak": None}
         ops = sys.modules.get("repro_torch.kernels.ops")
         if ops is not None:
             if p and p.get("reset"):
@@ -331,7 +381,68 @@ class _ChildState:
         if torch is not None and torch.cuda.is_initialized():
             out["cuda_allocated"] = torch.cuda.memory_allocated()
             out["cuda_reserved"] = torch.cuda.memory_reserved()
+            out["cuda_peak"] = torch.cuda.max_memory_allocated()
+            if p and p.get("reset"):
+                torch.cuda.reset_peak_memory_stats()
+        if p and p.get("layouts"):
+            t0 = time.monotonic()
+            out["layouts"] = self._layouts(p["layouts"],
+                                           bool(p.get("digests")))
+            out["layouts_seconds"] = time.monotonic() - t0
         return out, None
+
+    def _layouts(self, prefix: str, digests: bool) -> Dict[str, Any]:
+        """Each entry of a job: its tier, its global shape, its spec and its
+        mesh's device ids over a slice of several devices (None over one),
+        each local tensor's device, whether every replica of each block
+        holds the same bits, and with ``digests`` an order-sensitive digest
+        of its gathered bits, computed where the entry lives (equal across
+        layouts, devices and processes for equal bits)."""
+        import torch
+
+        from repro_torch.models import sharding as shd
+
+        def digest(t) -> int:
+            v = t.detach().reshape(-1).view(
+                {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}[t.element_size()])
+            w = torch.arange(1, min(v.numel(), 1 << 24) + 1,
+                             device=v.device, dtype=torch.int64)
+            sums = [(c.to(torch.int64) * w[:c.numel()]).sum()
+                    for c in v.split(1 << 24)]
+            acc = 0
+            for x in torch.stack(sums).tolist():    # one sync an entry
+                acc = acc * 1_000_003 + x
+            return acc
+
+        def replicas_same(ref) -> bool:
+            if not isinstance(ref, shd.Sharded):
+                return True
+            first = {}
+            for pos, t in enumerate(ref.locals):
+                b = ref.sharding.block(pos, ref.dim())
+                if b in first and not torch.equal(t, first[b]):
+                    return False
+                first.setdefault(b, t)
+            return True
+
+        sm = self._state_manager(True)
+        out = {}
+        for k in sm.keys_for(prefix):
+            e = sm.entries[k]
+            sh = e.sharding
+            out[k] = {
+                "tier": int(e.tier),
+                "shape": None if e.ref is None else list(e.ref.shape),
+                "spec": None if sh is None else tuple(sh.spec),
+                "ids": None if sh is None
+                else sh.mesh.device_ids.reshape(-1).tolist(),
+                "devices": None if e.ref is None
+                else [str(t.device) for t in shd.local_tensors(e.ref)],
+                "replicas_same": e.ref is None or replicas_same(e.ref)}
+            if digests and e.ref is not None:
+                out[k]["digest"] = digest(shd.gather(e.ref))
+        return out
 
 
 def _group_main(conn, cfg: Dict[str, Any]) -> None:
@@ -420,11 +531,16 @@ class GroupProcess:
                  node_id: Optional[str] = None, start: bool = True,
                  shm: Optional[bool] = None,
                  shm_threshold: Optional[int] = None,
-                 device: str = "cuda:0"):
-        """``device`` is the child's device as a string: ``"cuda:0"`` (the
-        default; under ``env_for_slice``'s ``CUDA_VISIBLE_DEVICES`` mask,
-        the slice's card), where a child that sees no card raises, or
-        ``"cpu"``, which only an explicit request gets. ``shm=None`` turns
+                 devices: Optional[List[str]] = None,
+                 device_ids: Optional[List[int]] = None):
+        """``devices`` are the child's devices as strings, one per device of
+        its slice (``mesh.devices_for_slice``): by default ``["cuda:0"]``
+        (under ``env_for_slice``'s ``CUDA_VISIBLE_DEVICES`` mask, the
+        slice's card), where a child that sees too few cards raises, or
+        ``"cpu"``, which only an explicit request gets. With
+        ``device_ids`` (the slice's ids in the parent's plane; default 0
+        and on) they make the child's slice: its StateManager's
+        ``MeshSlice``, equal in its ids to the parent's. ``shm=None`` turns
         the shared-memory transport on where the host supports it
         (``shm_transport.shm_available``), ``False`` keeps the pickle
         path; ``shm_threshold`` is the tensor size in bytes from which
@@ -433,7 +549,13 @@ class GroupProcess:
         self.env = dict(env or {})
         self.slice_index = slice_index
         self.wpg_factory = wpg_factory
-        self.device = device
+        self.devices = list(devices) if devices else ["cuda:0"]
+        self.device = self.devices[0]
+        self.device_ids = list(range(len(self.devices))) \
+            if device_ids is None else [int(i) for i in device_ids]
+        if len(self.device_ids) != len(self.devices):
+            raise ValueError(f"{len(self.devices)} devices but device ids "
+                             f"{self.device_ids}")
         self.node_id = node_id or f"group{group_id}-proc"
         self.shm_enabled = (shmt.shm_available() if shm is None
                             else bool(shm) and shmt.shm_available())
@@ -470,7 +592,7 @@ class GroupProcess:
                                          threshold=self.shm_threshold)
         cfg = {"group_id": self.group_id, "env": self.env,
                "slice_index": self.slice_index, "node_id": self.node_id,
-               "device": self.device,
+               "devices": self.devices, "device_ids": self.device_ids,
                "shm": {"enabled": self.shm_enabled,
                        "threshold": self.shm_threshold,
                        "prefix": self._child_prefix}}
@@ -701,7 +823,8 @@ class GroupProcess:
 
     def respawn(self) -> None:
         """Replace a dead (or wedged) worker process in place: a new process
-        on the same handle with the deployments replayed, so existing
+        on the same handle (the same environment, devices and device ids)
+        with the deployments replayed, so existing
         :class:`WPGProxy` objects stay valid. Managed state is LOST (a
         device failure): jobs re-init or restore a checkpoint. Billing
         survives in the parent's ExecLog mirrors. The dead incarnation's
@@ -776,10 +899,13 @@ class StateManagerProxy:
     def migrate(self, job_id: str, dst: "StateManagerProxy",
                 max_inline_bytes: Optional[int] = None) -> int:
         """Cross-process migration: export in the source child, import in
-        the destination child (onto ITS device), then drop the source's
-        entries. With the shm transport the export's tensors land in the
-        source child's pool and the parent relays the descriptors: written
-        once and read once, both in children. The ``export__*.npy`` spill
+        the destination child (laid out on ITS slice), then drop the
+        source's entries. ``cross_mesh`` compares the two groups' slices
+        with ``MeshSlice.crosses``, as ``StateManager.migrate`` does: two
+        slices of virtual devices on one card share the card, not the ids.
+        With the shm transport the export's tensors land in the source
+        child's pool and the parent relays the descriptors: written once
+        and read once, both in children. The ``export__*.npy`` spill
         tier takes every entry above ``max_inline_bytes`` (by default only
         when shm is off, at 64 MiB). Transactional: a failed or crashed
         import leaves the source the sole owner, and the parent deletes the
@@ -807,8 +933,9 @@ class StateManagerProxy:
             self.gp.release_segments(segs)
         t2 = time.monotonic()
         self.gp.call("drop_job_state", {"job": job_id})
-        cross = (self.mesh_slice is not None and dst.mesh_slice is not None
-                 and self.mesh_slice.device != dst.mesh_slice.device)
+        src_sl, dst_sl = self.mesh_slice, dst.mesh_slice
+        cross = (src_sl is not None and dst_sl is not None
+                 and src_sl.crosses(dst_sl))
         self.last_migrate = {
             "bytes": moved, "seconds": time.monotonic() - t0,
             "cross_mesh": cross, "keys": len(payload["entries"]),
@@ -887,11 +1014,8 @@ class WPGProxy:
                 and isinstance(args[0], WPGProxy):
             target = args[0]
             if target.gp is not self.gp:
-                if qop.kwargs.get("target_shardings") is not None:
-                    from repro_torch.models.sharding import not_ported
-                    raise not_ported("SYNC_WEIGHTS into target shardings "
-                                     "across processes", 4)
-                return self._sync_cross_process(target)
+                return self._sync_cross_process(
+                    target, qop.kwargs.get("target_shardings"))
             args = (("__dep__", target.spec.deployment_id),) + args[1:]
         payload = {"dep": qop.deployment_id, "req_id": qop.req_id,
                    "job_id": qop.job_id, "op": qop.op.value,
@@ -906,11 +1030,14 @@ class WPGProxy:
             self.exec_log.append(tuple(entry))
         return result
 
-    def _sync_cross_process(self, target: "WPGProxy"):
+    def _sync_cross_process(self, target: "WPGProxy", target_shardings=None):
         """A weight sync across children as a descriptor relay: the source
-        child writes its host parameters once into its shm pool, the parent
-        forwards the descriptors without touching the bytes, and the target
-        child copies them onto its device, synchronising before it replies.
+        child writes its host parameters once into its shm pool (a slice's
+        gathered), the parent forwards the descriptors without touching the
+        bytes, and the target child lays them out on its slice (in
+        ``target_shardings``, a tree of ``NamedSharding`` over the target's
+        slice, or its deployment's own layout), synchronising before it
+        replies.
         The reply releases the segments to the source; a target that dies
         mid-store still releases them (a dead source's are reaped)."""
         t0 = time.monotonic()
@@ -920,7 +1047,8 @@ class WPGProxy:
         segs = shmt.refs_in(tree)
         try:
             target.gp.call("store_params",
-                           {"dep": target.spec.deployment_id, "tree": tree})
+                           {"dep": target.spec.deployment_id, "tree": tree,
+                            "shardings": target_shardings})
         finally:
             self.gp.release_segments(segs)
         synced = self._sm.job_bytes(self.job_prefix)

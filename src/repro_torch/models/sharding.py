@@ -56,6 +56,11 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # pickle rebuilds through ``__new__(*entries)`` (a spec crosses the
+        # process plane's pipe inside a ``NamedSharding``)
+        return tuple(self)
+
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
@@ -206,10 +211,8 @@ def tree_partition_specs(axes_tree, mesh, rules: Rules, shapes_tree=None):
 
 # the queued parts of ROADMAP.md's Queue 1 item 5 (multi-device execution)
 PARTS = {
-    4: "process-mode groups of several devices",
     5: "the dry run's meshes of many devices",
     6: "mesh_bench.py",
-    7: "the host optimizer step over a slice of several devices",
 }
 
 

@@ -523,12 +523,21 @@ def test_teardown_of_running_best_effort_bills_and_spares_guaranteed():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
-    """A process-mode group of several devices still raises, naming its
-    Queue 1 item; a PPO job (an actor and a critic deployment) attaches."""
+    """The production meshes still raise, naming their Queue 1 item; a
+    process-mode group of several devices, ported, spawns its child on its
+    slice; a PPO job (an actor and a critic deployment) attaches."""
+    from repro_torch.launch.mesh import make_production_mesh
+
     P = _Pkg("repro_torch")
-    with pytest.raises(NotImplementedError, match="item 5, sharding"):
-        PlexCluster(device_plane=DevicePlane(devices=[CPU] * 2),
-                    devices_per_group=2, process_plane=True)
+    with pytest.raises(NotImplementedError, match="item 5, sharding, part 5"):
+        make_production_mesh()
+    pc = PlexCluster(device_plane=DevicePlane(devices=[CPU] * 2),
+                     devices_per_group=2, process_plane=True)
+    try:
+        gp = pc.router.group_procs[0]
+        assert (gp.devices, gp.device_ids) == (["cpu", "cpu"], [0, 1])
+    finally:
+        pc.router.close_processes()
     c = PlexCluster(device_plane=cpu_plane(), wpg_factory=SleepWPG)
     ctl = c.add_job(_tiny(P, "p", 1), algo="ppo")
     assert type(ctl).__name__ == "RLControllerPPO"

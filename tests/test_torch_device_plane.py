@@ -11,6 +11,8 @@ virtual devices and skips them under tier-1; the port's virtual devices
 are an explicit device list, ``[torch.device("cpu")] * 8``, so these run
 (and assert) here. A device's id is its position in the plane's list.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -327,8 +329,20 @@ def test_other_families_on_several_devices_raise_naming_their_part(arch,
 
 
 def test_process_mode_group_of_several_devices_raises_naming_part_4():
+    """Part 4 is ported, so the group no longer raises: in process mode a
+    group of several devices spawns its child on its slice (its devices
+    and the parent's ids) and holds the slice's lease until it retires."""
     router = Router(device_plane=_plane(slice_size=2), process_plane=True)
-    with pytest.raises(NotImplementedError,
-                       match="item 5, sharding, part 4"):
-        router.ensure_group(0)
-    assert router.device_plane.domains() == {}
+    try:
+        sm = router.ensure_group(1)
+        gp = router.group_procs[1]
+        assert sm.mesh_slice.device_ids() == (0, 1)
+        assert gp.devices == ["cpu", "cpu"] and gp.device_ids == [0, 1]
+        assert gp.env == {"CUDA_VISIBLE_DEVICES": ""}
+        assert gp.pid() != os.getpid() and gp.ping(timeout=120) is not None
+        assert router.device_plane.domains() == {1: 0}
+        assert 4 not in shd.PARTS and 7 not in shd.PARTS
+        router.retire_group(1)
+        assert router.device_plane.domains() == {} and not router.group_procs
+    finally:
+        router.close_processes()

@@ -174,16 +174,17 @@ def test_serve_mode_attach():
 def test_group_process_runs_on_the_card_unless_asked_for_the_cpu():
     """A GroupProcess built without a device runs its child on ``cuda:0``:
     a child that then sees no card raises instead of carrying on on the
-    CPU. Only an explicit ``device="cpu"`` (the tests' DevicePlane) gets
-    the CPU."""
+    CPU. Only an explicit ``devices=["cpu"]`` (the tests' DevicePlane)
+    gets the CPU."""
     gp = GroupProcess(0, start=False)
     assert gp.device == "cuda:0"
     cfg = {"group_id": 0, "node_id": "g0", "slice_index": 0,
-           "device": gp.device}
+           "devices": [gp.device], "device_ids": [0]}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="sees no CUDA device"):
             _ChildState(cfg)._state_manager(needs_real=True)
-    sm = _ChildState(dict(cfg, device="cpu"))._state_manager(needs_real=True)
+    sm = _ChildState(dict(cfg, devices=["cpu"]))._state_manager(
+        needs_real=True)
     assert isinstance(sm, StateManager)
     assert sm.mesh_slice.device == torch.device("cpu")
     r = proc_router(proc_wpg_factory=STUB)

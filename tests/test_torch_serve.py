@@ -210,8 +210,9 @@ def test_unported_ops_raise_naming_the_roadmap(tmp_path):
     """Every op of the service API runs on the port now (the PPO readouts,
     the host optimizer step, the checkpoint ops, a weight sync into target
     shardings, here a 2-device layout written back into the one-device
-    target bit-exact); what stays unported, a process-mode group of
-    several devices, raises naming its Queue 1 item."""
+    target bit-exact), and a process-mode group of several devices
+    spawns its child on its slice; what stays unported, the production
+    meshes, raises naming its Queue 1 item."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import common
     from repro_torch.models import sharding as shd
@@ -238,10 +239,16 @@ def test_unported_ops_raise_naming_the_roadmap(tmp_path):
     got = common.canonical_flat(other.wpg.params())
     for k, v in common.canonical_flat(dep.wpg.params()).items():
         assert torch.equal(got[k], v), k
+    proc = Router(device_plane=DevicePlane(devices=["cpu", "cpu"],
+                                           slice_size=2), process_plane=True)
+    try:
+        assert proc.ensure_group(0).mesh_slice.n_devices == 2
+        assert proc.group_procs[0].devices == ["cpu", "cpu"]
+    finally:
+        proc.close_processes()
+    from repro_torch.launch.mesh import make_production_mesh
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*sharding"):
-        Router(device_plane=DevicePlane(devices=["cpu", "cpu"],
-                                        slice_size=2),
-               process_plane=True).ensure_group(0)
+        make_production_mesh(multi_pod=True)
 
 
 def test_port_imports_and_serves_without_jax_or_reference_package():
