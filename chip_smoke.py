@@ -554,6 +554,16 @@ PROC_TP_LAYERS = 4
 PROC_TP_OVERRIDES = (("num_layers", PROC_TP_LAYERS),)
 PROC_TP_PARITY_LAYERS, PROC_TP_PARITY_NEW = 2, 8
 PROC_TP_PARITY_OVERRIDES = (("num_layers", PROC_TP_PARITY_LAYERS),)
+# phase 37: the data and pod axes, the card seen as 4 virtual devices.
+# qwen2-0.5b at full width cut to DP_LAYERS of 24 layers on a (2, 2)
+# data x model mesh (phase 8's update at B=16, 8 a row, packed to 128;
+# a generate of 64 at prompt 128), its prefill at DP_POD_LAYERS on a
+# (2, 1, 2) pod x data x model mesh; zamba2-7b at DP_HYB_LAYERS blocks (one
+# application of the shared block) decoding one sequence over a cache of
+# DP_CP_T slots split over data = 2 (the long rules), its prompt
+# DP_CP_P long so that both blocks of the cache hold live keys
+DP_LAYERS, DP_POD_LAYERS = 4, 2
+DP_HYB_LAYERS, DP_CP_T, DP_CP_P = 8, 8192, 6000
 PERF_WORK = {"flash_attention": (473_432_064, 8_388_608),
              "decode_attention": (11_010_048, 1_630_208),
              "ssd": (53_812_920_320, 216_531_264)}
@@ -1025,6 +1035,36 @@ def flex_call(torch, s, t, pos, *, window=0, softcap=None, scale=None):
 
     call.label = "flex_attention (compiled)"
     return call
+
+
+def flex_warmup(torch, dev):
+    """One small compiled ``flex_attention`` call, made in a thread while
+    phase 2's ``nvcc`` builds: the compiler's first call (its imports, its
+    worker pool, its first kernels: some 35 s, more than the build) is
+    then done before phase 3's yardsticks, whose own compiles take some
+    6 s each. Returns the thread, which phase 3 joins first; a
+    failure is printed and left to the yardsticks, which time whatever
+    works."""
+    import threading
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(3)
+            q, k, v = (torch.randn((1, 128, 2, 64), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            flex_call(torch, 128, 128, 0, softcap=GEMMA_CAP,
+                      scale=GEMMA_SCALE)(q, k, v)
+            torch.cuda.synchronize(dev)
+            print(f"  flex_attention warmed up in a thread in "
+                  f"{time.perf_counter() - t0} s (beside the build)")
+        except Exception as e:             # a yardstick, never on the path
+            print(f"  flex_attention's warm-up failed: {e!r}")
+
+    thread = threading.Thread(target=run, name="flex-warmup", daemon=True)
+    thread.start()
+    return thread
 
 
 @functools.lru_cache(maxsize=None)
@@ -2518,7 +2558,11 @@ def proc_kill(torch, dev, cluster, ctls, tmp, nbytes):
     smi_alive = compute_apps()
     prompts = next(ctls["B"].batches)[0]
     router.serve()
-    gen_f = dep.generate(prompts, max_new_tokens=TRAIN["max_new_tokens"])
+    # four times the step's tokens: at 4 layers a 64-token generate lasts
+    # some 0.4 s on a fast host, and the kill, 0.3 s into the channel's
+    # hold, could land after it
+    gen_f = dep.generate(prompts,
+                         max_new_tokens=4 * TRAIN["max_new_tokens"])
     dep_f = dep.forward(gen_f)
     busy_since, deadline = None, time.monotonic() + 120
     while True:            # the channel held for 0.3 s: inside the generate
@@ -5243,6 +5287,510 @@ def proc_tp_phase(torch, dev, records):
     print(f"  phase 36 sub-steps: {steps}")
 
 
+def dp_mesh(dev, shape):
+    """A mesh of ``shape`` over virtual devices of the one card:
+    (data, model), or (pod, data, model)."""
+    from repro_torch.launch.mesh import Mesh
+
+    def grid(dims):
+        return [grid(dims[1:]) for _ in range(dims[0])] if dims else dev
+
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                      "model")
+    return Mesh(grid(list(shape)), axes)
+
+
+def dp_state(torch, model, params, mesh, rules, adamw):
+    """A train state of copies of ``params`` in ``train_state.shardings``'
+    layout on ``mesh`` (ZeRO-2 moments, zero)."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_state as ts
+
+    shs = ts.shardings(model, mesh, shd.named_rules(rules), zero=True)
+    dev = mesh.flat_devices()[0]
+    st = ts.TrainState(params, opt.init(params, adamw),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    return ts.TrainState(
+        shd.device_put(st.params, shs.params),
+        opt.AdamWState(*(shd.device_put(getattr(st.opt_state, f),
+                                        getattr(shs.opt_state, f))
+                         for f in ("step", "mu", "nu"))),
+        shd.device_put(st.step, shs.step))
+
+
+def dp_meta_counts(torch, model, batch_shape, rules):
+    """The dry run's count of the (2, 2) update on ``meta``: one data row
+    (``launch/dryrun.mesh_cell_args``), its totals times the rows."""
+    from repro_torch.launch import dryrun, hlo_cost
+
+    mesh = dp_mesh(torch.device("meta"), (2, 2))
+    fn, args, _ = dryrun.mesh_cell_args(model, batch_shape, mesh, rules,
+                                        False)
+    with hlo_cost.Counter() as c:
+        fn(*args)
+    return dryrun_per_device(c.stats(), mesh.shape["model"])
+
+
+def f32_lookup_mode(torch, shape):
+    """A function mode under which a lookup of rows of a tensor of
+    ``shape`` by integer indices sums its gradient in f32 (one rounding
+    to the table's dtype at the end), where the index backward adds each
+    use in the table's dtype: the witness's embedding gradient."""
+    from torch.overrides import TorchFunctionMode
+
+    class Lookup(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, table, idx):
+            ctx.save_for_backward(idx)
+            ctx.rows = table.shape[0]
+            return table[idx]
+
+        @staticmethod
+        def backward(ctx, g):
+            idx, = ctx.saved_tensors
+            acc = torch.zeros((ctx.rows, g.shape[-1]), dtype=torch.float32,
+                              device=g.device)
+            acc.index_add_(0, idx.flatten(),
+                           g.reshape(-1, g.shape[-1]).float())
+            return acc.to(g.dtype), None
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__ and \
+                    tuple(args[0].shape) == shape and \
+                    torch.is_tensor(args[1]) and \
+                    not args[1].is_floating_point():
+                return Lookup.apply(*args)
+            return func(*args, **(kwargs or {}))
+
+    return Mode()
+
+
+def dp_update(torch, dev, model, params, batch, one, rules, rows):
+    """One update_actor of ``params`` on the (2, 2) mesh under ``rules``
+    against ``one`` (the one-device witness's metrics, parameters and mu):
+    phase 9's tolerances (``held_update``, the embedding's mu but for
+    ``rows``), replicated blocks the same bits, each device's
+    blocks those of the specs, K1 launched 2 x DP_LAYERS times on each
+    device. Under ``tp`` the card's per-device counts must equal the dry
+    run's on ``meta``, exactly. Returns the launches the update made."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.layers import make_ctx
+    from repro_torch.rl import grpo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_state as ts
+
+    adamw = opt.AdamWConfig(**TRAIN_LR)
+    mesh = dp_mesh(dev, (2, 2))
+    ctx = make_ctx(mesh, rules)
+    state = dp_state(torch, model, params, mesh, rules, adamw)
+    step = grpo.make_update_actor(model, adamw=adamw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with hlo_cost.Counter() as c:
+        _, met = step(state, batch, ctx=ctx)
+        got = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = {"flash_attention": 4 * 2 * DP_LAYERS, "decode_attention": 0,
+            "ssd": 0}
+    print(f"  update_actor under {rules} on (2, 2): {secs} s, launches "
+          f"{got}; { {k: float(v) for k, v in met.items()} }")
+    if got != want:
+        fail(f"phase 37: update_actor under {rules} launched {got}, want "
+             f"{want}")
+    specs = ts.partition_specs(model, mesh, shd.named_rules(rules))
+    p2, mu2, pspec, mspec = (common.canonical_flat(t) for t in (
+        state.params, state.opt_state.mu, specs.params, specs.opt_state.mu))
+    worst = held_update(torch, met, p2, mu2, one, adamw, f"under {rules}",
+                        rows)
+    halves = held = want_bytes = 0
+    for k, leaf in p2.items():
+        for got_leaf, spec in ((leaf, pspec[k]), (mu2[k], mspec[k])):
+            if tuple(got_leaf.sharding.spec) != tuple(spec):
+                fail(f"phase 37: {k} laid out as {got_leaf.sharding.spec}, "
+                     f"its spec {spec}")
+            first = {}
+            for pos, t in enumerate(got_leaf.locals):
+                b = got_leaf.sharding.block(pos, got_leaf.dim())
+                if b in first and not torch.equal(t, first[b]):
+                    fail(f"phase 37: replicas of {k} differ under {rules}")
+                first.setdefault(b, t)
+        if "data" in str(tuple(mspec[k])) and \
+                "data" not in str(tuple(pspec[k])):
+            if mu2[k].locals[0].numel() * 2 != leaf.locals[0].numel():
+                fail(f"phase 37: mu {k} is not half a device's block")
+            halves += 1
+        held += leaf.locals[0].numel() * leaf.element_size()
+        want_bytes += leaf.numel() * leaf.element_size() // math.prod(
+            leaf.sharding.parts(leaf.dim()))
+    if held != want_bytes or not halves:
+        fail(f"phase 37: a device holds {held} B of parameters, its specs "
+             f"{want_bytes} B; {halves} moments halved")
+    print(f"  under {rules}: metrics, mu and the parameters within phase "
+          f"9's tolerances of the witness (worst |diff| / tolerance "
+          f"{worst}); {halves} moments split over data, half a device; "
+          f"{held} B of parameters a device, as the specs give")
+    if rules == "tp":
+        card = dryrun_per_device(c.stats(), 4)
+        b, s = batch["tokens"].shape
+        meta = dp_meta_counts(torch, model, ShapeSpec("t", "train", s, b),
+                              rules)
+        print(f"  counts a device, card {card}; meta {meta}")
+        if card != meta:
+            fail("phase 37: the card's per-device counts differ from the "
+                 "dry run's on meta")
+        print("  the card's counts a device equal the dry run's on meta "
+              "exactly (FLOPs, bytes, ops, kernels, collectives by kind)")
+    emb_mu = shd.gather(mu2["embed/embedding"])
+    del state, p2, mu2
+    return got, emb_mu
+
+
+def held_update(torch, met, params, mu, one, adamw, what, rows):
+    """The metrics, mu and the parameters (flat trees) of one update
+    against ``one``'s (the witness): the metrics within 5e-2 (grad_norm
+    5 %), each leaf's f32 mu within 5e-2 of its largest |mu| (phase 9's;
+    the embedding's but for ``rows``, which the caller holds), and each
+    parameter
+    within 5e-2 of its leaf's largest where its gradient, on both sides, is
+    clear of rounding (|mu| above 1e-3 of the leaf's largest) and of eps
+    (|g| = 10 |mu| above 100 eps) and of one sign: AdamW's first step is
+    lr * g / (|g| + eps), about lr * sign(g), and moves by up to 2 lr where
+    a gradient in the rounding noise differs; mu, which carries it, is held
+    whole. Returns the worst |diff| / tolerance."""
+    from repro_torch.models import sharding as shd
+
+    worst = 0.0
+    for k in ("loss", "pg_loss", "kl", "aux", "grad_norm"):
+        g, w = float(met[k]), float(one["metrics"][k])
+        tol = 5e-2 * (w if k == "grad_norm" else max(1.0, abs(w)))
+        worst = max(worst, abs(g - w) / tol)
+        if not abs(g - w) <= tol:
+            fail(f"phase 37: {k} {what} {g}, the witness {w}")
+    for k, leaf in params.items():
+        mu1 = one["mu"][k].float()
+        mu_got = shd.gather(mu[k]).float()
+        floor = torch.clamp(1e-3 * mu1.abs().max(), min=10 * adamw.eps)
+        clear = (torch.sign(mu_got) == torch.sign(mu1)) & (
+            mu1.abs() > floor) & (mu_got.abs() > floor)
+        keep = ~rows if k == "embed/embedding" else slice(None)
+        for name, got_t, ref_t in (
+                ("param", shd.gather(leaf).float()[clear],
+                 one["params"][k].float()[clear]),
+                ("mu", mu_got[keep], mu1[keep])):
+            if not ref_t.numel():
+                continue
+            err = (got_t - ref_t).abs().max().item()
+            tol = 5e-2 * ref_t.abs().max().item()
+            worst = max(worst, err / tol if tol else 0.0)
+            if not err <= tol:
+                fail(f"phase 37: {name} {k} {what}: {err} > {tol}")
+    return worst
+
+
+def dryrun_per_device(stats, n):
+    """The counts ``launch/dryrun.py`` compares, over ``n`` devices."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.per_device_counts(
+        {k: stats[k] for k in ("flops", "traffic_bytes", "ops", "kernels",
+                               "collectives")}, n)
+
+
+def dp_phase(torch, dev, records):
+    """Phase 37: the data and pod axes (module constants above). The
+    update under ``tp`` and ``fsdp_tp``, a generate, a prefill over a pod
+    axis and zamba2's context-parallel decode, each against one device;
+    K1, K2 and K2 with its log-sum-exp at the per-device shapes against
+    their plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.layers import make_ctx, row_logits
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl import grpo
+    from repro_torch.rl import rollout
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_state as ts
+
+    t_phase = time.monotonic()
+    cfg = get_config(ARCH).replace(num_layers=DP_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    params = model.init_params(gen, dev)
+    params["embed"]["embedding"].mul_(1 / 64)      # phase 9's spread policy
+    b, s = TRAIN["batch_size"], TRAIN["seq_len"]
+    logp = grpo.make_compute_log_prob(model)
+    np_batch = seeded_train_batch(
+        lambda bt: logp(params, {k: torch.from_numpy(v).to(dev)
+                                 for k, v in bt.items()}),
+        b, s, TRAIN["prompt_len"], 37)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    print(f"phase 37: {ARCH} at full width, {DP_LAYERS} of 24 layers, on "
+          f"(2, 2) data x model virtual devices; update_actor at B={b} "
+          f"({b // 2} a row) S={s}, AdamW {TRAIN_LR}")
+    adamw = opt.AdamWConfig(**TRAIN_LR)
+    emb_shape = tuple(params["embed"]["embedding"].shape)
+    ref = {}
+    for name, mode in (("one device", contextlib.nullcontext()),
+                       ("witness", f32_lookup_mode(torch, emb_shape))):
+        clone = common.tree_map(lambda t: t.clone(), params,
+                                is_leaf=torch.is_tensor)
+        one = ts.TrainState(clone, opt.init(clone, adamw),
+                            torch.zeros((), dtype=torch.int32, device=dev))
+        with mode:
+            _, m1 = grpo.make_update_actor(model, adamw=adamw)(one, batch)
+        ref[name] = {"metrics": {k: float(v) for k, v in m1.items()},
+                     "params": common.canonical_flat(one.params),
+                     "mu": common.canonical_flat(one.opt_state.mu)}
+        print(f"  {name}: {ref[name]['metrics']}")
+        del one, clone
+    # the witness is the one-device update with the embedding lookup's
+    # gradient summed in f32 (a token used n times in the batch adds n bf16
+    # rows in the index backward). Both updates are held against it within
+    # phase 9's tolerances, but for the embedding's mu rows where the
+    # one-device update misses it by more (``rows``, the index backward's
+    # rounding): there the mesh, whose data rows each sum a part of the
+    # uses, must be no farther from the witness than one device is
+    wit, one = ref["witness"], ref["one device"]
+    uses = torch.bincount(batch["tokens"].flatten().long(),
+                          minlength=emb_shape[0])
+    mu_w, mu_1 = (r["mu"]["embed/embedding"].float() for r in (wit, one))
+    scale = mu_w.abs().max().item()
+    err_1 = (mu_1 - mu_w).abs().amax(1)
+    rows = err_1 > 5e-2 * scale
+    idx = rows.nonzero().flatten()
+    print(f"  the embedding's mu, one device against the witness: "
+          f"{int(rows.sum())} rows beyond 5e-2 of the leaf's largest (tokens "
+          f"{idx.tolist()[:8]}, uses {uses[idx].tolist()[:8]}), worst "
+          f"{err_1.max().item() / scale} of the leaf's largest")
+    worst = held_update(torch, one["metrics"], one["params"], one["mu"],
+                        wit, adamw, "on one device", rows)
+    print(f"  the one-device update within phase 9's tolerances of the "
+          f"witness but for those rows (worst |diff| / tolerance {worst})")
+    upd = {}
+    for rules in ("tp", "fsdp_tp"):
+        upd[rules], mu_r = dp_update(torch, dev, model, params, batch, wit,
+                                     rules, rows)
+        err_r = (mu_r.float() - mu_w).abs().amax(1)
+        print(f"  the embedding's mu under {rules} against the witness: "
+              f"worst {err_r.max().item() / scale} of the leaf's largest; "
+              f"in those rows {(err_r[idx] / scale).tolist()[:8]}, one "
+              f"device {(err_1[idx] / scale).tolist()[:8]}")
+        if not bool((err_r[rows] <= err_1[rows]).all()):
+            fail(f"phase 37: the embedding's mu under {rules} is farther "
+                 f"from the witness than one device's in the rows where "
+                 f"one device misses it")
+    del ref, wit, one, mu_w, mu_1
+    release(torch, dev, "phase 37's train states")
+
+    # a generate on (2, 2): the prefill and 64 decode steps, each step's
+    # logits against one device's, both fed the one device's argmax; the
+    # launches counted from 0 over each call on the mesh and summed
+    mesh = dp_mesh(dev, (2, 2))
+    ctx = make_ctx(mesh, "tp")
+    sp = shd.device_put(params, shd.tree_shardings(
+        model.logical_axes(), mesh, ctx.rules, model.param_specs()))
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    rel_tol = 2.0 ** -6 * math.sqrt(DP_LAYERS / 4)
+    worst = 0.0
+    gen_k = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def held(got, want, what):
+        nonlocal worst
+        err = (got.float() - want.float()).abs().max().item()
+        tol = rel_tol * want.float().abs().max().item()
+        worst = max(worst, err / tol)
+        if not (torch.isfinite(got).all() and err <= tol):
+            fail(f"phase 37: {what}: max|diff| {err} > {tol}")
+
+    def on_mesh(fn, *args, **kw):
+        ops.reset_launches()
+        out = fn(*args, **kw)
+        for k, v in ops.LAUNCHES.items():
+            gen_k[k] += v
+        return out
+
+    with torch.no_grad():
+        lp, _, cp = on_mesh(model.forward, sp, {"tokens": prompt},
+                            return_cache=True, ctx=ctx)
+        prefill_k = dict(gen_k)
+        l1, _, c1 = model.forward(params, {"tokens": prompt},
+                                  return_cache=True)
+        held(row_logits(ctx, lp, B), l1, "prefill logits on (2, 2)")
+        cp, c1 = rollout._pad_cache(cp, N_NEW), rollout._pad_cache(c1, N_NEW)
+        tok = l1[:, -1:].argmax(-1)
+        for i in range(N_NEW):
+            lp, cp = on_mesh(model.decode_step, sp, cp, {"tokens": tok},
+                             ctx=ctx)
+            l1, c1 = model.decode_step(params, c1, {"tokens": tok})
+            held(row_logits(ctx, lp, B), l1, f"decode step {i} on (2, 2)")
+            tok = l1.argmax(-1)
+    want = {"flash_attention": 4 * DP_LAYERS,
+            "decode_attention": 4 * DP_LAYERS * N_NEW, "ssd": 0}
+    print(f"  a generate on (2, 2), B={B} prompt {P}, {N_NEW} decode steps: "
+          f"logits within phase 5's bound of one device (worst |diff| / "
+          f"tolerance {worst}); the mesh's launches {gen_k}")
+    if gen_k != want or prefill_k["decode_attention"]:
+        fail(f"phase 37: the generate on (2, 2) launched {gen_k}, want {want}")
+    del sp, cp, c1
+    # a prefill over the pod axis: (2, 1, 2), DP_POD_LAYERS layers
+    cut = {k: v for k, v in params.items()}
+    cut["layers"] = {k: v for k, v in common.tree_map(
+        lambda t: t[:DP_POD_LAYERS], params["layers"],
+        is_leaf=torch.is_tensor).items()}
+    pod_model = build_model(cfg.replace(num_layers=DP_POD_LAYERS))
+    pmesh = dp_mesh(dev, (2, 1, 2))
+    pctx = make_ctx(pmesh, "tp")
+    pp = shd.device_put(cut, shd.tree_shardings(
+        pod_model.logical_axes(), pmesh, pctx.rules,
+        pod_model.param_specs()))
+    with torch.no_grad():
+        ops.reset_launches()
+        lp, _ = grpo.make_prefill(pod_model)(pp, {"tokens": prompt},
+                                             ctx=pctx)
+        pod_k = dict(ops.LAUNCHES)
+        l1, _ = grpo.make_prefill(pod_model)(cut, {"tokens": prompt})
+    worst = 0.0
+    held(row_logits(pctx, lp, B), l1, "prefill on (2, 1, 2)")
+    print(f"  a prefill on (2, 1, 2) pod x data x model at {DP_POD_LAYERS} "
+          f"layers: logits within phase 5's bound of one device (worst "
+          f"{worst}); launches {pod_k}")
+    if pod_k != {"flash_attention": 4 * DP_POD_LAYERS, "decode_attention": 0,
+                 "ssd": 0}:
+        fail(f"phase 37: the pod prefill launched {pod_k}")
+    del pp, cut, params
+    release(torch, dev, "phase 37's qwen2 parameters")
+
+    # zamba2's context-parallel decode under long: (2, 2), B=1
+    hcfg = get_config(HYB_ARCH).replace(num_layers=DP_HYB_LAYERS)
+    hm = build_model(hcfg)
+    hp = hm.init_params(gen, dev)
+    hprompt = torch.randint(0, hcfg.vocab_size, (1, DP_CP_P), generator=gen,
+                            device=dev)
+    with torch.no_grad():
+        _, _, hc = hm.forward(hp, {"tokens": hprompt}, return_cache=True)
+        hc = rollout._pad_cache(hc, DP_CP_T - DP_CP_P)
+        lctx = make_ctx(mesh, "long")
+        hsp = shd.device_put(hp, shd.tree_shardings(
+            hm.logical_axes(), mesh, lctx.rules, hm.param_specs()))
+        specs = hm.cache_specs(1, DP_CP_T)
+        hcp = dict(shd.device_put(
+            {k: v for k, v in hc.items() if k != "pos"},
+            shd.tree_shardings(common.logical_axes(specs), mesh, lctx.rules,
+                               specs)), pos=DP_CP_P)
+        if hcp["attn_k"].locals[0].shape[2] != DP_CP_T // 2:
+            fail("phase 37: zamba2's cache is not split over data")
+        tok = torch.randint(0, hcfg.vocab_size, (1, 1), generator=gen,
+                            device=dev)
+        ops.reset_launches()
+        lcp, _ = hm.decode_step(hsp, hcp, {"tokens": tok}, ctx=lctx)
+        cp_k = dict(ops.LAUNCHES)
+        l1, _ = hm.decode_step(hp, hc, {"tokens": tok})
+    worst = 0.0
+    rel_tol = 2.0 ** -6 * math.sqrt(DP_HYB_LAYERS / 4)
+    held(row_logits(lctx, lcp, 1), l1, "zamba2's context-parallel decode")
+    want = {"flash_attention": 0, "ssd": 0,
+            "decode_attention": 4 * (DP_HYB_LAYERS // hcfg.attn_period)}
+    print(f"  zamba2-7b at {DP_HYB_LAYERS} blocks, B=1, a cache of "
+          f"{DP_CP_T} slots split over data = 2 at pos {DP_CP_P}: one "
+          f"decode step's logits within phase 5's bound of one device "
+          f"(worst {worst}); launches {cp_k} (K2 with its log-sum-exp, each "
+          f"device over its {DP_CP_T // 2} keys)")
+    if cp_k != want:
+        fail(f"phase 37: the context-parallel decode launched {cp_k}")
+    del hsp, hcp, hc, hp
+    release(torch, dev, "phase 37's zamba2")
+
+    # the kernels at the per-device shapes: K1 (the update's and the
+    # prefill's B=8 S=128), K2 (the decode's B=8 T=192), K2 with its
+    # log-sum-exp (the context-parallel decode's B=1 T=4096 H=K=16 D=112),
+    # each with the launches counted on the mesh above
+    k1_launches = sum(k["flash_attention"]
+                      for k in (upd["tp"], upd["fsdp_tp"], gen_k, pod_k))
+    slice_kernel_rows(torch, dev, records, (
+        ("flash_attention", "dp_2x2", flash_timing,
+         (B // 2, P, H // 2, KH // 2, D), k1_launches),
+        ("decode_attention", "dp_2x2", decode_timing,
+         (B // 2, P + N_NEW, P + N_NEW - 1, 200, H // 2, KH // 2, D),
+         gen_k["decode_attention"]),
+    ))
+    gen33 = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen33,
+                           device=dev).to(torch.bfloat16)
+
+    rec = decode_lse_timing(torch, randn, 1, DP_CP_T // 2, DP_CP_T // 2 - 1,
+                            HYB_H // 2, HYB_H // 2, HYB_D)
+    rec["launches"] = cp_k["decode_attention"]
+    records["decode_attention"]["dp_cp_lse"] = rec
+    records["decode_attention"]["max_abs_err"] = max(
+        records["decode_attention"]["max_abs_err"], rec["max_abs_err"])
+    print(f"  phase 37 aimed at 45 s, took {time.monotonic() - t_phase} s")
+
+
+def decode_lse_timing(torch, randn, b, t_cap, pos, h, kh, d, iters=200):
+    """K2 with its log-sum-exp output at one shape, against its plain
+    version (the output within the bf16 tolerance, the f32 lse within
+    1e-2), timed beside its bound (the lse's 4 B a row written too) and
+    SDPA (which computes the output alone)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import bound
+
+    flops, per_call = ops.decode_attention_work(b, h, kh, d, pos, 2, 2,
+                                                lse=True)
+    sets = [(Q_SCALE * randn(b, h, d), randn(b, t_cap, kh, d),
+             randn(b, t_cap, kh, d)) for _ in range(n_sets(per_call))]
+    q, kc, vc = sets[0]
+    shape = f"B={b} T={t_cap} H={h} K={kh} D={d} pos={pos} with lse"
+    out, lse = ops.decode_attention(q, kc, vc, pos, return_lse=True)
+    r_out, r_lse = ref.ref_decode_attention(q, kc, vc, pos, return_lse=True)
+    err = check_close(torch, shape, out, r_out)
+    lse_err = (lse - r_lse).abs().max().item()
+    print(f"  {shape}: lse max_abs_err {lse_err} (tolerance 1e-2)")
+    if not (lse.dtype == torch.float32 and lse_err <= 1e-2):
+        fail(f"K2's lse at {shape}: max|diff| {lse_err}")
+    # a block past the position: no live key, lse -inf and an output of 0
+    e_out, e_lse = ops.decode_attention(q, kc, vc, -1, return_lse=True)
+    if not (torch.all(e_lse == float("-inf")) and torch.all(e_out == 0)):
+        fail("K2 with no live key did not give -inf and zeros")
+
+    def kernel(q, k, v):
+        return ops.decode_attention(q, k, v, pos, return_lse=True)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :pos + 1].transpose(1, 2),
+            v[:, :pos + 1].transpose(1, 2), enable_gqa=True)[:, :, 0]
+
+    library.label = "sdpa"
+    reps = max(50, 1000 // len(sets))
+    t_kernel = time_ms(torch, kernel, sets, iters)
+    t_plain = time_ms(torch, lambda q, k, v: ref.ref_decode_attention(
+        q, k, v, pos, return_lse=True), sets, iters // 5)
+    d_kernel = device_ms(torch, kernel, sets, reps)
+    t_lib, d_lib = library_times(torch, library, sets, iters, reps)
+    t_bound, by = bound(per_call, flops)
+    print(f"  timing {shape}: kernel {t_kernel} ms (device {d_kernel} ms), "
+          f"plain {t_plain} ms, sdpa {t_lib} ms (device {d_lib} ms), bound "
+          f"{t_bound} ms ({by}: {per_call} B, {flops} FLOP)")
+    return dict(shape=shape, max_abs_err=max(err, lse_err), ms=t_kernel,
+                device_ms=d_kernel, plain_ms=t_plain, bound_ms=t_bound,
+                bound_by=by, library_ms=t_lib, library_device_ms=d_lib,
+                library="sdpa")
+
+
 def path_launches(records, launches, want, path=None):
     """Write the path's launch counts into the records (into each kernel's
     ``path`` row where one is named); fail where a kernel of the path was
@@ -5326,12 +5874,14 @@ def main():
     card = card_line()
     print(f"phase 1: card {card}")
     with phase_seconds("phase 2"):
+        warm = flex_warmup(torch, dev)
         build.load()
         print(f"phase 2: kernels built (nvcc {build.build_seconds} s; None "
               f"= cached)")
         build_report(build)
         cluster_report()
     with phase_seconds("phase 3"):
+        warm.join()
         records = kernel_phase(torch, dev)
         records.update(ssd_kernel_phase(torch, dev))
 
@@ -5473,6 +6023,9 @@ def main():
             xattn_tp_phase(torch, dev, records)
         with phase_seconds("phase 36"):
             proc_tp_phase(torch, dev, records)
+        with phase_seconds("phase 37"):
+            dp_phase(torch, dev, records)
+            release(torch, dev, "phase 37")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"all phases passed in {time.monotonic() - t_start} s")

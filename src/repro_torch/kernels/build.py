@@ -40,6 +40,8 @@ SIGNATURES = {
                                   _F, _I, _I, _F, _I, _L, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _I, _F, _I, _P],
+    "repro_decode_attention_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _F, _I, _P],
     "repro_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _L, _L, _L, _I, _I, _P],
     "repro_decode_max_active_clusters": [_I, _I, ctypes.POINTER(_I)],

@@ -91,6 +91,14 @@
 //   slice's first live key, the others start past it), so masked keys give
 //   2^(-1e30 - m) = 0, and an empty partial's weight multiplies zeros.
 //
+// Both routes can also write each row's natural log-sum-exp of its live
+// scores (repro_decode_attention_lse): the split route from its combine
+// (m* in log2 units, so lse = (m* + log2 l) ln 2), the f32 route from its
+// running max and sum. A row with no live key (pos < 0: a block of a
+// context-parallel cache that starts past the decode position) writes
+// -inf and an output of 0, so it adds nothing where the partial results
+// of several blocks are combined.
+//
 // f32: decode_kernel, the first version on the f32 CUDA cores: one block
 // per (kv head, batch) with one warp per query head, tiles of whole 32-key
 // lane rows (up to 32 KB) staged as f32, probabilities kept in f32. It is
@@ -108,6 +116,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 
 #include "tc.cuh"
@@ -132,9 +141,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(32 * MAX_G)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
-              const float* __restrict__ vc, float* __restrict__ o, int T_cap,
-              int H, int KH, int pos, float scale, int window,
-              float softcap) {
+              const float* __restrict__ vc, float* __restrict__ o,
+              float* __restrict__ lse, int T_cap, int H, int KH, int pos,
+              float scale, int window, float softcap) {
   // Each lane scores KPL keys of a tile and owns output dims lane + 32 i.
   // The tile is whole 32-key rows of lanes (up to 32 KB of f32 K and V):
   // at D = 112, 4096 / D = 36 keys would leave 4 of them unscored. The
@@ -229,17 +238,21 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
   for (int i = 0; i < DPL; ++i)
     if (lane + 32 * i < D) op[lane + 32 * i] = acc[i] * inv;
+  // the row's natural log-sum-exp (m and the exponents are natural here)
+  if (lse != nullptr && lane == 0)
+    lse[static_cast<size_t>(b) * H + h] = l == 0.f ? -INFINITY : m + logf(l);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
-                   int B, int T_cap, int H, int KH, int pos, float scale,
-                   int window, float softcap, cudaStream_t stream) {
+                   float* lse, int B, int T_cap, int H, int KH, int pos,
+                   float scale, int window, float softcap,
+                   cudaStream_t stream) {
   const dim3 grid(KH, B);
   decode_kernel<D><<<grid, 32 * (H / KH), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<float*>(o), T_cap, H, KH,
-      pos, scale, window, softcap);
+      static_cast<const float*>(vc), static_cast<float*>(o), lse, T_cap, H,
+      KH, pos, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -304,9 +317,9 @@ __device__ __forceinline__ void cluster_wait() {
 template <int D>
 __global__ void __launch_bounds__(32 * WARPS)
 decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                const bf16* __restrict__ vc, bf16* __restrict__ o, int T_cap,
-                int H, int KH, int pos, float scale, int window,
-                float softcap, int span) {
+                const bf16* __restrict__ vc, bf16* __restrict__ o,
+                float* __restrict__ lse, int T_cap, int H, int KH, int pos,
+                float scale, int window, float softcap, int span) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   // the combine moves four dims a thread, and the thread with dims
   // 4i..4i+3 of a row sends that row's m and l to the blocks i (mod D / 4)
@@ -595,6 +608,11 @@ decode_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ kc,
         o + (static_cast<size_t>(b) * H + kh * G + r) * D + d) =
         make_uint2(tc::pack_bf16(a.x * inv, a.y * inv),
                    tc::pack_bf16(a.z * inv, a.w * inv));
+    // the row's natural log-sum-exp, from its owner of dims 0..3: mx is in
+    // log2 units of the scaled (capped) scores
+    if (lse != nullptr && d == 0)
+      lse[static_cast<size_t>(b) * H + kh * G + r] =
+          ls == 0.f ? -INFINITY : (mx + log2f(ls)) * 0.6931471805599453f;
   }
 }
 
@@ -630,8 +648,8 @@ cudaError_t prepare(int splits, int KH, int B, cudaStream_t stream,
 
 template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
-                   int B, int T_cap, int H, int KH, int pos, float scale,
-                   int window, float softcap, int splits,
+                   float* lse, int B, int T_cap, int H, int KH, int pos,
+                   float scale, int window, float softcap, int splits,
                    cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -641,8 +659,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
   err = cudaLaunchKernelEx(
       &cfg, decode_split_tc<D>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
-      static_cast<bf16*>(o), T_cap, H, KH, pos, scale, window, softcap,
-      span);
+      static_cast<bf16*>(o), lse, T_cap, H, KH, pos, scale, window,
+      softcap, span);
   const cudaError_t last = cudaGetLastError();   // clear it either way
   return err != cudaSuccess ? err : last;
 }
@@ -664,20 +682,24 @@ cudaError_t max_clusters(int splits, int* out) {
 
 // dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (split-KV tensor-core
 // route: `splits` blocks a cluster; the f32 route ignores it). window <= 0
-// and softcap <= 0 mean none. Returns a cudaError_t (0 = launched).
-extern "C" int repro_decode_attention(
-    const void* q, const void* k_cache, const void* v_cache, void* o, int B,
-    int T_cap, int H, int KH, int D, int dtype, int pos, float scale,
-    int window, float softcap, int splits, void* stream) {
+// and softcap <= 0 mean none. lse: null, or (B, H) f32 that receives each
+// row's natural log-sum-exp of its live scores (-inf where none is live,
+// pos < 0: a block of a context-parallel cache past the decode position).
+// Returns a cudaError_t (0 = launched).
+extern "C" int repro_decode_attention_lse(
+    const void* q, const void* k_cache, const void* v_cache, void* o,
+    void* lse_out, int B, int T_cap, int H, int KH, int D, int dtype, int pos,
+    float scale, int window, float softcap, int splits, void* stream) {
   if (B <= 0 || T_cap <= 0 || KH <= 0 || H % KH != 0 || H / KH > MAX_G)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
 #define REPRO_F32(DIM)                                                       \
-  launch<DIM>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale, window,   \
-              softcap, st)
+  launch<DIM>(q, k_cache, v_cache, o, lse, B, T_cap, H, KH, pos, scale,      \
+              window, softcap, st)
 #define REPRO_BF16(DIM)                                                      \
-  split::launch<DIM>(q, k_cache, v_cache, o, B, T_cap, H, KH, pos, scale,    \
-                     window, softcap, splits, st)
+  split::launch<DIM>(q, k_cache, v_cache, o, lse, B, T_cap, H, KH, pos,      \
+                     scale, window, softcap, splits, st)
   if (dtype == 0 && D == 16) return REPRO_F32(16);
   if (dtype == 0 && D == 32) return REPRO_F32(32);
   if (dtype == 0 && D == 64) return REPRO_F32(64);
@@ -691,6 +713,17 @@ extern "C" int repro_decode_attention(
 #undef REPRO_F32
 #undef REPRO_BF16
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same without the log-sum-exp output: K2's launch for every caller
+// that does not combine partial results.
+extern "C" int repro_decode_attention(
+    const void* q, const void* k_cache, const void* v_cache, void* o, int B,
+    int T_cap, int H, int KH, int D, int dtype, int pos, float scale,
+    int window, float softcap, int splits, void* stream) {
+  return repro_decode_attention_lse(q, k_cache, v_cache, o, nullptr, B,
+                                    T_cap, H, KH, D, dtype, pos, scale,
+                                    window, softcap, splits, stream);
 }
 
 // The bf16 route's resident clusters of `splits` blocks at head dim D

@@ -65,11 +65,15 @@ def max_active_clusters(d: int, splits: int) -> int:
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
                      scale: Optional[float] = None, window: int = 0,
-                     softcap: Optional[float] = None):
+                     softcap: Optional[float] = None,
+                     return_lse: bool = False):
     """q: (B, H, D) one new token's queries; k/v_cache: (B, T, K, D);
     attends cache slots 0..pos, only pos - window < slot with ``window`` >
     0, the scaled scores capped as ``softcap * tanh(s / softcap)`` unless
-    ``softcap`` is None. Returns (B, H, D)."""
+    ``softcap`` is None. Returns (B, H, D); with ``return_lse`` also each
+    row's f32 log-sum-exp of its live scores (B, H), which the kernel
+    writes from its combine: -inf (and an output of zeros) where no slot
+    is live, ``pos`` < 0."""
     b, h, d = q.shape
     t, kh = k_cache.shape[1], k_cache.shape[2]
     if not (q.is_cuda and k_cache.device == q.device
@@ -103,12 +107,16 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
         raise ValueError(f"decode_attention: window {window}, softcap "
                          f"{softcap}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib = build.load()
     with torch.cuda.device(q.device):
-        err = lib.repro_decode_attention(
+        err = lib.repro_decode_attention_lse(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, t, h, kh, width, _DTYPES[q.dtype], int(pos),
-            float(scale), int(window), float(softcap or 0.0), splits,
+            out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, t, h,
+            kh, width, _DTYPES[q.dtype], int(pos), float(scale),
+            int(window), float(softcap or 0.0), splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
-    return out if width == d else out[..., :d].contiguous()
+    out = out if width == d else out[..., :d].contiguous()
+    return (out, lse) if return_lse else out

@@ -26,7 +26,11 @@ on every device.
 :func:`ssd_work` give each kernel's work (FLOPs, bytes) from its shapes
 and options: the bound column of ``chip_smoke.py`` and the cost model's
 kernel terms. Each wrapper call reports its work to the active counters
-(:data:`COUNTERS`), which leave out the ops that carry the call out.
+(:data:`COUNTERS`), which leave out the ops that carry the call out; the
+collectives of ``models/sharding.py`` report theirs the same way
+(:func:`collective`). :func:`decode_attention` can also return each
+row's log-sum-exp (K2's ``return_lse``), which a context-parallel decode
+combines across the blocks of a cache.
 """
 from __future__ import annotations
 
@@ -90,6 +94,33 @@ def _counted(counters, name: str, work: Tuple[int, int]):
             c.kernel_end()
 
 
+# the collectives the cost counters record (``models/sharding.py``), by
+# the reference's names (``repro/launch/hlo_cost.py``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+
+
+def collective(kind: str, nbytes: int, receivers: int):
+    """The context of one collective of ``models/sharding.py``: with a
+    counter active, each records ``receivers`` positions receiving a
+    result of ``nbytes`` (the reference's convention: the result-shape
+    bytes a device receives), and counts none of the copies and sums that
+    carry it out; without one it costs nothing."""
+    if not COUNTERS:
+        return _UNCOUNTED
+    return _collected(list(COUNTERS), kind, nbytes, receivers)
+
+
+@contextlib.contextmanager
+def _collected(counters, kind: str, nbytes: int, receivers: int):
+    for c in counters:
+        c.collective_begin(kind, nbytes, receivers)
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.kernel_end()
+
+
 # ------------------------------------------------------------------ work
 
 def _attended_keys(s: int, t: int, causal: bool, window: int,
@@ -120,13 +151,16 @@ def flash_attention_work(b: int, s: int, t: int, h: int, kh: int, d: int,
 
 def decode_attention_work(b: int, h: int, kh: int, d: int, pos: int,
                           itemsize: int, cache_itemsize: int, *,
-                          window: int = 0) -> Tuple[int, int]:
+                          window: int = 0, lse: bool = False
+                          ) -> Tuple[int, int]:
     """K2's (FLOPs, bytes): one query row over the live keys (0..pos, the
-    last ``window`` of them); q read and the output written once, the live
-    K and V cache rows read once."""
-    live = min(pos + 1, window or pos + 1)
+    last ``window`` of them; none where ``pos`` < 0); q read and the
+    output written once, the live K and V cache rows read once, and with
+    ``lse`` each row's f32 log-sum-exp written."""
+    live = max(0, min(pos + 1, window or pos + 1))
     return (4 * b * h * d * live,
-            2 * b * h * d * itemsize + 2 * b * live * kh * d * cache_itemsize)
+            2 * b * h * d * itemsize + 2 * b * live * kh * d * cache_itemsize
+            + (4 * b * h if lse else 0))
 
 
 def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
@@ -205,21 +239,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
                      scale: Optional[float] = None, window: int = 0,
-                     softcap: Optional[float] = None):
+                     softcap: Optional[float] = None,
+                     return_lse: bool = False):
     """q: (B,H,D); caches (B,T,K,D); attends slots 0..pos (host int), the
     last ``window`` of them when ``window`` > 0, with the scores capped at
-    ``softcap`` (None: no cap)."""
+    ``softcap`` (None: no cap). With ``return_lse``, ``(out, lse)``: each
+    row's f32 log-sum-exp (B, H), -inf where no slot is live (``pos`` <
+    0), the context-parallel decode's combine weight."""
     opts = dict(scale=scale, window=window, softcap=softcap)
     b, h, d = q.shape
     with _kernel_call("decode_attention", decode_attention_work, b, h,
                       k_cache.shape[2], d, pos, q.element_size(),
-                      k_cache.element_size(), window=window):
+                      k_cache.element_size(), window=window,
+                      lse=return_lse):
         if q.device.type == "meta":
-            return torch.empty(q.shape, dtype=q.dtype, device="meta")
+            out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+            return (out, torch.empty((b, h), dtype=torch.float32,
+                                     device="meta")) if return_lse else out
         if q.device.type == "cpu":
-            return ref.ref_decode_attention(q, k_cache, v_cache, pos,
-                                            **opts).contiguous()
-        out = dec.decode_attention(q, k_cache, v_cache, pos, **opts)
+            got = ref.ref_decode_attention(q, k_cache, v_cache, pos,
+                                           return_lse=return_lse, **opts)
+            if return_lse:
+                return got[0].contiguous(), got[1].contiguous()
+            return got.contiguous()
+        out = dec.decode_attention(q, k_cache, v_cache, pos,
+                                   return_lse=return_lse, **opts)
         _count("decode_attention")
         return out
 

@@ -43,11 +43,16 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def ref_decode_attention(q, k_cache, v_cache, pos: int, *,
                          scale: Optional[float] = None, window: int = 0,
-                         softcap: Optional[float] = None):
+                         softcap: Optional[float] = None,
+                         return_lse: bool = False):
     """q: (B,H,D); caches (B,T,K,D); attend to positions <= pos, and with
     ``window`` > 0 only to those with pos - window < key (the reference's
     ``kp > qp - window``, ``repro/models/layers.py:172-173``). ``softcap``
-    caps the scaled scores as ``softcap * tanh(s / softcap)``."""
+    caps the scaled scores as ``softcap * tanh(s / softcap)``. With
+    ``return_lse``, also each row's f32 log-sum-exp of its live scaled
+    (capped) scores, (B, H): -inf, and an output of zeros, where no key
+    is live (``pos`` below 0: a block of a context-parallel cache that
+    starts past the decode position)."""
     h, d = q.shape[1], q.shape[2]
     t, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
@@ -61,9 +66,16 @@ def ref_decode_attention(q, k_cache, v_cache, pos: int, *,
     mask = key <= pos
     if window:
         mask &= key > pos - window
+    if return_lse:
+        live = torch.where(mask[None, None, :], scores,
+                           torch.tensor(float("-inf"), device=q.device))
+        lse = torch.logsumexp(live, dim=-1)
+        if not bool(mask.any()):
+            return torch.zeros_like(q), lse
     scores = torch.where(mask[None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bht,bthd->bhd", probs.to(v.dtype), v)
+    out = torch.einsum("bht,bthd->bhd", probs.to(v.dtype), v)
+    return (out, lse) if return_lse else out
 
 
 def ref_ssd(x, dt, A, B, C, *, chunk: int = 256):

@@ -26,7 +26,14 @@ attention (``kernels/flash_attention.xla_attention``) over every
 query-key pair, K3's the autodiff of ``ssd_chunked``, and a rematerialised
 layer group's forward runs again, kernels included.
 
-One card has no collectives: ``collective_bytes`` is 0.
+The collectives of ``models/sharding.py`` (over a mesh of several
+devices) record, by kind, the result bytes each receiving device gets and
+how many receive them (``stats()["collectives"]``,
+``collective_bytes``), the reference's convention (the result shapes of
+the HLO's collectives); the copies and sums that carry them out count as
+no op. One card has none: ``collective_bytes`` is 0. Counts sum over
+the devices one process drives: ``launch/dryrun.py`` divides a mesh's
+by its devices.
 
 The same mode also tracks the step's live bytes, the counterpart of the
 reference's ``compiled.memory_analysis()`` (:class:`LiveBytes`): each
@@ -189,6 +196,8 @@ class Counter:
         self.kernels: Dict[str, Dict[str, int]] = {
             name: {"launches": 0, "flops": 0, "bytes": 0}
             for name in kops.LAUNCHES}
+        self.collectives: Dict[str, Dict[str, int]] = {
+            kind: {"bytes": 0, "count": 0} for kind in kops.COLLECTIVES}
         self.memory = LiveBytes()
 
     # the kernel wrappers' hooks (kernels/ops.py: _kernel_call)
@@ -198,6 +207,14 @@ class Counter:
             k["launches"] += 1
             k["flops"] += flops
             k["bytes"] += nbytes
+            self.depth += 1
+
+    # the collectives' hook (kernels/ops.py: collective)
+    def collective_begin(self, kind: str, nbytes: int, receivers: int):
+        with self.lock:
+            c = self.collectives[kind]
+            c["bytes"] += nbytes * receivers
+            c["count"] += receivers
             self.depth += 1
 
     def kernel_end(self):
@@ -231,9 +248,11 @@ class Counter:
                                       for k in self.kernels.values()),
             "traffic_bytes": self.traffic + sum(
                 k["bytes"] for k in self.kernels.values()),
-            "collective_bytes": 0,
+            "collective_bytes": sum(c["bytes"]
+                                    for c in self.collectives.values()),
             "ops": self.ops,
             "kernels": {k: dict(v) for k, v in self.kernels.items()},
+            "collectives": {k: dict(v) for k, v in self.collectives.items()},
             "peak_live_bytes": self.memory.peak,
         }
 

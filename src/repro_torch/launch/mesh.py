@@ -22,9 +22,9 @@ where the caller lists them.
 
 :data:`HW` holds the card's datasheet peaks, the cost model's constants
 (``launch/dryrun.py``) and those of ``chip_smoke.py``'s bound column
-(:func:`bound`). :func:`make_production_mesh` raises: the reference's
-256- and 512-chip meshes are queued (ROADMAP.md, Queue 1: item 5, part
-5).
+(:func:`bound`). :func:`make_production_mesh` builds the reference's 256-
+and 512-device meshes, on ``meta`` devices unless given others: the dry
+run counts their per-device work there.
 
 :func:`env_for_slice` and :func:`devices_for_slice` give a process-plane
 child (``launch/proc_plane.py``) its view of its slice, of one device or
@@ -45,7 +45,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.sharding import not_ported
 
 
 class Mesh:
@@ -205,13 +204,17 @@ def host_shm_bytes(path: str = "/dev/shm") -> Optional[int]:
 
 
 # NVIDIA H100 80GB HBM3 (SXM), 700 W, from NVIDIA's datasheet: dense bf16
-# tensor-core rate (no sparsity), HBM3 bandwidth and capacity. One card has
-# no collectives, so no interconnect term (the collective term is 0).
+# tensor-core rate (no sparsity), HBM3 bandwidth and capacity, and NVLink 4's
+# 900 GB/s a GPU, the production meshes' collective term's divisor (one card
+# has no collectives: its term is 0). The NVLink rate is the datasheet's and
+# a best case: only the eight GPUs of a node share it, and the links between
+# nodes of a 256- or 512-GPU mesh are slower. No TPU figure is used.
 HW = {
     "name": "NVIDIA H100 80GB HBM3 (SXM), 700 W",
     "peak_flops_bf16": 989e12,     # FLOP/s
     "hbm_bw": 3.35e12,             # bytes/s
     "hbm_bytes": 80e9,             # bytes
+    "nvlink_bw": 900e9,            # bytes/s a GPU
 }
 
 
@@ -224,10 +227,21 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256- and 512-chip meshes: queued, as per-device
-    counts on ``meta`` for the dry run."""
-    raise not_ported("the production meshes of 256 and 512 devices", 5)
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production meshes (``repro/launch/mesh.py:42-45``)
+    as H100s: (16, 16) over (``data``, ``model``), or (2, 16, 16) over
+    (``pod``, ``data``, ``model``) with ``multi_pod``. Its devices are
+    ``meta`` (the dry run counts there; nothing runs on 256 cards), or
+    ``devices``, a list of as many (a device may repeat: virtual
+    devices)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    devs = [torch.device("meta")] * n if devices is None else list(devices)
+    if len(devs) != n:
+        raise ValueError(f"a production mesh of {n} devices, given "
+                         f"{len(devs)}")
+    return Mesh(np.asarray(devs, dtype=object).reshape(shape), axes)
 
 
 class DevicePlane:

@@ -56,6 +56,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_param_specs,
     norm_param_specs,
+    per_row,
     remat,
     unembed_apply,
 )
@@ -122,7 +123,8 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
     slice's first device."""
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens, ctx)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    positions = per_row(ctx, lambda: torch.arange(
+        s, device=tokens.device)[None, :].expand(b, s))
     shared = params["shared_attn"]
     cache = None
     if return_cache:
@@ -153,7 +155,8 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
             shd.write_layer(cache["ssm_t"], i, st["ssm"])
     x = apply_norm(params["ln_f"], x, cfg, ctx)
     logits = unembed_apply(params["embed"], cfg, x, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = per_row(ctx, lambda: torch.zeros((), dtype=torch.float32,
+                                           device=tokens.device))
     if return_cache:
         return logits, aux, cache
     return logits, aux
@@ -197,8 +200,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     b = tokens.shape[0]
     pos = int(cache["pos"])
     x = embed_apply(params["embed"], cfg, tokens, ctx)
-    positions = torch.full((b, 1), pos, dtype=torch.int32,
-                           device=tokens.device)
+    positions = per_row(ctx, lambda: torch.full(
+        (b, 1), pos, dtype=torch.int32, device=tokens.device))
     shared = params["shared_attn"]
 
     def at(key, index):

@@ -7,8 +7,11 @@ and the layer-group rematerialisation of ``cfg.remat``.
 
 Plain functions on tensors; parameters are nested dicts built from the
 ``*_param_specs`` declarations, with the JAX package's layouts and
-canonical keys. With a :class:`Ctx` (a slice's mesh of several devices
-and the sharding rules) :func:`embed_apply`, :func:`attn_apply`,
+canonical keys. With a :class:`Ctx` (a mesh of several devices and the
+sharding rules: a node group's (1, n) slice, or a mesh with ``data`` and
+``pod`` rows, each row running the program below on its block of the
+batch, leaves split over ``data`` gathered where they are used by
+:meth:`Ctx.view`) :func:`embed_apply`, :func:`attn_apply`,
 :func:`cross_decode`, :func:`mlp_apply` and :func:`unembed_apply` run
 tensor-parallel over the slice: the parameters are
 ``models/sharding.py``'s ``Sharded`` leaves, an activation is a list of
@@ -31,6 +34,7 @@ from __future__ import annotations
 import functools
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
@@ -39,36 +43,174 @@ from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import xla_attention
 from repro_torch.models import sharding as shd
+from repro_torch.models import common
 from repro_torch.models.common import spec
 
 
 class Ctx(NamedTuple):
     """Sharding context threaded through model code
-    (``repro/models/layers.py:19-29``): a slice's mesh of several devices
-    and the sharding rules. ``None`` is the one-device path, unchanged."""
+    (``repro/models/layers.py:19-29``): a mesh of several devices and the
+    sharding rules. ``None`` is the one-device path, unchanged.
+
+    The mesh is a (``data``, ``model``) or (``pod``, ``data``, ``model``)
+    grid; a node group's slice is (1, n). An activation is a list of
+    per-device tensors in flat position order; each model-axis group (one
+    per data row: a ``pod`` x ``data`` coordinate) runs the
+    tensor-parallel program on its row's block of the batch, and the
+    collectives run within the groups of the axes they name
+    (:meth:`all_reduce`, :meth:`all_gather`). ``rows`` limits the
+    computed positions to the first ``rows`` data rows, every row's
+    program being the same (equal blocks on every device): the dry run
+    counts one row of a production mesh on ``meta`` (``launch/dryrun.py``),
+    each leaf then holding the locals of those positions alone."""
 
     mesh: object
     rules: shd.Rules
+    rows: Optional[int] = None
 
     @property
     def n(self) -> int:
-        """The slice's model-axis size."""
+        """The model-axis size."""
         return self.mesh.shape["model"]
 
     @property
+    def n_rows(self) -> int:
+        """The data rows of the mesh: ``pod`` x ``data``."""
+        return self.mesh.size // self.n
+
+    @property
+    def size(self) -> int:
+        """The computed positions."""
+        return (self.rows or self.n_rows) * self.n
+
+    @property
     def devices(self):
-        return self.mesh.flat_devices()
+        """The computed positions' devices, in flat order."""
+        return self.mesh.flat_devices()[:self.size]
+
+    @property
+    def dp(self) -> bool:
+        """Whether the mesh has data rows beside the model axis."""
+        return self.n_rows > 1
+
+    def m(self, pos: int) -> int:
+        """A position's model-axis coordinate (the last axis)."""
+        return pos % self.n
+
+    def row_starts(self) -> List[int]:
+        """The first position of each computed data row."""
+        return list(range(0, self.size, self.n))
+
+    def groups(self, axes=("model",)) -> List[List[int]]:
+        return shd.axis_groups(self.mesh, axes, self.size)
+
+    def all_reduce(self, parts, axes=("model",)):
+        """The sum of each group's parts on its members (``parts``: one
+        per computed position), position order within each group."""
+        out = [None] * len(parts)
+        devs = self.devices
+        for grp in self.groups(axes):
+            for p, r in zip(grp, shd.all_reduce([parts[q] for q in grp],
+                                                [devs[q] for q in grp])):
+                out[p] = r
+        return out
+
+    def all_gather(self, parts, dim: int, axes=("model",)):
+        """Each group's parts joined along ``dim`` on its members. A
+        member not computed (``rows``) is stood in for by a computed one:
+        the result has the group's whole shape."""
+        out = [None] * len(parts)
+        devs = self.devices
+        for grp in shd.axis_groups(self.mesh, axes):
+            here = [q for q in grp if q < self.size]
+            if not here:
+                continue
+            got = shd.all_gather(
+                [parts[q] if q < self.size else parts[here[0]] for q in grp],
+                [devs[q] for q in here], dim,
+                live=[q < self.size for q in grp])
+            for p, r in zip(here, got):
+                out[p] = r
+        return out
+
+    def batch_slice(self, n: int, pos: int, axis: str = "batch") -> slice:
+        """Position ``pos``'s block of a batch of ``n`` (the rules'
+        ``batch`` over ``pod`` x ``data``; all of it where it does not
+        split, as batch 1 under ``long``)."""
+        sh = shd.NamedSharding(self.mesh, shd.resolve(
+            (axis,), self.mesh, self.rules, shape=(n,)))
+        return sh.slices(pos, (n,))[0]
+
+    def local_batch(self, x, pos: int):
+        """Position ``pos``'s block of ``x`` along its leading batch dim
+        (``x``: a tensor, or one per data row, :func:`per_row`)."""
+        if isinstance(x, list):
+            x = x[pos // self.n]
+        if not self.dp:
+            return x
+        sl = self.batch_slice(x.shape[0], pos)
+        return x if sl.stop - sl.start == x.shape[0] else x[sl]
+
+    def view(self, tree):
+        """``tree`` with each leaf split over ``data`` (the embed dim under
+        ``fsdp_tp``) all-gathered over ``data`` where it is used: a
+        ``Sharded`` in the spec without ``data``, each computed position
+        holding its gathered block. The gradient goes back through the
+        gather as its reduce-scatter. Families call it on each layer
+        group inside ``remat``, so a step holds one group's gathered
+        weights at a time."""
+        if not self.dp:
+            return tree
+        return common.tree_map(
+            lambda x: _gather_data(self, x) if isinstance(x, shd.Sharded)
+            else x, tree)
 
 
-def make_ctx(mesh, rules: str = "tp") -> Optional[Ctx]:
-    """The context of a slice's mesh: ``None`` over one device. The
-    collectives run over the model axis, so a data axis above 1 raises."""
+def _gather_data(ctx: Ctx, leaf: shd.Sharded) -> shd.Sharded:
+    spec = list(leaf.sharding.spec)
+    dims = [d for d, e in enumerate(spec) if "data" in shd._mesh_axes_tuple(e)]
+    if not dims:
+        return leaf
+    d = dims[0]
+    rest = tuple(a for a in shd._mesh_axes_tuple(spec[d]) if a != "data")
+    spec[d] = rest[0] if len(rest) == 1 else (rest or None)
+    sh = shd.NamedSharding(ctx.mesh, shd.PartitionSpec(*spec))
+    n_here = min(len(leaf.locals), ctx.size)
+    out = [None] * n_here
+    devs = ctx.devices
+    for grp in shd.axis_groups(ctx.mesh, ("data",)):
+        here = [q for q in grp if q < n_here]
+        if not here:
+            continue
+        # a position not computed (a count of one row on meta) is stood
+        # in for by a computed one of the same block shape; its gradient
+        # is not wanted
+        parts = [leaf.locals[q] if q < n_here else leaf.locals[here[0]]
+                 for q in grp]
+        got = shd.all_gather(parts, [devs[q] for q in here], dim=d,
+                             live=[q < n_here for q in grp])
+        for q, t in zip(here, got):
+            out[q] = t
+    return shd.Sharded(out, sh)
+
+
+def per_row(ctx: Optional[Ctx], make):
+    """``make()``, or over data rows a list of one a row: the positions
+    and the zero aux loss a forward makes outside its per-device code are
+    made by every row's program, as each device of the reference's
+    makes its own."""
+    if ctx is None or not ctx.dp:
+        return make()
+    return [make() for _ in ctx.row_starts()]
+
+
+def make_ctx(mesh, rules: str = "tp", rows: Optional[int] = None
+             ) -> Optional[Ctx]:
+    """The context of a mesh: ``None`` over one device. ``rows``: compute
+    the first data rows alone (:class:`Ctx`)."""
     if mesh is None or mesh.size == 1:
         return None
-    if mesh.shape.get("data", 1) != 1:
-        raise NotImplementedError(
-            "a data axis inside a slice: a slice is a (1, n) mesh")
-    return Ctx(mesh, shd.named_rules(rules))
+    return Ctx(mesh, shd.named_rules(rules), rows)
 
 
 def constrain(ctx: Optional[Ctx], x, axes):
@@ -78,10 +220,25 @@ def constrain(ctx: Optional[Ctx], x, axes):
 
 
 def on_slice(ctx: Optional[Ctx], x):
-    """An input on every device of the slice (audio's frames, vlm's patch
-    embeddings: their ``batch`` axis goes over ``data``, which is 1 inside
-    a slice), or ``x`` itself without ``ctx``."""
-    return x if ctx is None else [x.to(d) for d in ctx.devices]
+    """An input on every device (audio's frames, vlm's patch
+    embeddings): each position's block of the batch, or ``x`` itself
+    without ``ctx``."""
+    if ctx is None:
+        return x
+    return [ctx.local_batch(x, r).to(d) for r, d in enumerate(ctx.devices)]
+
+
+def row_logits(ctx: Optional[Ctx], logits, batch: int):
+    """The logits of a forward of ``batch`` sequences as one tensor: over
+    data rows (a list, one per row, each on its row's first device), the
+    rows' batch blocks joined on the first device, or the first row's
+    where the batch does not split (batch 1 under ``long``)."""
+    if not isinstance(logits, list):
+        return logits
+    if ctx.batch_slice(batch, 0).stop == batch:
+        return logits[0]
+    dev = logits[0].device
+    return torch.cat([t.to(dev) for t in logits])
 
 
 def add(x, y):
@@ -125,6 +282,7 @@ def apply_norm(p, x, cfg: ModelConfig, ctx: Optional[Ctx] = None):
     per-device list), on every device by its copy of the (replicated)
     parameters."""
     if ctx is not None:
+        p = ctx.view(p)
         return [apply_norm(shd.local_tree(p, r), xr, cfg)
                 for r, xr in enumerate(x)]
     if cfg.norm == "layernorm":
@@ -320,7 +478,11 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
     is whole on each. ``cache``: {"k", "v": per-device lists of the
     layer's local (B, T, K_local, D_local)}. Returns the per-device
     outputs and {"k", "v": per-device lists}: the cache, or the local
-    blocks of the new keys and values in the cache's layout."""
+    blocks of the new keys and values in the cache's layout. Over data
+    rows each position takes its row's block of the batch (and of
+    ``positions``); under ``long`` a decode step's cache splits along its
+    sequence over ``data`` (:func:`_cp_decode_tp`)."""
+    p = ctx.view(p)
     devs = ctx.devices
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     g = h // cfg.num_kv_heads
@@ -331,10 +493,11 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
     softcap = cfg.attn_logit_softcap
     s = xs[0].shape[1]
-    outs, qs, new_k, new_v = [], [], [], []
+    outs, qs, new_k, new_v, pos_l = [], [], [], [], []
     for r, dev in enumerate(devs):
         pr = shd.local_tree(p, r)
-        pos_r = positions.to(dev)
+        pos_r = ctx.local_batch(positions, r).to(dev)
+        pos_l.append(pos_r)
         q, k, v = _project_qkv(pr, cfg, xs[r],
                                xs[r] if kv_x is None else kv_x[r])
         if use_rope and cfg.rope_theta > 0:
@@ -344,7 +507,8 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
         new_k.append(k)
         new_v.append(v)
         if cache is None:
-            kk, vv = (_kv_for_heads(k, r, hl, g), _kv_for_heads(v, r, hl, g)) \
+            m = ctx.m(r)
+            kk, vv = (_kv_for_heads(k, m, hl, g), _kv_for_heads(v, m, hl, g)) \
                 if mixed else (k, v)
             out = attention_core(q, kk, vv, causal=causal, window=window,
                                  softcap=softcap, scale=scale,
@@ -362,30 +526,96 @@ def _attn_apply_tp(p, cfg: ModelConfig, xs: List[torch.Tensor], *,
     if cache is None:
         kv_out = {"k": new_k, "v": new_v}
     else:
+        kv_out = cache
+        if cache_seq_split(ctx):
+            return _cp_decode_tp(p, cfg, qs, new_k, new_v, cache,
+                                 window=window, softcap=softcap, scale=scale,
+                                 cache_pos=cache_pos, q_split=q_split,
+                                 mixed=mixed, hl=hl, g=g, ctx=ctx), kv_out
         for ck, cv, k, v in zip(cache["k"], cache["v"], new_k, new_v):
             ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
             cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
-        kv_out = cache
         if hd_cache:
-            outs = _hd_decode_tp(p, cfg, qs, cache, positions=positions,
+            outs = _hd_decode_tp(p, cfg, qs, cache, positions=pos_l,
                                  window=window, softcap=softcap, scale=scale,
                                  cache_pos=cache_pos, q_split=q_split, hl=hl,
                                  ctx=ctx)
-            return shd.all_reduce(outs, devs), kv_out
+            return ctx.all_reduce(outs), kv_out
         for r, q in enumerate(qs):
             ck, cv = cache["k"][r], cache["v"][r]
             if mixed:
                 # the replicated cache's KV heads for this device's queries
                 # (head_dim does not split either): a copy a step
-                ck, cv = _kv_for_heads(ck, r, hl, g), _kv_for_heads(cv, r, hl, g)
-            out = _cached_attention(cfg, q, ck, cv,
-                                    positions=positions.to(q.device),
+                m = ctx.m(r)
+                ck, cv = _kv_for_heads(ck, m, hl, g), _kv_for_heads(cv, m, hl, g)
+            out = _cached_attention(cfg, q, ck, cv, positions=pos_l[r],
                                     causal=causal, window=window,
                                     softcap=softcap, scale=scale,
                                     cache_pos=cache_pos)
             outs.append(torch.einsum("bshk,hkd->bsd", out,
                                      p["wo"].locals[r]))
-    return (shd.all_reduce(outs, devs) if q_split else outs), kv_out
+    return (ctx.all_reduce(outs) if q_split else outs), kv_out
+
+
+def cache_seq_split(ctx: Ctx) -> bool:
+    """Whether a cache's sequence dim splits over ``data``: the ``long``
+    rules' context parallelism on a mesh with data rows."""
+    return ctx.mesh.shape.get("data", 1) > 1 and \
+        dict(ctx.rules).get("cache_seq") == "data"
+
+
+def _cp_decode_tp(p, cfg: ModelConfig, qs, new_k, new_v, cache, *, window,
+                  softcap, scale, cache_pos, q_split, mixed, hl, g,
+                  ctx: Ctx):
+    """A decode step's attention over a cache split along its sequence
+    over ``data`` (``repro/models/sharding.py:76-83``; zamba2 under
+    ``long``): the device whose block holds slot ``cache_pos`` writes the
+    new key and value there; each device runs K2 over its own block of
+    keys, up to ``cache_pos`` (no key live where the block starts past
+    it: an lse of -inf), returning its rows' f32 log-sum-exp; the partial
+    outputs are combined across ``data`` by the log-sum-exp rule (an
+    all-reduce of the max, then of the weighted outputs and weights);
+    and each device projects by its rows of ``wo``, summed over
+    ``model``. One query a step; the window and head-dim routes do not
+    take this path."""
+    if window or qs[0].shape[1] != 1:
+        raise ValueError("the context-parallel decode takes one query a "
+                         "step and no sliding window")
+    span = cache["k"][0].shape[1]
+    coords = ctx.mesh.axis_names.index("data")
+    outs, lses = [], []
+    for r, q in enumerate(qs):
+        j = int(np.unravel_index(r, ctx.mesh.devices.shape)[coords])
+        ck, cv = cache["k"][r], cache["v"][r]
+        local = cache_pos - j * span
+        # every device writes one slot, the same program on each: the one
+        # whose block holds the position the new key and value, the
+        # others their own slot back (the reference's masked update)
+        i = min(max(local, 0), span - 1)
+        holds = 0 <= local < span
+        for c, new in ((ck, new_k[r]), (cv, new_v[r])):
+            new = new.to(c.dtype)
+            c[:, i:i + 1] = new if holds else c[:, i:i + 1]
+        if mixed:
+            m = ctx.m(r)
+            ck, cv = _kv_for_heads(ck, m, hl, g), _kv_for_heads(cv, m, hl, g)
+        out, lse = kops.decode_attention(q[:, 0], ck, cv, min(local, span - 1),
+                                         scale=scale, softcap=softcap,
+                                         return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+    top = [t.amax(dim=0) for t in
+           ctx.all_gather([x[None] for x in lses], 0, axes=("data",))]
+    wts = [torch.exp(x - t) for x, t in zip(lses, top)]
+    num = ctx.all_reduce([o.float() * w[..., None] for o, w in zip(outs, wts)],
+                         axes=("data",))
+    den = ctx.all_reduce(wts, axes=("data",))
+    projs = []
+    for r, (nm, dn) in enumerate(zip(num, den)):
+        o = (nm / dn[..., None]).to(qs[r].dtype)
+        projs.append(torch.einsum("bshk,hkd->bsd", o[:, None],
+                                  p["wo"].locals[r]))
+    return ctx.all_reduce(projs) if q_split else projs
 
 
 def _hd_decode_tp(p, cfg: ModelConfig, qs, cache, *, positions, window,
@@ -396,24 +626,25 @@ def _hd_decode_tp(p, cfg: ModelConfig, qs, cache, *, positions, window,
     partial scores, and each device projects its block of the output:
     by its rows of a whole ``wo``, or, where ``wo`` splits over heads, by
     its heads of the gathered output. Returns the partial projections."""
-    devs = ctx.devices
     s = qs[0].shape[1]
-    q_full = shd.all_gather(qs, devs, dim=2) if q_split else qs
+    q_full = ctx.all_gather(qs, 2) if q_split else qs
     q_hd = constrain(ctx, q_full, ("cache_batch", None, None, "cache_hd"))
     kv_mask = torch.arange(cache["k"][0].shape[1],
-                           device=positions.device) <= cache_pos + s - 1
+                           device=positions[0].device) <= cache_pos + s - 1
     out = _hd_parallel_decode_attention(
         q_hd, cache["k"], cache["v"], q_positions=positions,
         kv_mask=kv_mask, window=window, softcap=softcap, scale=scale,
         ctx=ctx)
     dl = out[0].shape[-1]
+    ms = [ctx.m(r) for r in range(len(out))]
     if q_split:
-        full = shd.all_gather(out, devs, dim=3)
-        return [torch.einsum("bshk,hkd->bsd", o[:, :, r * hl:(r + 1) * hl],
-                             p["wo"].locals[r]) for r, o in enumerate(full)]
+        full = ctx.all_gather(out, 3)
+        return [torch.einsum("bshk,hkd->bsd", o[:, :, m * hl:(m + 1) * hl],
+                             p["wo"].locals[r])
+                for r, (o, m) in enumerate(zip(full, ms))]
     return [torch.einsum("bshk,hkd->bsd", o,
-                         p["wo"].locals[r][:, r * dl:(r + 1) * dl])
-            for r, o in enumerate(out)]
+                         p["wo"].locals[r][:, m * dl:(m + 1) * dl])
+            for r, (o, m) in enumerate(zip(out, ms))]
 
 
 def _hd_scores(q, k):
@@ -455,18 +686,23 @@ def _hd_parallel_decode_attention(q, k, v, *, q_positions, kv_mask, window,
     """GQA decode attention with the head_dim contraction split over the
     slice (``repro/models/layers.py:183-213``). q: (B, S, H, D); k, v:
     (B, T, KH, D). With ``ctx``, q, k and v are per-device lists of their
-    head_dim blocks: each device computes its partial scores, an
-    all-reduce sums them (f32), every device applies the softmax to the
-    whole scores and PV with its block of V, and the per-device output
-    blocks (B, S, H, D / n) come back. Plain PyTorch, as the reference's
-    is XLA; with ``ctx=None`` the whole computation on one device."""
-    opts = dict(q_positions=q_positions, kv_mask=kv_mask, window=window,
-                softcap=softcap, scale=scale)
+    head_dim blocks (and ``q_positions`` a tensor, or a list of each
+    device's): each device computes its partial scores, an all-reduce
+    over ``model`` sums them (f32), every device applies the softmax to
+    the whole scores and PV with its block of V, and the per-device
+    output blocks (B, S, H, D / n) come back. Plain PyTorch, as the
+    reference's is XLA; with ``ctx=None`` the whole computation on one
+    device."""
+    opts = dict(kv_mask=kv_mask, window=window, softcap=softcap, scale=scale)
     if ctx is None:
-        return _hd_softmax_pv(_hd_scores(q, k), v, **opts)
+        return _hd_softmax_pv(_hd_scores(q, k), v, q_positions=q_positions,
+                              **opts)
+    qps = q_positions if isinstance(q_positions, list) \
+        else [q_positions] * len(q)
     parts = [_hd_scores(qr, kr) for qr, kr in zip(q, k)]
-    scores = shd.all_reduce(parts, ctx.devices)
-    return [_hd_softmax_pv(sc, vr, **opts) for sc, vr in zip(scores, v)]
+    scores = ctx.all_reduce(parts)
+    return [_hd_softmax_pv(sc, vr, q_positions=qp, **opts)
+            for sc, vr, qp in zip(scores, v, qps)]
 
 
 def cross_decode(p, cfg: ModelConfig, h, cross_k, cross_v,
@@ -497,7 +733,7 @@ def _cross_decode_tp(p, cfg: ModelConfig, hs, cross_k, cross_v, ctx: Ctx):
     a partial sum, and an all-reduce completes it. Where the cross K/V
     split over head_dim (the KV heads do not split), the head-dim-parallel
     route of the self decode (:func:`_hd_decode_tp`), every key live."""
-    devs = ctx.devices
+    p = ctx.view(p)
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     g = h // cfg.num_kv_heads
     q_split, kv_split = shd.splits(p["wq"], 1), shd.splits(p["wk"], 1)
@@ -513,19 +749,20 @@ def _cross_decode_tp(p, cfg: ModelConfig, hs, cross_k, cross_v, ctx: Ctx):
         positions = torch.full((hs[0].shape[0], 1), t - 1, dtype=torch.int32,
                                device=hs[0].device)
         outs = _hd_decode_tp(p, cfg, qs, {"k": cross_k, "v": cross_v},
-                             positions=positions, window=0, softcap=None,
-                             scale=scale, cache_pos=t - 1, q_split=q_split,
-                             hl=hl, ctx=ctx)
-        return shd.all_reduce(outs, devs)
+                             positions=[positions] * len(qs), window=0,
+                             softcap=None, scale=scale, cache_pos=t - 1,
+                             q_split=q_split, hl=hl, ctx=ctx)
+        return ctx.all_reduce(outs)
     outs = []
     for r, q in enumerate(qs):
         ck, cv = cross_k[r], cross_v[r]
         if q_split and not kv_split:
-            ck, cv = _kv_for_heads(ck, r, hl, g), _kv_for_heads(cv, r, hl, g)
+            m = ctx.m(r)
+            ck, cv = _kv_for_heads(ck, m, hl, g), _kv_for_heads(cv, m, hl, g)
         out = kops.decode_attention(q[:, 0], ck, cv, t - 1, scale=scale)
         outs.append(torch.einsum("bshk,hkd->bsd", out[:, None],
                                  p["wo"].locals[r]))
-    return shd.all_reduce(outs, devs) if q_split else outs
+    return ctx.all_reduce(outs) if q_split else outs
 
 
 # --------------------------------------------------------------------- mlp
@@ -570,10 +807,11 @@ def mlp_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     summed by an all-reduce (or whole on every device where ``mlp`` does
     not split), then the replicated b_o added once, on every device."""
     if ctx is not None:
+        p = ctx.view(p)
         outs = [_mlp_product(shd.local_tree(p, r), cfg, xr)
                 for r, xr in enumerate(x)]
         if shd.splits(p["wo"], 0):
-            outs = shd.all_reduce(outs, ctx.devices)
+            outs = ctx.all_reduce(outs)
         if "bo" in p:
             outs = [o + b for o, b in zip(outs, p["bo"].locals)]
         return outs
@@ -608,19 +846,32 @@ def embed_apply(p, cfg: ModelConfig, tokens, ctx: Optional[Ctx] = None):
 
 
 def _embed_tp(p, cfg: ModelConfig, tokens, ctx: Ctx):
+    """Each position looks up its block of the batch's tokens (under
+    ``fsdp_tp`` in the table gathered over ``data``)."""
+    p = ctx.view(p)
     emb, devs = p["embedding"], ctx.devices
     if not shd.splits(emb, 0):
-        return [embed_apply(shd.local_tree(p, r), cfg, tokens.to(d))
+        return [embed_apply(shd.local_tree(p, r), cfg,
+                            ctx.local_batch(tokens, r).to(d))
                 for r, d in enumerate(devs)]
     parts = []
     for r, d in enumerate(devs):
         vl = emb.locals[r].shape[0]
-        t = tokens.to(d) - emb.sharding.block(r, 2)[0] * vl
+        t = ctx.local_batch(tokens, r).to(d) \
+            - emb.sharding.block(r, 2)[0] * vl
         hit = (t >= 0) & (t < vl)
         x = embed_apply(shd.local_tree(p, r), cfg, t.clamp(0, vl - 1))
         parts.append(torch.where(hit[..., None], x, torch.zeros(
             (), dtype=x.dtype, device=d)))
-    return shd.all_reduce(parts, devs)
+    return ctx.all_reduce(parts)
+
+
+def _row_mesh(ctx: Ctx, r0: int):
+    """The (1, n) mesh of the data row whose first position is ``r0``."""
+    from repro_torch.launch.mesh import Mesh
+    devs = ctx.mesh.flat_devices()[r0:r0 + ctx.n]
+    ids = [int(i) for i in ctx.mesh.device_ids.flat][r0:r0 + ctx.n]
+    return Mesh([devs], ("data", "model"), [ids])
 
 
 def _unembed_product(p, cfg: ModelConfig, x):
@@ -637,16 +888,25 @@ def unembed_apply(p, cfg: ModelConfig, x, ctx: Optional[Ctx] = None):
     sampling and the loss read them there), or the first device's own
     product where the vocabulary does not split."""
     if ctx is not None:
+        p = ctx.view(p)
         w = p["embedding"] if cfg.tie_embeddings else p["unembed"]
         vdim = 0 if cfg.tie_embeddings else 1
-        if shd.splits(w, vdim):
-            parts = [_unembed_product(shd.local_tree(p, r), cfg, xr)
-                     for r, xr in enumerate(x)]
-            spec = shd.P(None, None, w.sharding.spec[vdim])
-            logits = shd.gather(shd.Sharded(
-                parts, shd.NamedSharding(ctx.mesh, spec)))
-        else:
-            logits = _unembed_product(shd.local_tree(p, 0), cfg, x[0])
+        rows = []
+        for r0 in ctx.row_starts():
+            if shd.splits(w, vdim):
+                parts = [_unembed_product(shd.local_tree(p, r), cfg, x[r])
+                         for r in range(r0, r0 + ctx.n)]
+                row = _row_mesh(ctx, r0)
+                spec = shd.P(None, None, "model")
+                rows.append(shd.gather(shd.Sharded(
+                    parts, shd.NamedSharding(row, spec))))
+            else:
+                rows.append(_unembed_product(shd.local_tree(p, r0), cfg,
+                                             x[r0]))
+        if cfg.final_logit_softcap:
+            cap = cfg.final_logit_softcap
+            rows = [cap * torch.tanh(t / cap) for t in rows]
+        return rows if ctx.dp else rows[0]
     else:
         logits = _unembed_product(p, cfg, x)
     if cfg.final_logit_softcap:
@@ -698,5 +958,10 @@ def remat(cfg: ModelConfig, fn, *args):
     if cfg.remat == "dots":
         context_fn = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
+    # over data rows the rerun goes to the group's end: stopping early,
+    # where the last tensor the backward needs is made, would skip the
+    # last row's tail alone, and the rows would run different programs
+    rows = any(isinstance(a, Ctx) and a.dp for a in args)
     return ckpt.checkpoint(fn, *args, use_reentrant=False,
-                           preserve_rng_state=False, context_fn=context_fn)
+                           preserve_rng_state=False, context_fn=context_fn,
+                           early_stop=not rows)

@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
     embed_apply,
     embed_param_specs,
     norm_param_specs,
+    per_row,
     remat,
     rms_norm,
     unembed_apply,
@@ -282,7 +283,7 @@ def _in_proj_tp(w, xs, ctx: Ctx):
              for r, xr in enumerate(xs)]
     if not shd.splits(w, 1):
         return parts
-    return shd.all_gather(parts, ctx.devices, dim=-1)
+    return ctx.all_gather(parts, -1)
 
 
 def _block_range(leaf, r: int, dim: int, size: int) -> slice:
@@ -315,6 +316,7 @@ def _mixer_apply_tp(p, cfg: ModelConfig, xs, cache, return_state, ctx: Ctx):
 
     Returns the per-device outputs and, for a prefill with
     ``return_state``, {"conv", "ssm": per-device local blocks}."""
+    p = ctx.view(p)
     devs = ctx.devices
     h, pdim, n, g = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_ngroups
@@ -342,7 +344,7 @@ def _mixer_apply_tp(p, cfg: ModelConfig, xs, cache, return_state, ctx: Ctx):
         else:
             convs.append(conv_decode(cache["conv"][r], xbc[:, 0],
                                      cw.locals[r], cb.locals[r])[0][:, None])
-    xbc = shd.all_gather(convs, devs, dim=-1) if conv_split else convs
+    xbc = ctx.all_gather(convs, -1) if conv_split else convs
     ys, ssm_states = [], []
     for r, z in enumerate(zx):
         hr = _block_range(p["A_log"], r, 0, h)
@@ -365,8 +367,8 @@ def _mixer_apply_tp(p, cfg: ModelConfig, xs, cache, return_state, ctx: Ctx):
         zr = z[..., hr.start * pdim:hr.stop * pdim]
         ys.append(y.reshape(b, s, il) * F.silu(zr.float()).to(y.dtype))
     # the gated RMS norm over the whole d_inner: f32 sums of squares
-    sq = shd.all_reduce([torch.sum(torch.square(y.float()), dim=-1,
-                                   keepdim=True) for y in ys], devs)
+    sq = ctx.all_reduce([torch.sum(torch.square(y.float()), dim=-1,
+                                   keepdim=True) for y in ys])
     outs = []
     for r, y in enumerate(ys):
         yn = (y.float() * torch.rsqrt(sq[r] / di + cfg.norm_eps)
@@ -376,7 +378,7 @@ def _mixer_apply_tp(p, cfg: ModelConfig, xs, cache, return_state, ctx: Ctx):
     if cache is None:
         new_cache = {"conv": states, "ssm": ssm_states} if return_state \
             else None
-    return shd.all_reduce(outs, devs), new_cache
+    return ctx.all_reduce(outs), new_cache
 
 
 def block_apply(p, cfg: ModelConfig, x, cache=None,
@@ -414,7 +416,8 @@ def forward(params, cfg: ModelConfig, tokens, return_cache: bool = False,
             x, _ = remat(cfg, block_apply, layer, cfg, x, None, False, ctx)
     x = apply_norm(params["ln_f"], x, cfg, ctx)
     logits = unembed_apply(params["embed"], cfg, x, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = per_row(ctx, lambda: torch.zeros((), dtype=torch.float32,
+                                           device=tokens.device))
     if return_cache:
         return logits, aux, cache
     return logits, aux

@@ -170,20 +170,22 @@ def moe_apply(p, cfg: ModelConfig, x, ctx=None):
 
 def _moe_apply_tp(p, cfg: ModelConfig, xs, ctx):
     """:func:`moe_apply` over the slice (module docstring). Returns the
-    per-device outputs and the first device's aux loss."""
+    per-device outputs and the aux loss: the first device's, or over data
+    rows the mean of each row's first device's, all-reduced over
+    ``data`` (every row routes its own block of the batch)."""
+    p = ctx.view(p)
     if not shd.splits(p["wi_gate"], 0):
         # the experts do not divide the slice: the whole MoE on every
         # device, from its copy of the replicated weights
         outs = [moe_apply(shd.local_tree(p, r), cfg, xr)
                 for r, xr in enumerate(xs)]
-        return [o for o, _ in outs], outs[0][1]
-    devs = ctx.devices
+        return [o for o, _ in outs], _row_aux(ctx, [a for _, a in outs])
     b, s, _ = xs[0].shape
     k, e = cfg.experts_per_token, cfg.num_experts
     el = p["wi_gate"].locals[0].shape[0]
     cap = expert_capacity(cfg, s)
     parts = [xr.float() @ p["router"].locals[r] for r, xr in enumerate(xs)]
-    logits = shd.all_gather(parts, devs, dim=-1)
+    logits = ctx.all_gather(parts, -1)
     routes, bufs = [], []
     for r, xr in enumerate(xs):
         gate_w, ids, aux = route(None, cfg, xr, logits=logits[r])
@@ -193,10 +195,22 @@ def _moe_apply_tp(p, cfg: ModelConfig, xs, ctx):
         slot = _slots(ids, pos, keep, b, cap, e0, el, e)
         bufs.append(_experts(shd.local_tree(p, r), xr, slot, el, b, cap))
         routes.append((gate_w, ids, pos, keep, aux))
-    out_bufs = shd.all_gather(bufs, devs, dim=0)
+    out_bufs = ctx.all_gather(bufs, 0)
     outs = []
     for r, (gate_w, ids, pos, keep, _) in enumerate(routes):
         slot = _slots(ids, pos, keep, b, cap, 0, e, e)
         outs.append(_combine(out_bufs[r], slot, keep, gate_w, k,
                              xs[r].dtype))
-    return outs, routes[0][4]
+    return outs, _row_aux(ctx, [rt[4] for rt in routes])
+
+
+def _row_aux(ctx, auxs):
+    """The aux loss of a slice's MoE: its first device's; over data rows,
+    a list with each row's: the rows' first devices' losses averaged by
+    an all-reduce over ``data`` (the same bits on every row)."""
+    if not ctx.dp:
+        return auxs[0]
+    firsts = ctx.row_starts()
+    summed = shd.all_reduce([auxs[r] for r in firsts],
+                            [ctx.devices[r] for r in firsts])
+    return [t / ctx.n_rows for t in summed]

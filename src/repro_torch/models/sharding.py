@@ -14,25 +14,28 @@ Two rule sets ship by default:
 :class:`PartitionSpec`, dropping any assignment whose dim is not divisible
 by the mesh axes and any mesh axis already used by an earlier dim.
 
-The rest places tensors by these specs on a slice's mesh
-(``launch/mesh.py``), with one process driving every device of the slice
-as JAX's single controller does: :class:`NamedSharding` (a mesh and a
-spec), :class:`Sharded` (a global tensor as one local tensor per device),
-:func:`shard` / :func:`device_put` / :func:`gather`, the explicit
-collectives :func:`all_reduce` and :func:`all_gather` (copies between
-devices, ``Tensor.to``, and sums in one fixed device order, so a
-replicated result is the same bits on every device; autograd runs through
-them as through any op), :func:`constrain` and :func:`tree_shardings`,
-and the helpers that build a per-layer cache on one device or a slice
-(:func:`empty`, :func:`write_layer`, :func:`layer_view`).
-A layout over one device is a plain tensor on it: the one-device path is
-the port's path before sharding.
+The rest places tensors by these specs on a mesh (``launch/mesh.py``: a
+slice's (1, n), or a mesh with ``data`` and ``pod`` rows), with one
+process driving every device as JAX's single controller does:
+:class:`NamedSharding` (a mesh and a spec), :class:`Sharded` (a global
+tensor as one local tensor per device), :func:`shard` /
+:func:`device_put` / :func:`gather`, the explicit collectives
+:func:`all_reduce`, :func:`all_gather` and :func:`reduce_scatter` over
+the members of a group (:func:`axis_groups`: the devices that differ only
+along the named axes), each a copy between devices, ``Tensor.to``, and a
+sum in one fixed device order, so a replicated result is the same bits
+on every device; autograd runs through the first two (an all-reduce's
+gradient is an all-reduce, an all-gather's a reduce-scatter), and each
+records its bytes with the cost counter (``kernels/ops.collective``).
+Then :func:`constrain`, :func:`tree_shardings`, and the helpers that
+build a per-layer cache on one device or a mesh (:func:`empty`,
+:func:`write_layer`, :func:`layer_view`). A layout over one device is a
+plain tensor on it: the one-device path is the port's path before
+sharding.
 
 A shape-only mesh is anything with a ``shape`` dict and ``axis_names``
-(:class:`MeshShape` stands in for the production meshes of 256 and 512
-devices, whose placement is queued: :func:`not_ported`), and a
-:class:`PartitionSpec` is a tuple of mesh-axis entries, equal as a tuple
-to the reference's.
+(:class:`MeshShape`), and a :class:`PartitionSpec` is a tuple of
+mesh-axis entries, equal as a tuple to the reference's.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -211,7 +215,6 @@ def tree_partition_specs(axes_tree, mesh, rules: Rules, shapes_tree=None):
 
 # the queued parts of ROADMAP.md's Queue 1 item 5 (multi-device execution)
 PARTS = {
-    5: "the dry run's meshes of many devices",
     6: "mesh_bench.py",
 }
 
@@ -388,7 +391,7 @@ def empty(specs, ctx=None, device=None):
                                              shape=sp.shape))
         local = [n // p for n, p in zip(sp.shape, sh.parts(len(sp.shape)))]
         return Sharded([torch.empty(local, dtype=sp.dtype, device=d)
-                        for d in sh.devices], sh)
+                        for d in ctx.devices], sh)
 
     return common.tree_map(one, specs)
 
@@ -464,12 +467,14 @@ def unstack(tree) -> list:
         for i in range(n)]
 
 
-def shard(t: torch.Tensor, sharding: NamedSharding):
+def shard(t: torch.Tensor, sharding: NamedSharding,
+          n: Optional[int] = None):
     """Lay a global tensor out: each device's block copied onto it (a
     copy even where it is already there). Over one device, a plain copy
-    on it."""
-    devs = sharding.devices
-    if len(devs) == 1:
+    on it. ``n``: only the first ``n`` positions' blocks (a count of one
+    row of a large mesh on ``meta``, ``layers.Ctx.rows``)."""
+    devs = sharding.devices[:n]
+    if len(sharding.devices) == 1:
         return t.to(devs[0], copy=True)
     return Sharded([t[sharding.slices(pos, t.shape)].to(d, copy=True)
                     .contiguous() for pos, d in enumerate(devs)], sharding)
@@ -498,7 +503,12 @@ def gather(x, device=None) -> torch.Tensor:
         return torch.cat([join({**prefix, d: j}, depth + 1)
                           for j in range(parts[d])], dim=d)
 
-    return join({}, 0)
+    if len(blocks) == 1:
+        return join({}, 0)
+    # the blocks gathered onto one device: a collective of one receiver
+    with kops.collective("all-gather", _nbytes(x.locals[0]) * len(blocks),
+                         1):
+        return join({}, 0)
 
 
 def same_blocks(a: NamedSharding, b: NamedSharding, ndim: int) -> bool:
@@ -527,23 +537,23 @@ def relayout(tree, shardings):
         k: one(k, x) for k, x in common.canonical_flat(tree).items()})
 
 
-def _to_layout(leaf, sharding: NamedSharding):
+def _to_layout(leaf, sharding: NamedSharding, n: Optional[int] = None):
     if isinstance(leaf, Sharded):
         if leaf.sharding == sharding:
             return leaf.map(lambda t: t.clone())
         leaf = gather(leaf)
-    return shard(leaf, sharding)
+    return shard(leaf, sharding, n)
 
 
-def device_put(tree, shardings):
+def device_put(tree, shardings, n: Optional[int] = None):
     """Each leaf of ``tree`` (tensors or :class:`Sharded`) copied into the
     layout of ``shardings`` (a tree of :class:`NamedSharding` like it, or
-    one for every leaf)."""
+    one for every leaf); ``n`` as :func:`shard`."""
     if isinstance(shardings, NamedSharding):
-        return common.tree_map(lambda t: _to_layout(t, shardings), tree)
+        return common.tree_map(lambda t: _to_layout(t, shardings, n), tree)
     flat = common.canonical_flat(shardings)
     return common.canonical_unflatten(tree, {
-        k: _to_layout(t, flat[k])
+        k: _to_layout(t, flat[k], n)
         for k, t in common.canonical_flat(tree).items()})
 
 
@@ -557,70 +567,221 @@ def tree_shardings(axes_tree, mesh, rules: Rules, shapes_tree=None):
 
 # ------------------------------------------------------------ collectives
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _sum_to(parts: Sequence[torch.Tensor],
+            devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The sum of ``parts`` on every one of ``devices``: added in
+    position order once on each distinct device, and a copy of it for
+    each further position on that device (virtual devices), so every
+    position holds its own tensor of the same bits."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev in done:
+            out.append(done[dev].clone())
+            continue
+        acc = parts[0].to(dev)
+        for p in parts[1:]:
+            acc = acc + p.to(dev)
+        if len(parts) == 1 and acc is parts[0]:
+            acc = acc.clone()
+        done[dev] = acc
+        out.append(acc)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Each position's sum of the parts; its backward is the all-reduce
+    of the positions' gradients, back to each part's device."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.src = [p.device for p in parts]
+        ctx.nbytes = _nbytes(parts[0])
+        # an output no one used sends no gradient (None, not zeros)
+        ctx.set_materialize_grads(False)
+        with kops.collective("all-reduce", ctx.nbytes, len(devices)):
+            return tuple(_sum_to(parts, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g for g in grads if g is not None]
+        if not grads:
+            return (None,) * (len(ctx.src) + 1)
+        with kops.collective("all-reduce", ctx.nbytes, len(ctx.src)):
+            return (None, *_sum_to(grads, ctx.src))
+
+
+class _AllGather(torch.autograd.Function):
+    """The parts joined along ``dim`` on each receiving device. Its
+    backward is a reduce-scatter: each part's gradient is its block of
+    the sum of the receivers' gradients. ``live`` marks the parts whose
+    gradient is wanted (the others stand in for blocks of positions that
+    are not computed: their gradient is None)."""
+
+    @staticmethod
+    def forward(ctx, dim, devices, live, *parts):
+        ctx.dim, ctx.live = dim, live
+        ctx.src = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        ctx.set_materialize_grads(False)
+        with kops.collective("all-gather", sum(_nbytes(p) for p in parts),
+                             len(devices)):
+            done: Dict[torch.device, torch.Tensor] = {}
+            out = []
+            for dev in devices:
+                dev = torch.device(dev)
+                if dev in done:
+                    out.append(done[dev].clone())
+                else:
+                    done[dev] = torch.cat([p.to(dev) for p in parts], dim=dim)
+                    out.append(done[dev])
+            return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [i for i, w in enumerate(ctx.live) if w]
+        out = [None] * len(ctx.src)
+        grads = [g for g in grads if g is not None]
+        if not grads or not live:
+            return (None, None, None, *out)
+        block = _nbytes(grads[0]) // max(1, len(ctx.src))
+        with kops.collective("reduce-scatter", block, len(live)):
+            sums: Dict[torch.device, torch.Tensor] = {}
+            for i in live:
+                dev = ctx.src[i]
+                if dev not in sums:
+                    sums[dev] = _sum_to(grads, [dev])[0]
+                start = sum(ctx.sizes[:i])
+                out[i] = sums[dev].narrow(ctx.dim, start,
+                                          ctx.sizes[i]).contiguous()
+        return (None, None, None, *out)
+
+
 def all_reduce(parts: Sequence[torch.Tensor],
                devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """The sum of ``parts`` (one partial per position) on every position's
-    device: each partial copied there and added in position order, so
-    every device holds the same bits. Positions on one device (virtual
-    devices) share one sum."""
-    done: Dict[torch.device, torch.Tensor] = {}
-    out = []
-    for dev in devices:
-        dev = torch.device(dev)
-        if dev not in done:
-            acc = parts[0].to(dev)
-            for p in parts[1:]:
-                acc = acc + p.to(dev)
-            done[dev] = acc
-        out.append(done[dev])
-    return out
+    device, added in position order, so every device holds the same bits
+    (each position its own tensor: on virtual devices a copy of the one
+    sum). Autograd runs through it: the gradient of each part is the
+    all-reduce of the positions' gradients. A collective the cost counter
+    records (``kernels/ops.collective``)."""
+    return list(_AllReduce.apply(list(devices), *parts))
 
 
 def all_gather(parts: Sequence[torch.Tensor], devices: Sequence[torch.device],
-               dim: int) -> List[torch.Tensor]:
-    """``parts`` joined along ``dim`` on every position's device."""
-    done: Dict[torch.device, torch.Tensor] = {}
-    out = []
-    for dev in devices:
-        dev = torch.device(dev)
-        if dev not in done:
-            done[dev] = torch.cat([p.to(dev) for p in parts], dim=dim)
-        out.append(done[dev])
+               dim: int, live: Optional[Sequence[bool]] = None
+               ) -> List[torch.Tensor]:
+    """``parts`` joined along ``dim`` on every position's device;
+    differentiable, its backward the reduce-scatter of the gradients to
+    the parts (those ``live`` marks, default all)."""
+    live = tuple(live) if live is not None else (True,) * len(parts)
+    return list(_AllGather.apply(dim, list(devices), live, *parts))
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor],
+                   devices: Sequence[torch.device], dim: int,
+                   blocks: Sequence[int], n_blocks: int
+                   ) -> List[torch.Tensor]:
+    """The sum of ``parts`` (added in position order), of which position
+    ``i`` receives block ``blocks[i]`` of ``n_blocks`` along ``dim``: the
+    gradient reduction of ZeRO's moment layout. Not differentiable (it
+    reduces gradients)."""
+    size = parts[0].shape[dim] // n_blocks
+    with kops.collective("reduce-scatter", _nbytes(parts[0]) // n_blocks,
+                         len(devices)):
+        sums: Dict[torch.device, torch.Tensor] = {}
+        out = []
+        for dev, b in zip(devices, blocks):
+            dev = torch.device(dev)
+            if dev not in sums:
+                acc = parts[0].to(dev)
+                for p in parts[1:]:
+                    acc = acc + p.to(dev)
+                sums[dev] = acc
+            out.append(sums[dev].narrow(dim, b * size, size).contiguous())
     return out
 
 
-def sum_replica_grads(g: Sharded) -> Sharded:
+def axis_groups(mesh, axes: Sequence[str], n: Optional[int] = None
+                ) -> List[List[int]]:
+    """The groups of flat positions (the first ``n``, default all) that
+    differ only along ``axes``: a collective over those mesh axes runs
+    within each group, its members in position order."""
+    n = mesh.size if n is None else n
+    names = list(mesh.axis_names)
+    groups: Dict[tuple, List[int]] = {}
+    for pos in range(n):
+        coords = np.unravel_index(pos, tuple(mesh.shape[a] for a in names))
+        key = tuple(int(c) for a, c in zip(names, coords) if a not in axes)
+        groups.setdefault(key, []).append(pos)
+    return list(groups.values())
+
+
+def sum_replica_grads(g: Sharded, moments: Optional[NamedSharding] = None
+                      ) -> Sharded:
     """The gradient of a leaf whose blocks have replicas: each replica's
     tensor received the gradient of its own device's uses, and the
     block's gradient is their sum (the all-reduce GSPMD inserts for a
-    replicated parameter), added in position order and given to every
-    replica."""
+    replicated parameter, over ``model`` and over the ``data`` / ``pod``
+    rows alike), added in position order and given to every replica.
+    With ``moments`` (ZeRO's layout of the moments, which splits a dim
+    the parameter replicates over ``data``), a reduce-scatter instead:
+    each position receives its moment block of the sum. Positions past
+    the locals (a count of one row, ``layers.Ctx.rows``) take no part."""
+    nd = g.dim()
     groups: Dict[Tuple[int, ...], List[int]] = {}
     for pos in range(len(g.locals)):
-        groups.setdefault(g.sharding.block(pos, g.dim()), []).append(pos)
+        groups.setdefault(g.sharding.block(pos, nd), []).append(pos)
     out = list(g.locals)
+    scatter = None
+    if moments is not None and not same_blocks(g.sharding, moments, nd):
+        pp, mp = g.sharding.parts(nd), moments.parts(nd)
+        diff = [d for d in range(nd) if pp[d] != mp[d]]
+        if len(diff) == 1:
+            scatter = (diff[0], mp[diff[0]] // pp[diff[0]])
+    # replicas of each block in the whole mesh (some may not be computed)
+    replicas = g.sharding.mesh.size // math.prod(g.sharding.parts(nd))
     for members in groups.values():
-        if len(members) > 1:
-            sums = all_reduce([g.locals[p] for p in members],
-                              [g.locals[p].device for p in members])
-            for p, s in zip(members, sums):
-                out[p] = s
-    return Sharded(out, g.sharding)
+        devs = [g.locals[p].device for p in members]
+        parts = [g.locals[p] for p in members]
+        if scatter is not None:
+            d, k = scatter
+            blocks = [moments.block(p, nd)[d] % k for p in members]
+            res = reduce_scatter(parts, devs, d, blocks, k)
+        elif replicas > 1:
+            res = all_reduce(parts, devs)
+        else:
+            continue
+        for p, s in zip(members, res):
+            out[p] = s
+    return Sharded(out, moments if scatter is not None else g.sharding)
 
 
 def constrain(x, mesh, rules: Rules, axes: Sequence[Optional[str]]):
     """Bring an activation to the layout its logical ``axes`` resolve to on
     ``mesh`` (where the reference calls ``with_sharding_constraint``): a
-    list of per-device tensors holding the whole value (replicated) is
-    sliced where it lies; a :class:`Sharded` is gathered first. Returns
-    the per-device tensors of the new layout; outside a mesh of several
-    devices, ``x`` as it is."""
+    list of per-device tensors, each holding its data row's block of the
+    value (the batch over ``pod`` x ``data``, a cache's sequence over
+    ``data``), is sliced along the model axis where it lies; a
+    :class:`Sharded` is gathered first. Returns the per-device tensors of
+    the new layout; outside a mesh of several devices, ``x`` as it is."""
     if mesh is None or mesh.size == 1 or torch.is_tensor(x):
         return x
     if isinstance(x, Sharded):
         shape, glob = x.shape, gather(x)
         src = [glob.to(d) for d in mesh.flat_devices()]
+        sh = NamedSharding(mesh, resolve(axes, mesh, rules, shape=shape))
     else:
+        # each device's tensor is already its block along the axes over
+        # ``data`` and ``pod`` (a batch, a cache's sequence): only the
+        # model axis is left to slice
         src, shape = list(x), x[0].shape
-    sh = NamedSharding(mesh, resolve(axes, mesh, rules, shape=shape))
+        spec = resolve(axes, mesh, rules, shape=shape)
+        sh = NamedSharding(mesh, PartitionSpec(*(
+            e if "model" in _mesh_axes_tuple(e) else None for e in spec)))
     return [t[sh.slices(pos, shape)] for pos, t in enumerate(src)]

@@ -44,6 +44,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_param_specs,
     norm_param_specs,
+    per_row,
     remat,
     unembed_apply,
 )
@@ -155,15 +156,24 @@ def group_apply(group, cfg: ModelConfig, x, positions, with_kv: bool,
             auxs.append(aux)
         if with_kv:
             kvs.append(kv)
-    aux = torch.stack(auxs) if auxs else None
+    aux = _stack_aux(auxs) if auxs else None
     return (x, aux, kvs) if with_kv else (x, aux)
+
+
+def _stack_aux(auxs, op=torch.stack):
+    """The layers' MoE losses joined by ``op``: of tensors, or over data
+    rows of per-row lists, row by row."""
+    if isinstance(auxs[0], list):
+        return [op([a[i] for a in auxs]) for i in range(len(auxs[0]))]
+    return op(auxs)
 
 
 def _forward_tp(params, cfg: ModelConfig, tokens, return_cache: bool,
                 ctx: Ctx):
     b, s = tokens.shape
     xs = embed_apply(params["embed"], cfg, tokens, ctx)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    positions = per_row(ctx, lambda: torch.arange(
+        s, device=tokens.device)[None, :].expand(b, s))
     _, period = _group_layout(cfg)
     layers = shd.unstack(params["layers"])
     cache, auxs = None, []
@@ -187,9 +197,15 @@ def _forward_tp(params, cfg: ModelConfig, tokens, return_cache: bool,
             auxs.append(aux)
     logits = unembed_apply(params["embed"], cfg,
                            apply_norm(params["ln_f"], xs, cfg, ctx), ctx)
-    # the MoE loss, on the first device, once for the slice
-    aux = torch.cat(auxs).mean() if auxs else \
-        torch.zeros((), dtype=torch.float32, device=tokens.device)
+    # the MoE loss, on the first device, once for the slice (over data
+    # rows, once a row)
+    if auxs:
+        aux = _stack_aux(auxs, torch.cat)
+        aux = [a.mean() for a in aux] if isinstance(aux, list) \
+            else aux.mean()
+    else:
+        aux = per_row(ctx, lambda: torch.zeros((), dtype=torch.float32,
+                                               device=tokens.device))
     if return_cache:
         return logits, aux, cache
     return logits, aux
@@ -244,8 +260,8 @@ def _decode_step_tp(params, cfg: ModelConfig, cache, tokens, ctx: Ctx):
     b = tokens.shape[0]
     pos = int(cache["pos"])
     xs = embed_apply(params["embed"], cfg, tokens, ctx)
-    positions = torch.full((b, 1), pos, dtype=torch.int32,
-                           device=tokens.device)
+    positions = per_row(ctx, lambda: torch.full(
+        (b, 1), pos, dtype=torch.int32, device=tokens.device))
     _, period = _group_layout(cfg)
     for i, layer in enumerate(shd.unstack(params["layers"])):
         xs, _, _ = layer_apply(

@@ -54,6 +54,7 @@ from repro_torch.models.layers import (
     mlp_param_specs,
     norm_param_specs,
     on_slice,
+    per_row,
     remat,
     unembed_apply,
 )
@@ -149,7 +150,8 @@ def forward(params, cfg: ModelConfig, tokens, vision,
     b, s = tokens.shape
     x = embed_apply(params["embed"], cfg, tokens, ctx)
     vision = on_slice(ctx, vision)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    positions = per_row(ctx, lambda: torch.arange(
+        s, device=tokens.device)[None, :].expand(b, s))
     ks, vs, cks, cvs = [], [], [], []
     for p_group, p_cross in zip(shd.unstack(params["self_layers"]),
                                 shd.unstack(params["cross_layers"])):
@@ -165,7 +167,8 @@ def forward(params, cfg: ModelConfig, tokens, vision,
                       positions, False, ctx)
     x = apply_norm(params["ln_f"], x, cfg, ctx)
     logits = unembed_apply(params["embed"], cfg, x, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = per_row(ctx, lambda: torch.zeros((), dtype=torch.float32,
+                                           device=tokens.device))
     if return_cache:
         specs = cache_specs(cfg, b, s)
         cache = {name: shd.stack(vals, ctx, specs[name])
@@ -197,8 +200,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     slice, the cache's locals written in place."""
     b = tokens.shape[0]
     pos = int(cache["pos"])
-    positions = torch.full((b, 1), pos, dtype=torch.int32,
-                           device=tokens.device)
+    positions = per_row(ctx, lambda: torch.full(
+        (b, 1), pos, dtype=torch.int32, device=tokens.device))
     x = embed_apply(params["embed"], cfg, tokens, ctx)
     for g, (p_group, p_cross) in enumerate(zip(
             shd.unstack(params["self_layers"]),

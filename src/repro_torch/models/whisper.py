@@ -50,6 +50,7 @@ from repro_torch.models.layers import (
     mlp_param_specs,
     norm_param_specs,
     on_slice,
+    per_row,
     remat,
     sinusoidal_positions,
     unembed_apply,
@@ -89,15 +90,21 @@ def param_specs(cfg: ModelConfig):
     }
 
 
-def _positions(b: int, s: int, device):
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+def _positions(b: int, s: int, device, ctx: Optional[Ctx] = None):
+    return per_row(ctx, lambda: torch.arange(
+        s, device=device)[None, :].expand(b, s))
 
 
 def _add_positions(x, positions, cfg: ModelConfig):
     """x plus the f32 sinusoid cast to x's dtype, as the reference adds
     it; of a per-device list, on every device."""
     if isinstance(x, list):
-        return [_add_positions(xr, positions.to(xr.device), cfg) for xr in x]
+        # every sequence's positions are alike: a data row's block takes
+        # the first rows (of its row's own, :func:`layers.per_row`)
+        rows = positions if isinstance(positions, list) else [positions]
+        per = -(-len(x) // len(rows))
+        return [_add_positions(xr, rows[r // per][:xr.shape[0]].to(
+            xr.device), cfg) for r, xr in enumerate(x)]
     return x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
 
@@ -118,8 +125,8 @@ def encode(params, cfg: ModelConfig, frames, ctx: Optional[Ctx] = None):
     """frames: (B, T_enc, d_model) stubbed frame embeddings -> (B, T_enc,
     d_model), per device with ``ctx``. Each layer runs under ``remat``."""
     b, t, _ = frames.shape
-    positions = _positions(b, t, frames.device)
-    x = on_slice(ctx, _add_positions(frames, positions, cfg))
+    positions = _positions(b, t, frames.device, ctx)
+    x = _add_positions(on_slice(ctx, frames), positions, cfg)
     for layer in shd.unstack(params["enc_layers"]):
         x = remat(cfg, enc_layer_apply, layer, cfg, x, positions, ctx)
     return apply_norm(params["enc_ln_f"], x, cfg, ctx)
@@ -163,7 +170,7 @@ def forward(params, cfg: ModelConfig, tokens, frames,
     first device."""
     b, s = tokens.shape
     enc_out = encode(params, cfg, frames, ctx)
-    positions = _positions(b, s, tokens.device)
+    positions = _positions(b, s, tokens.device, ctx)
     x = _add_positions(embed_apply(params["embed"], cfg, tokens, ctx),
                        positions, cfg)
     kvs = []
@@ -174,7 +181,8 @@ def forward(params, cfg: ModelConfig, tokens, frames,
             kvs.append((kv, ckv))
     x = apply_norm(params["ln_f"], x, cfg, ctx)
     logits = unembed_apply(params["embed"], cfg, x, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = per_row(ctx, lambda: torch.zeros((), dtype=torch.float32,
+                                           device=tokens.device))
     if return_cache:
         specs = cache_specs(cfg, b, s)
         cache = {name: shd.stack([kv[i][part] for kv in kvs], ctx,
@@ -205,8 +213,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     slice, the cache's locals written in place."""
     b = tokens.shape[0]
     pos = int(cache["pos"])
-    positions = torch.full((b, 1), pos, dtype=torch.int32,
-                           device=tokens.device)
+    positions = per_row(ctx, lambda: torch.full(
+        (b, 1), pos, dtype=torch.int32, device=tokens.device))
     x = _add_positions(embed_apply(params["embed"], cfg, tokens, ctx),
                        positions, cfg)
     for i, layer in enumerate(shd.unstack(params["layers"])):

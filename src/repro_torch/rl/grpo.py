@@ -10,6 +10,9 @@ gradient is the JAX package's XLA autodiff (``kernels/ops.py``).
 Over a slice of several devices (a ``ctx``) the parameters are
 ``Sharded`` leaves and the model runs tensor-parallel; the logits are
 gathered to the slice's first device, and the loss is computed there.
+Over data rows each row's first device takes its block's masked sums, an
+all-reduce over ``data`` adds them, and the gradients come back in
+ZeRO-2's layout (reduce-scattered over ``data``).
 Autograd runs through the collectives' copies and sums, so each local
 tensor gets its gradient; a replicated leaf's copies each get the
 gradient of their own device's uses, and :func:`value_and_grad` sums them
@@ -65,6 +68,8 @@ def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig,
     loss_mask (B,S); the mask selects response tokens.
     """
     logits, aux = model.forward(params, batch, ctx=ctx)[:2]
+    if isinstance(logits, list):
+        return _grpo_loss_rows(logits, aux, batch, cfg, ctx)
     logp = token_logprobs(logits, batch["tokens"])           # (B, S-1)
     del logits
     behave = batch["behavior_logprobs"][:, 1:]
@@ -94,16 +99,74 @@ def grpo_loss(params, model: Model, batch: Dict[str, Any], cfg: GRPOConfig,
     return loss, metrics
 
 
+def _grpo_loss_rows(logits, aux, batch, cfg: GRPOConfig, ctx):
+    """:func:`grpo_loss` over data rows: each row's first device holds
+    its block of the batch's logits and takes the masked sums of its
+    rows; an all-reduce over ``data`` adds them, so every row computes
+    the loss and the metrics of the whole batch (the same bits on each).
+    Returns each row's loss over the rows' count (a list: the backward
+    starts on every row from its own, and their sum is the loss) and the
+    first row's metrics."""
+    b = batch["tokens"].shape[0]
+    firsts = ctx.row_starts()
+    if ctx.batch_slice(b, 0).stop == b:
+        raise ValueError(f"a batch of {b} does not split over "
+                         f"{ctx.n_rows} data rows")
+    sums, devs = [], []
+    for i, r0 in enumerate(firsts):
+        lg = logits[i]
+        dev = lg.device
+        sl = ctx.batch_slice(b, r0)
+        tokens = batch["tokens"][sl].to(dev)
+        logp = token_logprobs(lg, tokens)
+        behave = batch["behavior_logprobs"][sl, 1:].to(dev)
+        mask = batch["loss_mask"][sl, 1:].to(dev)
+        adv = batch["advantages"][sl, None].to(dev)
+        log_ratio = logp - behave
+        ratio = torch.exp(log_ratio)
+        clipped = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps)
+        surrogate = torch.minimum(ratio * adv, clipped * adv)
+        lr_c = torch.clamp(log_ratio, -20.0, 20.0)
+        kl = torch.exp(-lr_c) - 1.0 + lr_c
+        sums.append(torch.stack([(surrogate * mask).sum(), mask.sum(),
+                                 (kl * mask).sum(), (ratio * mask).sum(),
+                                 -(logp * mask).sum()]))
+        devs.append(dev)
+    tot = shd.all_reduce(sums, devs)
+    losses, metrics = [], None
+    for i, t in enumerate(tot):
+        denom = torch.clamp(t[1], min=1.0)
+        pg_loss = -t[0] / denom
+        kl = t[2] / denom
+        a = aux[i] if isinstance(aux, list) else aux.to(devs[i])
+        loss = pg_loss + cfg.aux_coef * a
+        if cfg.kl_coef:
+            loss = loss + cfg.kl_coef * kl
+        losses.append(loss / ctx.n_rows)
+        # every row computes the metrics (the same program on each); the
+        # first row's are returned
+        m = {"pg_loss": pg_loss, "kl": kl, "aux": a,
+             "ratio_mean": t[3] / denom, "entropy_proxy": t[4] / denom}
+        metrics = metrics or m
+    return losses, metrics
+
+
 def value_and_grad(loss_fn, params):
     """Flat {key: grad} of ``loss_fn(params) -> (loss, metrics)`` (zeros for
     an unused leaf, as ``jax.grad``) and the metrics with the loss, all
-    detached. A ``Sharded`` leaf's gradient is ``Sharded`` in its layout,
+    detached. ``loss`` may be a list of shares (one a data row), whose
+    sum is differentiated. A ``Sharded`` leaf's gradient is ``Sharded`` in its layout,
     its replicas' gradients summed."""
     leaves = {k: shd.leafwise(lambda t: t.detach().requires_grad_(), p)
               for k, p in common.canonical_flat(params).items()}
     tensors = [t for p in leaves.values() for t in shd.local_tensors(p)]
     loss, metrics = loss_fn(common.canonical_unflatten(params, leaves))
     got = iter(torch.autograd.grad(loss, tensors, allow_unused=True))
+    if isinstance(loss, list):
+        # over data rows, each row's share: the loss is their sum, every
+        # row's all-reduced copy the same
+        loss = shd.all_reduce([t.detach() for t in loss],
+                              [t.device for t in loss])[0]
 
     def grad_of(t):
         g = next(got)
@@ -111,10 +174,20 @@ def value_and_grad(loss_fn, params):
 
     grads = {}
     for k, p in leaves.items():
-        grads[k] = shd.sum_replica_grads(p.map(grad_of)) \
+        grads[k] = shd.sum_replica_grads(p.map(grad_of), _zero(p)) \
             if isinstance(p, shd.Sharded) else grad_of(p)
     metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
     return grads, metrics
+
+
+def _zero(p: shd.Sharded):
+    """ZeRO-2's layout of a leaf's moments and gradient on a mesh with
+    data rows (``optimizer.zero_moment_spec``), else None."""
+    mesh = p.sharding.mesh
+    if mesh.shape.get("data", 1) == 1:
+        return None
+    return shd.NamedSharding(mesh, opt.zero_moment_spec(
+        p.sharding.spec, tuple(p.shape), mesh))
 
 
 def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
@@ -123,7 +196,11 @@ def compute_grads(params, model: Model, batch, grpo_cfg: GRPOConfig,
     metrics. With ``grad_accum`` > 1 the batch is split into that many
     equal microbatches along the batch axis (``ValueError`` unless
     ``grad_accum`` divides it); their grads accumulate in f32 and are
-    averaged, and so are the metrics."""
+    averaged, and so are the metrics. Over a mesh with data rows each
+    microbatch splits over them (local microbatches of ``B / rows /
+    grad_accum``), and the grads come back in ZeRO-2's layout
+    (``optimizer.state_partition_specs``): each device holds its
+    ``data`` block of the sum over the rows and replicas."""
     if grad_accum <= 1:
         grads, metrics = value_and_grad(
             lambda p: grpo_loss(p, model, batch, grpo_cfg, ctx), params)
@@ -171,7 +248,7 @@ def make_update_actor(model: Model, grpo: GRPOConfig = GRPOConfig(),
         del grads
         metrics = dict(metrics, **opt_metrics)
         return TrainState(state.params, state.opt_state,
-                          state.step + 1), metrics
+                          shd.leafwise(lambda t: t + 1, state.step)), metrics
 
     return step
 
@@ -189,11 +266,14 @@ def make_compute_log_prob(model: Model):
 
 def make_prefill(model: Model):
     """The serving prefill (``repro/rl/grpo.py:139``): (params, batch) ->
-    (the last position's logits (B, 1, V), the cache)."""
+    (the last position's logits (B, 1, V), the cache); over data rows,
+    a list of each row's (``layers.row_logits`` joins them)."""
 
     def step(params, batch, ctx=None):
         logits, _, cache = model.forward(params, batch, return_cache=True,
                                          ctx=ctx)
+        if isinstance(logits, list):    # over data rows, a row's each
+            return [t[:, -1:] for t in logits], cache
         return logits[:, -1:], cache
 
     return step

@@ -523,14 +523,18 @@ def test_teardown_of_running_best_effort_bills_and_spares_guaranteed():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
-    """The production meshes still raise, naming their Queue 1 item; a
-    process-mode group of several devices, ported, spawns its child on its
-    slice; a PPO job (an actor and a critic deployment) attaches."""
+    """The production meshes, ported, are built on ``meta``;
+    ``mesh_bench.py`` is the one part left in ``PARTS``; a process-mode
+    group of several devices, ported, spawns its child on its slice; a PPO
+    job (an actor and a critic deployment) attaches."""
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import sharding as shd
 
     P = _Pkg("repro_torch")
-    with pytest.raises(NotImplementedError, match="item 5, sharding, part 5"):
-        make_production_mesh()
+    m = make_production_mesh()
+    assert m.shape == {"data": 16, "model": 16}
+    assert {d.type for d in m.flat_devices()} == {"meta"}
+    assert set(shd.PARTS) == {6} and "mesh_bench.py" in shd.PARTS[6]
     pc = PlexCluster(device_plane=DevicePlane(devices=[CPU] * 2),
                      devices_per_group=2, process_plane=True)
     try:

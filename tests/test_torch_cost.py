@@ -19,6 +19,13 @@
   ``fits_one_card`` is the reference's per-device sum (arguments +
   temporaries + outputs - aliases) within 80 GB, a train cell's
   temporaries those of the reference's ``default_grad_accum`` microbatch.
+- The production meshes (``run_mesh_cell``, ``main``'s ``--both-meshes``,
+  ``--multi-pod`` and ``--rules``): four cells' per-device argument bytes
+  equal the sum over the reference's specs of each leaf's bytes over its
+  split, and their mesh FLOPs the one card's plus the products the rules
+  replicate (closed form, 1 %); a reduced forward's per-device FLOPs on a
+  (2, 2) ``meta`` mesh equal the reference's compiled HLO on four forced
+  host devices (a child process) within 1 %.
 - ``hlo_cost``'s live bytes: exact on a hand-counted chain of matmuls, a
   kernel call counted by its outputs, and the same peak on ``meta`` and on
   the CPU for each family's reduced steps (head width 16 through the
@@ -26,9 +33,9 @@
   reference's compiled reduced steps the arguments agree and the
   temporaries are printed (``-s``), not held (XLA fuses and reuses).
 """
-import types
-
 import json
+import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +56,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import dryrun, hlo_cost, mesh
 from repro_torch.models import common
+from repro_torch.models import sharding as shd
 from repro_torch.models.registry import build_model
 from repro_torch.rl import grpo
 from repro_torch.train import train_state as ts
@@ -405,6 +413,10 @@ def test_dryrun_cell_at_full_width(arch, shape_name):
 
 
 def test_dryrun_main_writes_cells_and_refuses_unported_meshes(tmp_path):
+    """``main`` writes a one-card cell (cached on a second call) and, with
+    ``--both-meshes``, ``--multi-pod`` and ``--rules``, the cells of the
+    production meshes under ``<out>/h100_16x16/`` and
+    ``<out>/h100_2x16x16/``, counted on ``meta``; no mesh is refused."""
     out = str(tmp_path)
     dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
                  out])
@@ -415,11 +427,283 @@ def test_dryrun_main_writes_cells_and_refuses_unported_meshes(tmp_path):
     dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
                  out])                            # cached: not recounted
     assert json.loads(path.read_text()) == cell
-    for flag in (["--multi-pod"], ["--both-meshes"], ["--rules", "tp"]):
-        with pytest.raises(NotImplementedError, match="item 5, sharding"):
-            dryrun.main(["--all", "--out", out] + flag)
-    with pytest.raises(NotImplementedError, match="item 5, sharding"):
-        mesh.make_production_mesh()
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
+                 out, "--both-meshes"])
+    for name, chips in (("h100_16x16", 256), ("h100_2x16x16", 512)):
+        got = json.loads((tmp_path / name / "qwen2-0.5b__decode_32k.json")
+                         .read_text())
+        assert got["status"] == "OK" and got["n_chips"] == chips
+        assert got["rules"] == "tp" and got["mesh"] == name
+        assert "meta" in got["counted"]
+        assert set(got["collectives"]) == {"bytes_by_kind", "counts",
+                                           "total_bytes"}
+        assert got["collectives"]["bytes_by_kind"]["all-reduce"] > 0
+        assert set(got["roofline"]) >= {
+            "hlo_flops_per_device", "hlo_bytes_per_device",
+            "collective_bytes_per_device", "compute_term_s",
+            "memory_term_s", "collective_term_s", "dominant",
+            "model_flops_total", "hlo_flops_total", "useful_flops_ratio"}
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", "--out",
+                 out, "--rules", "fsdp_tp"])
+    got = json.loads((tmp_path / "h100_16x16" / "qwen2-0.5b__decode_32k.json")
+                     .read_text())
+    assert got["rules"] == "fsdp_tp"
+    m = mesh.make_production_mesh()
+    assert m.shape == {"data": 16, "model": 16} and m.size == 256
+    assert mesh.make_production_mesh(multi_pod=True).shape == {
+        "pod": 2, "data": 16, "model": 16}
+    assert 5 not in shd.PARTS and set(shd.PARTS) == {6}
     assert (mesh.HW["peak_flops_bf16"], mesh.HW["hbm_bw"],
-            mesh.HW["hbm_bytes"]) == (989e12, 3.35e12, 80e9)
+            mesh.HW["hbm_bytes"], mesh.HW["nvlink_bw"]) == (
+        989e12, 3.35e12, 80e9, 900e9)
     assert mesh.bound(3.35e9, 1.0) == (pytest.approx(1.0), "bytes")
+
+
+# ------------------------------------------------ the production meshes
+
+class _Mesh:
+    """A shape-only mesh for the reference's resolve."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+
+_MESHES = {"h100_16x16": {"data": 16, "model": 16},
+           "h100_2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+def _ref_local_bytes(specs, axes, dtypes, mesh, rules, moments=False):
+    """The sum, over the reference's specs of a tree, of each leaf's bytes
+    over its split (``moments``: in ZeRO-2's layout, f32)."""
+    from repro.models import sharding as jshd
+    from repro.train import optimizer as jopt
+    total = 0
+    for k, ax in axes.items():
+        shape = specs[k]
+        spec = jshd.resolve(ax, mesh, rules, shape=shape)
+        if moments:
+            spec = jopt.zero_moment_spec(spec, shape, mesh)
+        parts = 1
+        for e in tuple(spec):
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                parts *= mesh.shape[a]
+        total += int(np.prod(shape)) * dtypes[k] // parts
+    return total
+
+
+def _ref_argument_bytes(arch, shape_name, mesh_name, rules_name):
+    from repro.models import common as jcommon
+    from repro.models import sharding as jshd
+    jm = jbuild(jget_config(arch))
+    shape = SHAPES[shape_name]
+    mesh_s = _Mesh(_MESHES[mesh_name])
+    rules = jshd.named_rules(rules_name)
+    specs = jm.param_specs()
+    axes = jcommon.canonical_flat(jcommon.logical_axes(specs),
+                                  is_leaf=lambda x: isinstance(x, tuple))
+    shapes = {k: tuple(v.shape) for k, v in jflat(
+        jm.abstract_params(), is_leaf=lambda x: hasattr(x, "shape")).items()}
+    widths = {k: jnp.dtype(v.dtype).itemsize for k, v in jflat(
+        jm.abstract_params(), is_leaf=lambda x: hasattr(x, "shape")).items()}
+    total = _ref_local_bytes(shapes, axes, widths, mesh_s, rules)
+    if shape.kind == "train" and arch not in jdryrun.HOST_OPTIM:
+        f32 = {k: 4 for k in widths}
+        total += 2 * _ref_local_bytes(shapes, axes, f32, mesh_s, rules,
+                                      moments=True) + 2 * 4
+    if shape.kind == "decode":
+        cspecs = jm.cache_specs(shape.global_batch, shape.seq_len)
+        caxes = jcommon.canonical_flat(jcommon.logical_axes(cspecs),
+                                       is_leaf=lambda x: isinstance(x, tuple))
+        cabs = jflat(jcommon.abstract_params(cspecs),
+                     is_leaf=lambda x: hasattr(x, "shape"))
+        # the reference's int32 ``pos`` leaf is a host int in the port
+        caxes = {k: v for k, v in caxes.items() if k != "pos"}
+        total += _ref_local_bytes(
+            {k: tuple(v.shape) for k, v in cabs.items()}, caxes,
+            {k: jnp.dtype(v.dtype).itemsize for k, v in cabs.items()},
+            mesh_s, rules)
+    for v in jm.input_specs(shape).values():
+        total += _ref_local_bytes({0: tuple(v.sds.shape)}, {0: v.axes},
+                                  {0: jnp.dtype(v.sds.dtype).itemsize},
+                                  mesh_s, rules)
+    return total
+
+
+def _proj_flops(cfg, tokens, q=True, kv=True):
+    """A layer's forward attention projections over ``tokens``: Q and O
+    (``q``), K and V (``kv``)."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    out = 0
+    if q:
+        out += 2 * 2 * tokens * d * cfg.num_heads * hd
+    if kv:
+        out += 2 * 2 * tokens * d * cfg.num_kv_heads * hd
+    return out
+
+
+def _replicated_flops(arch, shape_name, one):
+    """The products a production mesh's rules replicate, which its
+    devices count beside the one card's (``one``: its h100x1 cell), as
+    the mesh total's excess: 15 more copies where a 16-way model axis
+    does not split them.
+
+    - qwen2-0.5b x train_4k (14 heads, 2 KV heads): all of attention. A
+      layer's projections run four times (forward, ``remat``'s rerun and
+      two products in the backward); K1 as counted; the backward's XLA
+      attention over every query-key pair, 14 B H S^2 D a layer (its two
+      products, the scores again in its query blocks' checkpointed rerun
+      and four products in their backward).
+    - paper-qwen3-30b-a3b x train_4k (4 KV heads): the K/V projections.
+    - arctic-480b x decode_32k (56 heads, 8 KV heads): the Q, K and V
+      projections of one token a sequence. The cache splits over
+      head_dim (``cache_hd``): the head-dim-parallel decode splits the
+      scores and the output projection over the model axis.
+    - zamba2-7b x long_500k: batch 1 under ``long`` is replicated over
+      the 16 data rows but for K2, whose keys split over them: the mesh
+      runs 16 copies less 15 of K2's work."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    b, s, n = shape.global_batch, shape.seq_len, cfg.num_layers
+    k1 = one["kernels"]["flash_attention"]["flops"]
+    k2 = one["kernels"]["decode_attention"]["flops"]
+    assert k1 or k2
+    if arch == "qwen2-0.5b":
+        attn = 4 * n * _proj_flops(cfg, b * s) + k1 \
+            + n * 14 * b * cfg.num_heads * s * s * cfg.resolved_head_dim
+        return 15 * attn
+    if arch == "paper-qwen3-30b-a3b":
+        return 15 * 4 * n * _proj_flops(cfg, b * s, q=False)
+    if arch == "arctic-480b":
+        hd, d = cfg.resolved_head_dim, cfg.d_model
+        return 15 * n * (2 * b * d * cfg.num_heads * hd
+                         + _proj_flops(cfg, b, q=False))
+    if arch == "zamba2-7b":
+        return 15 * one["roofline"]["flops"] - 15 * k2
+    raise KeyError(arch)
+
+
+MESH_CELLS = [("qwen2-0.5b", "train_4k", "h100_16x16", "tp"),
+              ("paper-qwen3-30b-a3b", "train_4k", "h100_16x16", "fsdp_tp"),
+              ("zamba2-7b", "long_500k", "h100_16x16", "long"),
+              ("arctic-480b", "decode_32k", "h100_2x16x16", "fsdp_tp")]
+_ONE_CARD = {}
+
+
+def _one_card(arch, shape_name):
+    if (arch, shape_name) not in _ONE_CARD:
+        _ONE_CARD[arch, shape_name] = dryrun.run_cell(arch, shape_name,
+                                                      verbose=False)
+    return _ONE_CARD[arch, shape_name]
+
+
+@pytest.mark.parametrize("arch,shape_name,mesh_name,rules", MESH_CELLS)
+def test_dryrun_cell_on_a_production_mesh(arch, shape_name, mesh_name,
+                                          rules):
+    """Per device: the argument bytes are the sum, over the reference's
+    specs, of each leaf's bytes over its split; the mesh's FLOPs are the
+    one card's plus the products the rules replicate (closed form,
+    1 %)."""
+    res = dryrun.run_mesh_cell(arch, shape_name, mesh_name, verbose=False)
+    json.dumps(res)
+    assert res["status"] == "OK" and res["rules"] == rules
+    assert res["n_chips"] == {"h100_16x16": 256, "h100_2x16x16": 512}[
+        mesh_name]
+    assert res["host_optim"] == (arch in dryrun.HOST_OPTIM
+                                 and SHAPES[shape_name].kind == "train")
+    assert res["memory"]["argument_bytes"] == _ref_argument_bytes(
+        arch, shape_name, mesh_name, rules)
+    one = _one_card(arch, shape_name)
+    r = res["roofline"]
+    assert r["hlo_flops_total"] == pytest.approx(
+        r["hlo_flops_per_device"] * res["n_chips"])
+    assert r["hlo_flops_total"] == pytest.approx(
+        one["roofline"]["flops"] + _replicated_flops(arch, shape_name, one),
+        rel=0.01)
+    assert r["collective_bytes_per_device"] > 0
+    assert r["collective_term_s"] == pytest.approx(
+        r["collective_bytes_per_device"] / mesh.HW["nvlink_bw"])
+    assert r["dominant"] in ("compute", "memory", "collective")
+    one_mesh = _Mesh(_MESHES[mesh_name])
+    assert res["grad_accum"] == jdryrun.default_grad_accum(
+        arch, SHAPES[shape_name], one_mesh)
+    assert dryrun.default_rules_name(arch, SHAPES[shape_name]) == \
+        jdryrun.default_rules_name(arch, SHAPES[shape_name])
+
+
+_CHILD = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding
+from repro.configs import get_config
+from repro.launch import hlo_cost
+from repro.models import sharding as shd
+from repro.models.layers import Ctx
+from repro.models.registry import build_model
+cfg = get_config("qwen2-0.5b").replace(**json.loads(sys.argv[1]))
+jm = build_model(cfg)
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+rules = shd.named_rules("tp")
+ctx = Ctx(mesh, rules)
+params = jm.abstract_params()
+pshd = shd.tree_shardings(jm.logical_axes(), mesh, rules, params)
+tshd = NamedSharding(mesh, shd.resolve(("batch", "seq"), mesh, rules, (4, 64)))
+fn = jax.jit(lambda p, t: jm.forward(p, {"tokens": t}, ctx)[0],
+             in_shardings=(pshd, tshd))
+with mesh:
+    compiled = fn.lower(params, jax.ShapeDtypeStruct((4, 64), jnp.int32)
+                        ).compile()
+print(json.dumps(hlo_cost.analyze(compiled.as_text())))
+"""
+
+
+def test_reduced_forward_per_device_flops_match_the_reference_on_4_devices():
+    """The reference compiles a reduced qwen2 forward (B = 4, S = 64) on a
+    (2, 2) mesh of four forced host devices in a child process; its
+    per-device HLO FLOPs equal the port's per-device count on a (2, 2)
+    ``meta`` mesh within 1 %, once K1's causal half is put back (as
+    :func:`test_reduced_forward_flops_match_the_reference_hlo_cost`).
+    Both sides' collective bytes are printed, not held: GSPMD chooses its
+    own collectives."""
+    import dataclasses as dc
+    import subprocess
+    import sys
+    cfg = reduced_config("qwen2-0.5b")
+    full = get_config("qwen2-0.5b")
+    overrides = {f.name: getattr(cfg, f.name) for f in dc.fields(cfg)
+                 if getattr(cfg, f.name) != getattr(full, f.name)}
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", _CHILD,
+                           json.dumps(overrides)], env=env, timeout=300,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import make_ctx
+    model = build_model(cfg)
+    m = Mesh(np.full((2, 2), torch.device("meta"), dtype=object),
+             ("data", "model"))
+    ctx = make_ctx(m, "tp")
+    params = shd.device_put(model.abstract_params(), shd.tree_shardings(
+        model.logical_axes(), m, ctx.rules, model.param_specs()))
+    b, s = 4, 64
+    with torch.no_grad():
+        got = hlo_cost.analyze(model.forward, params,
+                               {"tokens": _meta(b, s, dtype=torch.int32)},
+                               ctx=ctx)
+    every_pair = cfg.num_layers * 4 * b * cfg.num_heads \
+        * cfg.resolved_head_dim * s * s
+    k1 = got["kernels"]["flash_attention"]["flops"]
+    per_device = (got["flops"] - k1 + every_pair) / 4
+    assert per_device == pytest.approx(ref["flops"], rel=0.01)
+    print(f"reduced qwen2 forward on (2, 2): collective bytes a device: "
+          f"port {got['collective_bytes'] / 4:.0f} "
+          f"{ {k: v['bytes'] / 4 for k, v in got['collectives'].items()} }, "
+          f"reference {ref['collective_bytes']:.0f}")

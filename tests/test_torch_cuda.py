@@ -108,6 +108,34 @@ def test_decode_attention_kernel_matches_plain(dev, b, t, h, kh, d, pos,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kh,d,pos", [
+    (1, 4096, 16, 16, 112, 4095), (1, 4096, 16, 16, 112, 1903),
+    (1, 4096, 16, 16, 112, -1),       # a block past the position
+    (8, 192, 7, 1, 64, 191), (2, 256, 8, 2, 64, 0),
+])
+def test_decode_attention_lse_matches_plain(dev, b, t, h, kh, d, pos, dtype):
+    """K2's log-sum-exp output (the context-parallel decode's combine
+    weight) against the plain version's: the output within the dtype's
+    tolerance, the f32 lse within 1e-2; -inf and zeros where no key is
+    live."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _randn(gen, (b, h, d), dtype, dev)
+    kc = _randn(gen, (b, t, kh, d), dtype, dev)
+    vc = _randn(gen, (b, t, kh, d), dtype, dev)
+    out, lse = ops.decode_attention(q, kc, vc, pos, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = ref.ref_decode_attention(q, kc, vc, pos,
+                                              return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    if pos < 0:
+        assert torch.all(lse == float("-inf")) and torch.all(out == 0)
+        return
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+    assert torch.equal(out, ops.decode_attention(q, kc, vc, pos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("g", [1, 4, 7, 8, 16])
 def test_decode_attention_at_split_edges(dev, g, d, dtype):
